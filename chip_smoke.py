@@ -1,0 +1,691 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port of DSCEP on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases (each prints its lines; any failure exits non-zero):
+
+1. **Build** every CUDA source under ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` (one process per source, all started together) and print the
+   card's name and power limit.
+2. **Kernels against their plain versions, on the card**: the scan join,
+   the probe join, the closure squaring step and the fused descendants
+   step, each held byte for byte (tolerance 0: the outputs are integer ids
+   and 0/1 matrices) against its plain PyTorch version on the same inputs,
+   at the main path's shapes plus edge cases; each timed with CUDA events
+   beside its plain version, its bound and, where one exists, one PyTorch
+   library call computing the same function.
+3. **The main path at full scale**: the paper's queries (Q15, Q16, CQuery1,
+   artist_classes) registered through ``Session`` in ``monolithic`` and
+   ``single_program`` mode under ``kb_method`` scan, probe and auto, over a
+   ~0.86 M-triple KB and 8 stream chunks of 1000-triple windows.  Launch
+   counters are zeroed just before and read just after; every kernel must
+   have launched.  ``monolithic`` must equal ``single_program`` byte for
+   byte with zero overflow, and the GPU run must equal a CPU run of the
+   port (plain versions) where the CPU can hold it.  Each configuration
+   runs one warm-up chunk, then the 8 chunks ``REPEATS`` times (each pass
+   must give the same bytes); chunks/s is the median pass, with the
+   spread.
+4. **Where the time goes**: a ``torch.profiler`` window over two chunks of
+   CQuery1 (monolithic scan, monolithic auto, single_program auto): device
+   time by kernel and by PyTorch operator, and the device's idle share.
+
+The last two lines are a JSON object with one entry per kernel and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
+package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_CORE_OPS_PER_S = 67e12       # float32 outside the tensor cores
+
+# the world (the paper's KB and stream at deployment size): ~0.86 M KB
+# triples, close to the most distinct terms the 20-bit term band admits,
+# and the first ~sixth of the paper's 60 k-tweet stream
+ARTISTS = 100_000
+FILLER = 600_000
+TWEETS = 11_000
+CHUNK = 7936           # 8 windows of 1000 always hold it: a graph has <= 7 triples
+CHUNKS = 8
+MAX_WINDOWS = 8
+CAPS = dict(bind_cap=4096, scan_cap=1024, out_cap=4096,
+            intermediate_cap=2048, out_stream_cap=32768)
+LIVE_ROWS = 425        # valid binding rows per window in phase 2's joins
+REPEATS = 3            # timed passes over the stream per configuration
+
+QUERIES = ("q15", "q16", "cquery1", "artist_classes")
+MODES = ("monolithic", "single_program")
+METHODS = ("scan", "probe", "auto")
+
+# the __global__ function each kernel wrapper launches (profiler names)
+KERNEL_SYMBOLS = {"join_compact": "scan_join_kernel",
+                  "probe_compact": "probe_join_kernel",
+                  "closure_step": "bool_matmul_kernel",
+                  "descendants": "descendants_kernel"}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    log("FAIL: " + msg)
+    sys.exit(1)
+
+
+def smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        fail("nvidia-smi failed: %s" % res.stderr.strip())
+    return res.stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_times(prof) -> dict:
+    """Device microseconds by kernel name, from kernel events only (an
+    operator's self device time repeats the time of its kernels)."""
+    from torch.autograd import DeviceType
+
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
+    return dev
+
+
+def launch_ms(fn, symbol: str, iters: int = 10):
+    """Mean device milliseconds per ``fn()`` of the kernels whose name holds
+    ``symbol`` (``torch.profiler``): the launches alone, without what the
+    wrapper does around them.  None when the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    us = sum(t for k, t in device_times(prof).items() if symbol in k)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over matching tensors; inf on any shape mismatch."""
+    err = 0.0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            return math.inf
+        if x.numel():
+            err = max(err, float((x.double() - y.double()).abs().max()))
+    return err
+
+
+# --------------------------------------------------------------------------
+# the world: the paper's KB and stream at deployment size
+# --------------------------------------------------------------------------
+
+def make_world():
+    from repro_torch.core.rdf import Vocab
+    from repro_torch.data.dbpedia import KBConfig, generate_kb
+    from repro_torch.data.tweets import (
+        TweetSchema, TweetStreamConfig, generate_tweets, stream_chunks)
+
+    t0 = time.time()
+    vocab = Vocab()
+    kbd = generate_kb(vocab, KBConfig(
+        num_artist_classes=240, num_show_classes=60,
+        num_artists=ARTISTS, num_shows=ARTISTS // 2,
+        num_places=10_000, num_countries=200, filler_triples=FILLER,
+        seed=0), device="cuda")
+    tweets = TweetSchema.create(vocab)
+    pool = np.concatenate([kbd.artist_ids, kbd.show_ids])
+    rows = generate_tweets(vocab, tweets, pool, TweetStreamConfig(
+        num_tweets=TWEETS, mentions_min=2, mentions_max=3, seed=0))
+    chunks = list(stream_chunks(rows, CHUNK))[:CHUNKS]
+    sync()
+    log("world: KB %d rows, %d terms, %d stream chunks of capacity %d "
+        "(%d triples), generated in %.1f s"
+        % (int(kbd.kb.count()), vocab.num_terms, len(chunks), CHUNK,
+           sum(int(c.count()) for c in chunks), time.time() - t0))
+    return vocab, kbd, tweets, chunks
+
+
+# --------------------------------------------------------------------------
+# phase 2: every kernel against its plain version on the card
+# --------------------------------------------------------------------------
+
+class KernelRecord:
+    """One kernel's phase-2 numbers.  ``ms`` times the wrapper, the function
+    the main path calls (argument conversion, zero-fills and scans
+    included); ``launch_ms`` times its kernel launches alone."""
+
+    def __init__(self, name, source, replaces):
+        self.name, self.source, self.replaces = name, source, replaces
+        self.symbol = KERNEL_SYMBOLS[name]
+        self.err = 0.0
+        self.ms = self.launch_ms = self.plain_ms = self.bound_ms = None
+        self.bound_by = None
+        self.library_ms = None
+        self.cases = 0
+
+    def row(self, launches):
+        return {"name": self.name, "route": "cuda", "source": self.source,
+                "replaces": self.replaces, "launches": launches,
+                "max_abs_err": self.err, "ms": self.ms,
+                "launch_ms": self.launch_ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": self.bound_by, "library_ms": self.library_ms}
+
+
+def _bound(nbytes: float, ops: float):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_CORE_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _bindings(w, m, nv, live, values, rng):
+    """Bindings with ``live`` valid rows per window (compacted to the
+    front), column 0 drawn from ``values``, the rest random ids."""
+    from repro_torch.core.pattern import Bindings
+
+    cols = np.zeros((w, m, nv), np.int64)
+    valid = np.zeros((w, m), bool)
+    for i in range(w):
+        cols[i, :live, 0] = rng.choice(values, size=live)
+        cols[i, :live, 1:] = rng.integers(1, 1 << 20, size=(live, nv - 1))
+        valid[i, :live] = True
+    return Bindings(torch.from_numpy(cols).cuda(),
+                    torch.from_numpy(valid).cuda(),
+                    torch.zeros((w,), dtype=torch.bool, device="cuda"))
+
+
+def _same_bindings(a, b):
+    return max_abs_err((a.cols, a.valid.long(), a.overflow.long()),
+                       (b.cols, b.valid.long(), b.overflow.long()))
+
+
+def _collide(t1: int) -> int:
+    """A numeric-literal id whose composite key equals ``t1``'s."""
+    mask = (1 << 20) - 1
+    hi1 = t1 >> 20
+    low2 = (t1 & mask) ^ (hi1 & mask) ^ ((hi1 + 1) & mask)
+    return ((hi1 + 1) << 20) | low2
+
+
+def phase_kernels(vocab, kbd):
+    from repro_torch.core.kb import kb_from_triples, probe_view
+    from repro_torch.core.pattern import CompiledPattern, Slot
+    from repro_torch.core.rdf import NUM_BASE, composite_key
+    from repro_torch.core.reasoner import (
+        adjacency_from_edges, build_class_index, subclass_edges)
+    from repro_torch.kernels.closure import ops as cl_ops
+    from repro_torch.kernels.closure import ref as cl_ref
+    from repro_torch.kernels.hash_join import ops as hj_ops
+
+    rng = np.random.default_rng(0)
+    sch = kbd.schema
+    kb = kbd.kb
+    n_kb = kb.capacity
+    pool = np.concatenate([kbd.artist_ids, kbd.show_ids]).astype(np.int64)
+    w, m, nv, live = MAX_WINDOWS, CAPS["bind_cap"], 4, LIVE_ROWS
+    recs = {
+        "join_compact": KernelRecord(
+            "join_compact", "src/repro_torch/kernels/csrc/hash_join.cu",
+            "src/repro/kernels/hash_join/kernel.py:339"),
+        "probe_compact": KernelRecord(
+            "probe_compact", "src/repro_torch/kernels/csrc/hash_join.cu",
+            "src/repro/kernels/hash_join/kernel.py:285"),
+        "closure_step": KernelRecord(
+            "closure_step", "src/repro_torch/kernels/csrc/closure.cu",
+            "src/repro/kernels/closure/kernel.py:105"),
+        "descendants": KernelRecord(
+            "descendants", "src/repro_torch/kernels/csrc/closure.cu",
+            "src/repro/kernels/closure/kernel.py:70"),
+    }
+
+    def timed(name, fn, plain, library=None, plain_iters=10):
+        rec = recs[name]
+        rec.ms = cuda_ms(fn)
+        rec.launch_ms = launch_ms(fn, rec.symbol)
+        rec.plain_ms = cuda_ms(plain, iters=plain_iters)
+        if library is not None:
+            rec.library_ms = cuda_ms(library)
+
+    def check(name, tag, got, want):
+        err = _same_bindings(got, want) if hasattr(got, "cols") else \
+            max_abs_err(got, want)
+        rec = recs[name]
+        rec.err = max(rec.err, err)
+        rec.cases += 1
+        log("  %-13s %-44s max_abs_err=%g" % (name, tag, err))
+        if err != 0.0:
+            fail("%s disagrees with its plain version on %s" % (name, tag))
+
+    # ?ent rdf:type ?cls — the subclass-reasoning join of Q15/CQuery1
+    pat_type = CompiledPattern(Slot.bound(0), Slot.const_(sch.rdf_type),
+                               Slot.free(1))
+    bind = _bindings(w, m, nv, live, pool, rng)
+    out_cap = CAPS["bind_cap"]
+
+    # -- scan join at the monolithic shape: bind_cap x full KB
+    got = hj_ops.join_compact(bind, kb, pat_type, out_cap)
+    check("join_compact", "W=%d M=%d N=%d (main-path shape)" % (w, m, n_kb),
+          got, hj_ops.join_compact_torch(bind, kb, pat_type, out_cap))
+    timed("join_compact",
+          lambda: hj_ops.join_compact(bind, kb, pat_type, out_cap),
+          lambda: hj_ops.join_compact_torch(bind, kb, pat_type, out_cap),
+          plain_iters=3)
+    rec = recs["join_compact"]
+    live_rows = int(bind.valid.sum())
+    nbytes = (w * m * (nv * 4 + 1) + n_kb * 13
+              + w * out_cap * nv * 4 + w * m * 4)
+    rec.bound_ms, rec.bound_by = _bound(nbytes, 3.0 * live_rows * n_kb)
+
+    # -- probe join at the same shape (fan-out of rdf:type by subject: 1)
+    got = hj_ops.probe_compact(bind, kb, pat_type, out_cap, 8)
+    check("probe_compact", "W=%d M=%d N=%d k_max=8 (main-path shape)"
+          % (w, m, n_kb), got,
+          hj_ops.probe_compact_torch(bind, kb, pat_type, out_cap, 8))
+    timed("probe_compact",
+          lambda: hj_ops.probe_compact(bind, kb, pat_type, out_cap, 8),
+          lambda: hj_ops.probe_compact_torch(bind, kb, pat_type, out_cap, 8))
+    rec = recs["probe_compact"]
+    steps = math.ceil(math.log2(n_kb + 1)) + 1
+    matched = int(got.valid.sum())
+    nbytes = (w * m * (nv * 4 + 1) + live_rows * 2 * steps * 4
+              + matched * 12 + w * out_cap * nv * 4 + w * m * 8)
+    rec.bound_ms, rec.bound_by = _bound(
+        nbytes, live_rows * (2 * steps + 3 * 8))
+
+    # -- edge cases
+    small = 64
+    check("join_compact", "past out_cap (out_cap=%d)" % small,
+          hj_ops.join_compact(bind, kb, pat_type, small),
+          hj_ops.join_compact_torch(bind, kb, pat_type, small))
+    check("probe_compact", "past out_cap (out_cap=%d)" % small,
+          hj_ops.probe_compact(bind, kb, pat_type, small, 8),
+          hj_ops.probe_compact_torch(bind, kb, pat_type, small, 8))
+    empty = bind._replace(valid=torch.zeros_like(bind.valid))
+    check("join_compact", "empty binding table",
+          hj_ops.join_compact(empty, kb, pat_type, out_cap),
+          hj_ops.join_compact_torch(empty, kb, pat_type, out_cap))
+    check("probe_compact", "empty binding table",
+          hj_ops.probe_compact(empty, kb, pat_type, out_cap, 8),
+          hj_ops.probe_compact_torch(empty, kb, pat_type, out_cap, 8))
+
+    # non-tile sizes: W=3, M=1000, a 5003-row KB slice, a repeated variable
+    rows = kbd.rows[rng.choice(len(kbd.rows), size=5000, replace=False)]
+    loops = np.stack([pool[:3], np.full(3, sch.same_as), pool[:3]], axis=1)
+    kb_small = kb_from_triples(np.concatenate([rows, loops]), device="cuda")
+    b_small = _bindings(3, 1000, 3, 377, rows[:, 0].astype(np.int64), rng)
+    pat_rep = CompiledPattern(Slot.free(1), Slot.const_(sch.same_as),
+                              Slot.free(1))
+    check("join_compact", "W=3 M=1000 N=5003, ?x p ?x",
+          hj_ops.join_compact(b_small, kb_small, pat_rep, 512),
+          hj_ops.join_compact_torch(b_small, kb_small, pat_rep, 512))
+    pat_any = CompiledPattern(Slot.bound(0), Slot.free(1), Slot.free(2))
+    check("join_compact", "W=3 M=1000 N=5003, variable predicate",
+          hj_ops.join_compact(b_small, kb_small, pat_any, 700),
+          hj_ops.join_compact_torch(b_small, kb_small, pat_any, 700))
+
+    # fan-out past k_max: filler subjects each hold ~N/997 objects
+    filler_p = vocab.pred("filler:pred")
+    fill_subj = np.asarray([vocab.term("filler:s%d" % i) for i in range(50)])
+    b_fan = _bindings(w, m, nv, 200, fill_subj, rng)
+    pat_fan = CompiledPattern(Slot.bound(0), Slot.const_(filler_p),
+                              Slot.free(1))
+    got = hj_ops.probe_compact(b_fan, kb, pat_fan, out_cap, 16)
+    if not bool(got.overflow.all()):
+        fail("probe fan-out past k_max did not raise the overflow flag")
+    check("probe_compact", "fan-out > k_max=16", got,
+          hj_ops.probe_compact_torch(b_fan, kb, pat_fan, out_cap, 16))
+
+    # duplicate keys and composite-key collisions of numeric literals
+    base = NUM_BASE + (1 << 29) + 12345
+    nums = [base + 7 * i for i in range(40)]
+    coll = [_collide(t) for t in nums]
+    assert all(int(composite_key(5, a)) == int(composite_key(5, b))
+               for a, b in zip(nums, coll))
+    trip = [(int(pool[i % 97]), 5, t) for i, t in enumerate(nums + coll)]
+    trip += [(int(pool[(i + 3) % 97]), 5, t) for i, t in enumerate(nums)]
+    kb_coll = kb_from_triples(np.asarray(trip, np.uint32), device="cuda")
+    b_coll = _bindings(2, 300, 3, 250, np.asarray(nums + coll, np.int64), rng)
+    pat_coll = CompiledPattern(Slot.free(1), Slot.const_(5), Slot.bound(0))
+    keys, _, _, anchor_is_s = probe_view(kb_coll, pat_coll)
+    assert not anchor_is_s
+    check("probe_compact", "duplicate keys + composite collisions",
+          hj_ops.probe_compact(b_coll, kb_coll, pat_coll, 1024, 8),
+          hj_ops.probe_compact_torch(b_coll, kb_coll, pat_coll, 1024, 8))
+    check("join_compact", "numeric literals, object bound",
+          hj_ops.join_compact(b_coll, kb_coll, pat_coll, 1024),
+          hj_ops.join_compact_torch(b_coll, kb_coll, pat_coll, 1024))
+
+    # -- closure kernels on the world's class hierarchy
+    edges = subclass_edges(kb, sch.subclass_of)
+    idx, ids = build_class_index(edges)
+    adj = adjacency_from_edges(edges, idx)
+    reach = cl_ops._reach(adj, 128, "cuda")
+    n = reach.shape[0]
+    log("  class hierarchy: %d classes, reach matrix %d x %d" % (len(ids), n, n))
+    r = reach
+    for step in range(cl_ops._steps(len(ids), None) - 1):
+        nxt = cl_ops.closure_step(r)
+        check("closure_step", "hierarchy n=%d, squaring %d" % (n, step + 1),
+              (nxt,), (cl_ref.closure_step_ref(r),))
+        r = nxt
+    timed("closure_step", lambda: cl_ops.closure_step(reach),
+          lambda: cl_ref.closure_step_ref(reach),
+          lambda: torch.clamp_max(torch.matmul(reach, reach), 1.0))
+    rec = recs["closure_step"]
+    rec.bound_ms, rec.bound_by = _bound(2 * n * n * 4, 2.0 * n ** 3)
+
+    root = idx[sch.musical_artist]
+    rootcol = r[:, root].contiguous()
+    got = cl_ops.descendants_step(r, rootcol, len(ids))
+    check("descendants", "hierarchy n=%d, root MusicalArtist" % n, got,
+          cl_ref.descendants_step_ref(r, rootcol, len(ids)))
+    timed("descendants", lambda: cl_ops.descendants_step(r, rootcol, len(ids)),
+          lambda: cl_ref.descendants_step_ref(r, rootcol, len(ids)),
+          lambda: torch.nonzero(
+              torch.clamp_max(torch.mv(r, rootcol), 1.0) > 0.5))
+    rec = recs["descendants"]
+    rec.bound_ms, rec.bound_by = _bound(n * n * 4 + n * 4 + len(ids) * 4 + 4,
+                                        2.0 * n * n)
+    check("descendants", "count past out_cap (out_cap=50)",
+          cl_ops.descendants_step(r, rootcol, 50),
+          cl_ref.descendants_step_ref(r, rootcol, 50))
+    rand = (torch.rand((640, 640), device="cuda") < 0.01).float()
+    rand = torch.clamp_max(rand + torch.eye(640, device="cuda"), 1.0)
+    check("closure_step", "random n=640", (cl_ops.closure_step(rand),),
+          (cl_ref.closure_step_ref(rand),))
+    rnd = (torch.rand((700, 700), device="cuda") < 0.02).float()
+    col = rnd[:, 3].contiguous()
+    check("descendants", "random n=700",
+          cl_ops.descendants_step(rnd, col, 700),
+          cl_ref.descendants_step_ref(rnd, col, 700))
+    sync()
+    return recs
+
+
+# --------------------------------------------------------------------------
+# phase 3: the main path
+# --------------------------------------------------------------------------
+
+def query_texts():
+    from repro_torch.core import paper_queries as PQ
+
+    texts = dict(PQ.RQ_TEXTS)
+    with open(os.path.join(REPO, "examples", "queries",
+                           "artist_classes.rq")) as f:
+        texts["artist_classes"] = f.read()
+    return texts
+
+
+def exec_config(mode, method, device):
+    from repro_torch.core.session import ExecutionConfig
+
+    return ExecutionConfig(mode=mode, kb_method=method, device=device,
+                           window_capacity=1000, max_windows=MAX_WINDOWS,
+                           **CAPS)
+
+
+def _launch_delta(before):
+    from repro_torch.kernels import _cuda
+
+    return {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}
+
+
+def same_outputs(a, b) -> bool:
+    return len(a) == len(b) and all(
+        all(torch.equal(x, y) for x, y in zip(oa, ob)) for oa, ob in zip(a, b))
+
+
+def run_session(vocab, kb, chunks, text, cfg, repeats=1):
+    """Register (plan time) and run the stream.  With ``repeats > 1`` one
+    warm-up chunk runs first, then the stream ``repeats`` times, each pass
+    timed and held to the first's bytes.  Returns a dict: outputs on the
+    host, overflow totals, plan seconds, run seconds per pass, and the
+    kernel launches of the registration and of one pass."""
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import _cuda
+
+    # one vocab for every session: a query interns the same names whichever
+    # session registers it first, so outputs stay comparable
+    sess = Session(cfg, vocab=vocab, kb=kb)
+    sync()
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    reg = sess.register(text)
+    sync()
+    plan_s = time.perf_counter() - t0
+    plan_launches = _launch_delta(before)
+    if repeats > 1:
+        reg.run(chunks[:1])
+        sync()
+    outs = overflow = run_launches = None
+    run_s = []
+    for _ in range(repeats):
+        before = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        got, ovf = reg.run(chunks)
+        sync()
+        run_s.append(time.perf_counter() - t0)
+        if outs is None:
+            outs, overflow, run_launches = got, ovf, _launch_delta(before)
+        elif not same_outputs(got, outs) or ovf != overflow:
+            fail("a repeated pass over the stream gave other bytes (%s)"
+                 % cfg.mode)
+    return {"outs": [tuple(c.cpu() for c in o) for o in outs],
+            "overflow": overflow, "plan_s": plan_s, "run_s": run_s,
+            "plan_launches": plan_launches, "run_launches": run_launches,
+            "reg": reg}
+
+
+def _short(launches) -> str:
+    return ",".join("%s=%d" % (k, v) for k, v in launches.items() if v) or "none"
+
+
+def phase_main(vocab, kbd, chunks, smi):
+    from repro_torch.core.stream import merge_streams
+    from repro_torch.core.window import count_windows
+    from repro_torch.kernels import _cuda
+
+    texts = query_texts()
+    gpu_chunks = [c.to("cuda") for c in chunks]
+    log("phase 3: caps %s, window 1000 triples x %d windows, %d chunks, "
+        "1 warm-up chunk + %d timed passes per configuration"
+        % (" ".join("%s=%d" % kv for kv in CAPS.items()), MAX_WINDOWS,
+           len(chunks), REPEATS))
+    results = {}
+    _cuda.reset_launches()
+    for q in QUERIES:
+        for method in METHODS:
+            for mode in MODES:
+                res = run_session(vocab, kbd.kb, gpu_chunks, texts[q],
+                                  exec_config(mode, method, "cuda"), REPEATS)
+                outs, ovf = res["outs"], res["overflow"]
+                results[(q, mode, method)] = outs
+                n_out = sum(int(o[5].sum()) for o in outs)
+                rates = sorted(len(outs) / t for t in res["run_s"])
+                log("  %-14s %-14s %-5s plan %.3f s, %d chunks: %.2f chunks/s "
+                    "median of %d passes (%.2f-%.2f), %d output triples, "
+                    "overflow %s, launches plan {%s} pass {%s} [%s]"
+                    % (q, mode, method, res["plan_s"], len(outs),
+                       rates[len(rates) // 2], len(rates), rates[0], rates[-1],
+                       n_out, ovf, _short(res["plan_launches"]),
+                       _short(res["run_launches"]), smi))
+                if any(ovf.values()):
+                    fail("overflow in %s %s %s: %s" % (q, mode, method, ovf))
+                if n_out == 0:
+                    fail("empty output stream for %s %s %s" % (q, mode, method))
+            if not same_outputs(results[(q, "monolithic", method)],
+                                results[(q, "single_program", method)]):
+                fail("monolithic != single_program for %s %s" % (q, method))
+            log("  %-14s %-5s monolithic == single_program byte for byte"
+                % (q, method))
+    sync()
+    launches = dict(_cuda.LAUNCHES)
+    log("phase 3 launches: %s" % json.dumps(launches))
+    for name, count in launches.items():
+        if count <= 0:
+            fail("kernel %s never launched on the main path" % name)
+
+    # host-side window packing of one merged chunk (host clock, synced)
+    merged = [merge_streams([c]) for c in gpu_chunks]
+    sync()
+    t0 = time.perf_counter()
+    for mg in merged:
+        count_windows(mg, 1000, MAX_WINDOWS)
+    sync()
+    log("window packing (host numpy + gather): %.3f ms per chunk [%s]"
+        % ((time.perf_counter() - t0) * 1e3 / len(merged), smi))
+
+    # the GPU run equals a CPU run of the port (plain versions)
+    kb_cpu = kbd.kb.to("cpu")
+    combos = [(q, mode, method) for q in QUERIES for mode in MODES
+              for method in ("probe", "auto")]
+    combos += [(q, "single_program", "scan") for q in QUERIES]
+    for q, mode, method in combos:
+        res = run_session(vocab, kb_cpu, chunks, texts[q],
+                          exec_config(mode, method, "cpu"))
+        if not same_outputs(res["outs"], results[(q, mode, method)]):
+            fail("GPU != CPU for %s %s %s" % (q, mode, method))
+        log("  %-14s %-14s %-5s GPU == CPU on %d chunks (CPU %.1f s)"
+            % (q, mode, method, len(res["outs"]), res["run_s"][0]))
+    return launches
+
+
+def phase_profile(vocab, kbd, chunks, smi):
+    """Where the time goes: a torch.profiler window over two chunks of
+    CQuery1 per configuration — device time by kernel and by PyTorch
+    operator, the four ported kernels' share, and the device's idle share
+    of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    texts = query_texts()
+    gpu_chunks = [c.to("cuda") for c in chunks[:3]]
+    for q, mode, method in (("cquery1", "monolithic", "scan"),
+                            ("cquery1", "monolithic", "auto"),
+                            ("cquery1", "single_program", "auto")):
+        reg = run_session(vocab, kbd.kb, gpu_chunks[:1], texts[q],
+                          exec_config(mode, method, "cuda"))["reg"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync()
+            t0 = time.perf_counter()
+            reg.run(gpu_chunks[1:3])
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = device_times(prof)
+        busy = sum(dev.values())
+        if busy <= 0:
+            log("  profile %s %s %s: no device time recorded (not measured)"
+                % (q, mode, method))
+            continue
+        ours = {k: sum(t for key, t in dev.items() if sym in key)
+                for k, sym in KERNEL_SYMBOLS.items()}
+        log("  profile %s %s %s, 2 chunks: wall %.1f ms, device busy %.1f ms "
+            "(idle share %.3f), ported kernels %.2f ms (%s) [%s]"
+            % (q, mode, method, wall_us / 1e3, busy / 1e3,
+               max(0.0, 1 - busy / wall_us), sum(ours.values()) / 1e3,
+               ", ".join("%s %.2f ms" % (k, v / 1e3) for k, v in ours.items()
+                         if v), smi))
+        log("    by kernel:")
+        for key, t in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+            log("    %8.2f ms  %s" % (t / 1e3, key[:120]))
+        # an operator's device time includes that of the operators it calls
+        ops = [(e.device_time_total, e.count, e.key) for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+               and e.device_time_total > 0]
+        log("    by PyTorch operator (inclusive device time, calls):")
+        for t, n, key in sorted(ops, reverse=True)[:8]:
+            log("    %8.2f ms  %5d  %s" % (t / 1e3, n, key))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    src = os.path.join(REPO, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print("chip_smoke: %s holds no repro_torch package" % src,
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    t_start = time.time()
+    from repro_torch.kernels import _cuda
+
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log("card: %s | torch %s, CUDA %s, %s" % (
+        smi, torch.__version__, torch.version.cuda, kind))
+    t0 = time.time()
+    paths = _cuda.build_all()
+    log("phase 1 build: %d sources in %.1f s -> %s" % (
+        len(paths), time.time() - t0, ", ".join(str(v) for v in paths.values())))
+    for name, text in _cuda.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "error" in line:
+                log("  ptxas %s: %s" % (name, line.strip()))
+
+    vocab, kbd, _, chunks = make_world()
+
+    log("phase 2: kernels against their plain versions (tolerance 0)")
+    recs = phase_kernels(vocab, kbd)
+    for rec in recs.values():
+        log("  %-13s %d cases exact; wrapper %.4f ms, launches alone %s, "
+            "plain %.4f ms, library %s, bound %.5f ms (%s) [%s]" % (
+                rec.name, rec.cases, rec.ms,
+                "%.4f ms" % rec.launch_ms if rec.launch_ms is not None
+                else "not measured", rec.plain_ms,
+                "%.4f ms" % rec.library_ms if rec.library_ms is not None
+                else "none", rec.bound_ms, rec.bound_by, smi))
+
+    launches = phase_main(vocab, kbd, chunks, smi)
+    log("phase 4: where the time goes (torch.profiler)")
+    phase_profile(vocab, kbd, chunks, smi)
+    log("total %.1f s" % (time.time() - t_start))
+    log(smi)
+    print(json.dumps({"kernels": [recs[k].row(launches[k]) for k in recs]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

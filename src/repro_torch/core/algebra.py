@@ -1,0 +1,308 @@
+"""Vectorized relational algebra over triple windows and KB partitions.
+
+Every SPARQL feature the paper's evaluation uses has a static-shape operator
+here, batched over the window dimension ``W`` (binding tables are ``[W, cap,
+nv]``, windows ``[W, C]``):
+
+* basic graph patterns      -> ``scan_pattern`` + ``join``
+* KB access (two methods)   -> ``kb_join`` (``"scan"`` | ``"probe"``), always
+                               the fused join kernels of
+                               :mod:`repro_torch.kernels.hash_join`
+* FILTER                    -> ``filter_num`` / ``filter_bool`` / ``filter_in``
+                               / ``filter_bound``
+* UNION / OPTIONAL          -> ``union`` / ``optional_join``
+* CONSTRUCT                 -> ``construct``
+
+Everything is deterministic and order-preserving, and ``canonical_order``
+makes the published row order a function of the result set, so decomposed
+and monolithic executions are bit-identical.
+
+Pair joins never build the ``[W, ca, cb, nv]`` merged rows: the ``[W, ca,
+cb]`` match mask is compacted to indices and only the ``out_cap`` winners
+are merged (``compact_index`` + gather), which is bit-identical to
+compacting the materialized rows.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels.hash_join import ops as hj_ops
+from .kb import KnowledgeBase
+from .pattern import (
+    Bindings, CompiledPattern, SlotMode, compact_index, compact_rows,
+    gather_rows,
+)
+from .rdf import ID_DTYPE, NUM_BASE, PAD_ID, ROW_BASE, TripleBatch, lexsort_order
+
+
+# --------------------------------------------------------------------------
+# pattern scan over a window
+# --------------------------------------------------------------------------
+
+def _slot_match(slot, col_vals):
+    if slot.mode == SlotMode.CONST:
+        return col_vals == int(slot.const)
+    return torch.ones_like(col_vals, dtype=torch.bool)
+
+
+def _repeat_pairs(slots):
+    for i in range(3):
+        for j in range(i + 1, 3):
+            if (slots[i].mode != SlotMode.CONST
+                    and slots[j].mode != SlotMode.CONST
+                    and slots[i].var == slots[j].var):
+                yield i, j
+
+
+def scan_pattern(window: TripleBatch, pat: CompiledPattern, num_vars: int,
+                 out_cap: int) -> Bindings:
+    """Match one triple pattern against every window ``[W, C]``."""
+    cols = (window.s, window.p, window.o)
+    slots = (pat.s, pat.p, pat.o)
+    m = window.valid
+    for i, slot in enumerate(slots):
+        m = m & _slot_match(slot, cols[i])
+    for i, j in _repeat_pairs(slots):
+        m = m & (cols[i] == cols[j])
+    w, n = window.valid.shape
+    out = torch.zeros((w, n, num_vars), dtype=ID_DTYPE, device=m.device)
+    for i, slot in enumerate(slots):
+        if slot.mode != SlotMode.CONST:
+            out[..., slot.var] = cols[i]
+    rows, valid, overflow = compact_rows(out, m, out_cap)
+    return Bindings(rows, valid, overflow)
+
+
+# --------------------------------------------------------------------------
+# natural join / union / optional
+# --------------------------------------------------------------------------
+
+def _pair_mask(a: Bindings, b: Bindings, shared: Tuple[int, ...]):
+    m = a.valid[:, :, None] & b.valid[:, None, :]
+    for c in shared:
+        m = m & (a.cols[:, :, None, c] == b.cols[:, None, :, c])
+    return m
+
+
+def _merge_pairs(a: Bindings, b: Bindings, src: torch.Tensor) -> torch.Tensor:
+    """Max-merged rows of the flat pair indices ``src [W, k]`` (PAD=0)."""
+    cb = b.capacity
+    return torch.maximum(gather_rows(a.cols, src // cb),
+                         gather_rows(b.cols, src % cb))
+
+
+def join(a: Bindings, b: Bindings, shared: Tuple[int, ...],
+         out_cap: int) -> Bindings:
+    """Natural join on the static shared-variable columns."""
+    w, ca, cb = a.num_windows, a.capacity, b.capacity
+    m = _pair_mask(a, b, shared)
+    src, valid, overflow = compact_index(m.reshape(w, ca * cb), out_cap)
+    rows = _merge_pairs(a, b, src)
+    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    return Bindings(rows, valid, overflow | a.overflow | b.overflow)
+
+
+def union(a: Bindings, b: Bindings, out_cap: int) -> Bindings:
+    rows = torch.cat([a.cols, b.cols], dim=1)
+    mask = torch.cat([a.valid, b.valid], dim=1)
+    out, valid, overflow = compact_rows(rows, mask, out_cap)
+    return Bindings(out, valid, overflow | a.overflow | b.overflow)
+
+
+def optional_join(a: Bindings, b: Bindings, shared: Tuple[int, ...],
+                  out_cap: int) -> Bindings:
+    """SPARQL OPTIONAL: left outer join; unmatched left rows keep PAD."""
+    w, ca, cb = a.num_windows, a.capacity, b.capacity
+    m = _pair_mask(a, b, shared)
+    matched_any = m.any(dim=2)
+    flat = torch.cat([m.reshape(w, ca * cb), a.valid & ~matched_any], dim=1)
+    src, valid, overflow = compact_index(flat, out_cap)
+    is_pair = src < ca * cb
+    pair = _merge_pairs(a, b, torch.where(is_pair, src, torch.zeros_like(src)))
+    left = gather_rows(a.cols, (src - ca * cb).clamp(min=0))
+    rows = torch.where(is_pair[..., None], pair, left)
+    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    return Bindings(rows, valid, overflow | a.overflow | b.overflow)
+
+
+# --------------------------------------------------------------------------
+# KB access — the paper's two measured methods, fused kernels only
+# --------------------------------------------------------------------------
+
+def kb_join(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
+            out_cap: int, method: str = "scan", k_max: int = 8) -> Bindings:
+    """Dispatch one KB join to its access method (resolved at plan time).
+
+    An ineligible probe (variable predicate or no anchored endpoint) falls
+    back to the scan, preserving semantics for hand-built plans.
+    """
+    if method == "probe" and pat.p.mode == SlotMode.CONST and not (
+            pat.s.mode == SlotMode.FREE and pat.o.mode == SlotMode.FREE):
+        return hj_ops.probe_compact(bind, kb, pat, out_cap, k_max)
+    return hj_ops.join_compact(bind, kb, pat, out_cap)
+
+
+# --------------------------------------------------------------------------
+# filters / projection / dedup
+# --------------------------------------------------------------------------
+
+_NUM_OPS = ("lt", "le", "gt", "ge", "eq", "ne")
+
+
+def _num_cmp(bind: Bindings, var: int, op: str, value_id: int):
+    """Shared comparison leaf: ``(true mask, error mask)``.
+
+    Numeric right-hand sides compare fixed-point ids (error: non-numeric
+    binding); term right-hand sides are SPARQL term equality, ``eq``/``ne``
+    only (error: unbound binding).
+    """
+    assert op in _NUM_OPS, op
+    is_term = int(value_id) < NUM_BASE
+    v = bind.cols[..., var]
+    t = int(value_id)
+    if is_term:
+        assert op in ("eq", "ne"), (
+            "term comparisons support only eq/ne, got %r" % op)
+        err = v == PAD_ID
+        cmp = (v == t) if op == "eq" else (v != t)
+        return cmp & ~err, err
+    is_num = v >= NUM_BASE
+    cmp = {"lt": v < t, "le": v <= t, "gt": v > t,
+           "ge": v >= t, "eq": v == t, "ne": v != t}[op]
+    return cmp & is_num, ~is_num
+
+
+def filter_num(bind: Bindings, var: int, op: str, value_id: int) -> Bindings:
+    val, err = _num_cmp(bind, var, op, value_id)
+    return bind._replace(valid=bind.valid & val & ~err)
+
+
+def _bool_eval(bind: Bindings, expr: Tuple):
+    """Compiled boolean filter tree -> ``(true, error)`` row masks under
+    SPARQL three-valued logic (``true & error == 0``)."""
+    kind = expr[0]
+    if kind == "cmp":
+        _, var, op, value_id = expr
+        return _num_cmp(bind, var, op, value_id)
+    if kind == "not":
+        val, err = _bool_eval(bind, expr[1])
+        return ~val & ~err, err
+    vals, errs = zip(*(_bool_eval(bind, a) for a in expr[1:]))
+    any_err = functools.reduce(torch.logical_or, errs)
+    if kind == "and":
+        any_false = functools.reduce(
+            torch.logical_or, (~v & ~e for v, e in zip(vals, errs)))
+        all_true = functools.reduce(torch.logical_and, vals)
+        return all_true & ~any_err, any_err & ~any_false
+    if kind == "or":
+        any_true = functools.reduce(torch.logical_or, vals)
+        return any_true, any_err & ~any_true
+    raise ValueError("unknown filter expr %r" % (expr,))
+
+
+def filter_bool(bind: Bindings, expr: Tuple) -> Bindings:
+    val, err = _bool_eval(bind, expr)
+    return bind._replace(valid=bind.valid & val & ~err)
+
+
+def filter_in(bind: Bindings, var: int, sorted_ids: torch.Tensor) -> Bindings:
+    """Set-membership FILTER (e.g. subclass-closure sets)."""
+    v = bind.cols[..., var].contiguous()
+    pos = torch.searchsorted(sorted_ids, v)
+    pos = pos.clamp(max=sorted_ids.shape[0] - 1)
+    member = sorted_ids[pos] == v
+    return bind._replace(valid=bind.valid & member)
+
+
+def filter_bound(bind: Bindings, var: int) -> Bindings:
+    return bind._replace(valid=bind.valid & (bind.cols[..., var] != PAD_ID))
+
+
+def project(bind: Bindings, keep: Tuple[int, ...]) -> Bindings:
+    mask = torch.zeros((bind.num_vars,), dtype=torch.bool,
+                       device=bind.cols.device)
+    mask[list(keep)] = True
+    return bind._replace(
+        cols=torch.where(mask, bind.cols, torch.zeros_like(bind.cols)))
+
+
+def _take_rows(bind: Bindings, order: torch.Tensor) -> Bindings:
+    return Bindings(gather_rows(bind.cols, order),
+                    torch.gather(bind.valid, 1, order), bind.overflow)
+
+
+def canonical_order(bind: Bindings, sig_cols: Tuple[int, ...]) -> Bindings:
+    """Sort valid rows lexicographically by ``sig_cols`` (invalid last),
+    most significant first; ties keep their order (stable)."""
+    keys = tuple(bind.cols[..., c] for c in reversed(sig_cols))
+    inv = (~bind.valid).to(ID_DTYPE)
+    return _take_rows(bind, lexsort_order(keys + (inv,)))
+
+
+def distinct(bind: Bindings, out_cap: Optional[int] = None) -> Bindings:
+    """Deduplicate valid rows (order of first occurrence preserved)."""
+    out_cap = out_cap or bind.capacity
+    nv = bind.num_vars
+    keys = [bind.cols[..., c] for c in range(nv - 1, -1, -1)]
+    inv = (~bind.valid).to(ID_DTYPE)
+    order = lexsort_order(tuple(keys) + (inv,))
+    srt = _take_rows(bind, order)
+    prev = torch.cat([torch.zeros_like(srt.cols[:, :1]), srt.cols[:, :-1]],
+                     dim=1)
+    is_new = torch.any(srt.cols != prev, dim=2)
+    is_new[:, 0] = True
+    keep = srt.valid & is_new
+    keep_orig = torch.zeros_like(keep).scatter_(1, order, keep)
+    rows, valid, overflow = compact_rows(bind.cols, keep_orig, out_cap)
+    return Bindings(rows, valid, overflow | bind.overflow)
+
+
+# --------------------------------------------------------------------------
+# CONSTRUCT — derive the output RDF stream
+# --------------------------------------------------------------------------
+
+def construct(
+    bind: Bindings,
+    templates: Sequence[Tuple],
+    ts: torch.Tensor,
+    out_cap: int,
+    graph_base: torch.Tensor,
+) -> Tuple[TripleBatch, torch.Tensor]:
+    """Emit one RDF-graph event per binding row from CONSTRUCT templates.
+
+    Template slots are ``("const", id)``, ``("var", col)`` or ``("row",
+    ns)``.  Every triple of window w is stamped with ``ts[w]``; graph ids
+    are ``graph_base[w] + row``.  Returns the ``[W, out_cap]`` batch and a
+    ``[W]`` overflow flag.
+    """
+    w, cap = bind.valid.shape
+    t = len(templates)
+    dev = bind.cols.device
+    row_idx = torch.arange(cap, dtype=ID_DTYPE, device=dev)[None, :]
+    graph = (row_idx + graph_base[:, None]).expand(w, cap)
+
+    def slot_vals(spec):
+        kind, val = spec
+        if kind == "const":
+            return torch.full((w, cap), int(val), dtype=ID_DTYPE, device=dev)
+        if kind == "row":     # synthetic per-binding row node (ROW_BASE band)
+            return graph + (int(val) + ROW_BASE)
+        return bind.cols[..., val]
+
+    trip = torch.stack(
+        [torch.stack([slot_vals(s) for s in tpl], dim=-1) for tpl in templates],
+        dim=2)                                              # [W, cap, t, 3]
+    rows = torch.cat([
+        trip,
+        ts[:, None, None, None].expand(w, cap, t, 1),
+        graph[:, :, None, None].expand(w, cap, t, 1),
+    ], dim=-1).reshape(w, cap * t, 5)                      # graph-contiguous
+    mask = bind.valid[:, :, None].expand(w, cap, t).reshape(w, cap * t)
+    out, valid, overflow = compact_rows(rows, mask, out_cap)
+    return TripleBatch(
+        s=out[..., 0], p=out[..., 1], o=out[..., 2], ts=out[..., 3],
+        graph=out[..., 4], valid=valid,
+    ), overflow

@@ -1,0 +1,64 @@
+"""SCEP Operator = Aggregator -> RSP engine(s) -> Publisher (paper §2, Fig 2a).
+
+The operator owns a compiled plan, its pruned KB partition and the static
+window geometry.  ``process`` merges/orders input chunks, windows them,
+runs the engine over every window at once and publishes the constructed
+output stream.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .engine import Plan, run_plan_windows
+from .kb import KnowledgeBase
+from .pattern import compact_rows
+from .rdf import TripleBatch
+from .stream import merge_streams
+from .window import Windows, count_windows
+
+
+def publish_chunk(out_w: TripleBatch, out_stream_cap: int) -> TripleBatch:
+    """Publisher: flatten ``[W, cap]`` window outputs into one ordered chunk
+    (order-preserving compaction of valid triples to the front)."""
+    flat = out_w.map(lambda col: col.reshape(-1))
+    rows = torch.stack([flat.s, flat.p, flat.o, flat.ts, flat.graph], dim=1)
+    out, valid, _ = compact_rows(rows[None], flat.valid[None], out_stream_cap)
+    out, valid = out[0], valid[0]
+    return TripleBatch(s=out[:, 0], p=out[:, 1], o=out[:, 2], ts=out[:, 3],
+                       graph=out[:, 4], valid=valid)
+
+
+@dataclasses.dataclass(frozen=True)
+class OperatorConfig:
+    window_capacity: int = 1000      # paper: "a maximum of 1000 RDF triples"
+    max_windows: int = 8             # windows per processed chunk
+    out_stream_cap: int = 2048       # published stream chunk capacity
+
+
+class SCEPOperator:
+    """One deployable SCEP operator."""
+
+    def __init__(self, name: str, plan: Plan, kb: Optional[KnowledgeBase],
+                 env: Dict[str, torch.Tensor],
+                 config: Optional[OperatorConfig] = None):
+        self.name = name
+        self.plan = plan
+        self.kb = kb
+        self.env = dict(env)
+        self.config = config if config is not None else OperatorConfig()
+
+    def process_windows(self, windows: Windows):
+        """Window-aligned engine step: ``[W, C]`` in -> ``[W, out_cap]`` out
+        (the DAG runtime keeps upstream results in their window)."""
+        return run_plan_windows(self.plan, windows, self.kb, self.env)
+
+    def process(self, chunks: Sequence[TripleBatch]) -> Tuple[TripleBatch, torch.Tensor]:
+        """Process one round of input chunks; returns (output chunk, overflow[W])."""
+        cfg = self.config
+        merged = merge_streams(chunks)                       # Aggregator
+        windows = count_windows(merged, cfg.window_capacity, cfg.max_windows)
+        out_w, overflow = self.process_windows(windows)      # engines
+        return publish_chunk(out_w, cfg.out_stream_cap), overflow

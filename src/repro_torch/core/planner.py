@@ -1,0 +1,711 @@
+"""Query compiler, decomposer and KB pruner.
+
+* ``compile_query`` — Query AST -> executable :class:`~repro_torch.core.engine.Plan`
+  (variable numbering, bound-mode resolution, filter placement, and the
+  ``kb_method="auto"`` per-join cost model).
+* ``decompose``     — one query -> a DAG of sub-queries (paper Fig. 4): every
+  KB-touching enrichment chain becomes its own operator; a final aggregation
+  operator joins the intermediate streams.
+* ``prune_kb_for``  — the "used KB" extraction per sub-query.
+
+Closure sets (subclass FILTER env, ``p+``/``p*`` path relations) are always
+computed through :mod:`repro_torch.kernels.closure` on the KB's device: the
+CUDA kernels on the card, their plain versions on the CPU.
+
+Intermediate streams use the *binding-graph protocol*: each result row of a
+sub-query is published as one RDF-graph event ``(row_node, var_pred_v,
+value)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from . import query as Q
+from .engine import (
+    FilterBoolStep, FilterInStep, FilterNumStep, KBJoin, OptionalSteps, Plan,
+    ScanJoin, Step, UnionSteps,
+)
+from .kb import KBStats, KnowledgeBase, build_kb, host_rows, prune
+from .pattern import CompiledPattern, Slot, SlotMode
+from .rdf import CLOSURE_PRED_BASE, PRED_SPACE, Vocab
+from .reasoner import (
+    adjacency_from_edges, build_class_index, descendants, subclass_edges,
+)
+
+
+# --------------------------------------------------------------------------
+# variable-length paths: closure-pair relations under synthetic predicates
+# --------------------------------------------------------------------------
+
+def closure_path_specs(q: Q.Query) -> List[Tuple[int, int]]:
+    """Distinct ``(pred, min_hops)`` closure-path specs in first-seen order;
+    spec *i* owns the synthetic predicate ``CLOSURE_PRED_BASE + i``."""
+    specs: List[Tuple[int, int]] = []
+    for item in q.where:
+        if isinstance(item, Q.PathClosure):
+            key = (item.pred, item.min_hops)
+            if key not in specs:
+                specs.append(key)
+    if len(specs) > PRED_SPACE - CLOSURE_PRED_BASE:
+        raise ValueError(
+            "query %r uses %d distinct closure paths; the synthetic "
+            "predicate band holds %d"
+            % (q.name, len(specs), PRED_SPACE - CLOSURE_PRED_BASE))
+    return specs
+
+
+def _kernel_reach_set(edges: Sequence[Tuple[int, int]], root: int,
+                      ancestors: bool, device) -> Set[int]:
+    """One root's closure set via the fused descendants/ancestors step."""
+    from repro_torch.kernels.closure import ops as cl_ops
+
+    idx, ids = build_class_index(edges)
+    if root not in idx:
+        return {root}
+    adj = adjacency_from_edges(edges, idx)
+    op = cl_ops.closure_ancestors if ancestors else cl_ops.closure_descendants
+    got, count = op(adj, idx[root], out_cap=len(ids), device=device)
+    sel = got.cpu().numpy()[: int(count)]
+    return {int(v) for v in ids[sel]}
+
+
+def _closure_pairs(edges: Sequence[Tuple[int, int]], min_hops: int,
+                   uses: Sequence[Q.PathClosure], device) -> Set[Tuple[int, int]]:
+    """The pair relation ``{(x, y) : x pred^n y, n >= min_hops}``.
+
+    ``p*``'s zero-length pairs are reflexive over the predicate's edge-graph
+    nodes plus the constant endpoints of the query's path expressions.  When
+    every use anchors the same endpoint with a constant, only that
+    endpoint's closure set is materialized (the fused descendants step);
+    otherwise the full reach matrix is closed once.
+    """
+    pairs: Set[Tuple[int, int]] = set()
+    if min_hops == 0:
+        refl = {x for e in edges for x in e}
+        for u in uses:
+            for t in (u.start, u.end):
+                if isinstance(t, Q.Const):
+                    refl.add(int(t.id))
+        pairs |= {(x, x) for x in refl}
+    if not edges:
+        return pairs
+
+    const_end = all(isinstance(u.end, Q.Const) for u in uses)
+    const_start = all(isinstance(u.start, Q.Const) for u in uses)
+    if const_end or const_start:
+        # p+ composes one explicit edge onto the p* set: the first edge for
+        # descendants (x -> z ->* root), the last for ancestors
+        anchor = "end" if const_end else "start"
+        roots = {int(getattr(u, anchor).id) for u in uses}
+        for root in sorted(roots):
+            star = _kernel_reach_set(edges, root, not const_end, device)
+            if const_end:
+                if min_hops == 0:
+                    pairs |= {(x, root) for x in star}
+                else:
+                    pairs |= {(s, root) for s, o in edges if o in star}
+            else:
+                if min_hops == 0:
+                    pairs |= {(root, y) for y in star}
+                else:
+                    pairs |= {(root, o) for s, o in edges if s in star}
+        return pairs
+
+    # mixed / variable endpoints: close the whole reach matrix once
+    from repro_torch.kernels.closure import ops as cl_ops
+
+    idx, ids = build_class_index(edges)
+    adj = adjacency_from_edges(edges, idx)
+    reach = cl_ops.transitive_closure(adj, max_depth=len(idx),
+                                      device=device).cpu().numpy()
+    if min_hops == 1:
+        reach = (adj @ reach.astype(np.float32)) > 0.5
+    pairs |= {(int(ids[i]), int(ids[j])) for i, j in zip(*np.nonzero(reach))}
+    return pairs
+
+
+def augment_kb_with_closures(q: Q.Query, kb: KnowledgeBase) -> KnowledgeBase:
+    """Materialize every variable-length path of ``q`` as closure-pair rows
+    ``(x, CLOSURE_PRED_BASE + i, y)`` appended to the KB (on its device)."""
+    specs = closure_path_specs(q)
+    if not specs:
+        return kb
+    rows = host_rows(kb)
+    parts = [rows]
+    for i, (pid, min_hops) in enumerate(specs):
+        uses = [it for it in q.where if isinstance(it, Q.PathClosure)
+                and (it.pred, it.min_hops) == (pid, min_hops)]
+        m = rows[:, 1] == np.uint32(pid)
+        edges = [(int(s), int(o)) for s, _, o in rows[m]]
+        pairs = _closure_pairs(edges, min_hops, uses, kb.device)
+        arr = np.asarray(sorted(pairs), np.uint32).reshape(-1, 2)
+        cp = np.full((len(arr), 1), CLOSURE_PRED_BASE + i, np.uint32)
+        parts.append(np.concatenate([arr[:, :1], cp, arr[:, 1:]], axis=1))
+    out = np.concatenate(parts, axis=0)
+    return build_kb(out[:, 0], out[:, 1], out[:, 2], None, kb.device)
+
+
+# --------------------------------------------------------------------------
+# KB-access cost model (``kb_method="auto"``)
+# --------------------------------------------------------------------------
+
+PROBE_K_CAP = 64    # largest k_max the planner will derive for a probe
+
+
+def _round_up_k(fanout: int) -> int:
+    """Observed max fan-out rounded up to a multiple of 8, floor 8."""
+    return max(8, ((int(fanout) + 7) // 8) * 8)
+
+
+def _choose_kb_method(cp: CompiledPattern, kb_stats: Optional[KBStats],
+                      default_k: int) -> Tuple[str, int]:
+    """Per-join access-method selection from host-side KB statistics: a
+    probe (const predicate + anchored endpoint) with a derived ``k_max``
+    that covers the observed fan-out, or the fused scan."""
+    if kb_stats is None:
+        return "scan", default_k
+    if cp.p.mode != SlotMode.CONST or (
+            cp.s.mode == SlotMode.FREE and cp.o.mode == SlotMode.FREE):
+        return "scan", default_k
+    stat = kb_stats.preds.get(int(cp.p.const))
+    if stat is None:
+        # predicate absent from this slice: every probe is an instant miss
+        return "probe", _round_up_k(0)
+    fanout = stat.k_ps if cp.s.mode != SlotMode.FREE else stat.k_po
+    if fanout > PROBE_K_CAP:
+        return "scan", default_k
+    k = _round_up_k(fanout)
+    n = max(1, kb_stats.total_rows)
+    if math.ceil(math.log2(n + 1)) + k >= n:
+        return "scan", default_k          # tiny partition: scan is cheaper
+    return "probe", k
+
+
+def _kb_item_var_names(item: Q.WhereItem) -> Set[str]:
+    if isinstance(item, Q.Pattern):
+        return set(item.vars())
+    if isinstance(item, (Q.PathKB, Q.PathClosure)):
+        return {t.name for t in (item.start, item.end) if isinstance(t, Q.Var)}
+    if isinstance(item, Q.FilterSubclass):
+        return {item.var}
+    return set()
+
+
+def _kb_item_cost(item: Q.WhereItem, kb_stats: KBStats,
+                  closure_specs: Sequence[Tuple[int, int]],
+                  bound_names: Set[str]) -> float:
+    """Estimated per-binding fan-out of one KB item (lower = more
+    selective), given the variable names bound before it runs."""
+
+    def pat_cost(s_term, pred: Optional[int], o_term) -> float:
+        if pred is None:                       # variable predicate: full scan
+            return float(kb_stats.total_rows)
+        stat = kb_stats.preds.get(int(pred))
+        if stat is None:
+            return 0.0                         # empty relation: kills all rows
+
+        def anchored(t) -> bool:
+            return isinstance(t, Q.Const) or (
+                isinstance(t, Q.Var) and t.name in bound_names)
+
+        if anchored(s_term):
+            return float(stat.k_ps)
+        if anchored(o_term):
+            return float(stat.k_po)
+        return float(stat.rows)                # unanchored: rows x bindings
+
+    if isinstance(item, Q.Pattern):
+        pred = item.p.id if isinstance(item.p, Q.Const) else None
+        return pat_cost(item.s, pred, item.o)
+    if isinstance(item, Q.PathKB):
+        end = item.end if len(item.preds) == 1 else Q.Var("__chain")
+        return pat_cost(item.start, item.preds[0], end)
+    if isinstance(item, Q.PathClosure):
+        cp = CLOSURE_PRED_BASE + closure_specs.index((item.pred, item.min_hops))
+        return pat_cost(item.start, cp, item.end)
+    if isinstance(item, Q.FilterSubclass):
+        return pat_cost(Q.Var(item.var), item.type_pred, Q.Var("__cls"))
+    return float("inf")
+
+
+def order_kb_items(items: List[Q.WhereItem], kb_stats: KBStats,
+                   closure_specs: Sequence[Tuple[int, int]],
+                   bound_names: Set[str]) -> List[Q.WhereItem]:
+    """Greedy selectivity ordering of a query's KB-join sequence (ties keep
+    listed order).  Output-invariant thanks to ``canonical_order``."""
+    names = set(bound_names)
+    pending = list(enumerate(items))
+    ordered: List[Q.WhereItem] = []
+    while pending:
+        idx, best = min(
+            pending,
+            key=lambda t: (_kb_item_cost(t[1], kb_stats, closure_specs,
+                                         names), t[0]),
+        )
+        pending.remove((idx, best))
+        ordered.append(best)
+        names |= _kb_item_var_names(best)
+    return ordered
+
+
+# --------------------------------------------------------------------------
+# compilation
+# --------------------------------------------------------------------------
+
+class _VarTable:
+    def __init__(self) -> None:
+        self.names: List[str] = []
+
+    def col(self, name: str) -> int:
+        if name not in self.names:
+            self.names.append(name)
+        return self.names.index(name)
+
+
+def _slot(term: Q.Term, vt: _VarTable, bound: Set[int]) -> Slot:
+    if isinstance(term, Q.Const):
+        return Slot.const_(term.id)
+    c = vt.col(term.name)
+    return Slot.bound(c) if c in bound else Slot.free(c)
+
+
+def _compile_pattern(pat: Q.Pattern, vt: _VarTable, bound: Set[int],
+                     scan: bool = False) -> CompiledPattern:
+    """Resolve slot modes.  ``scan=True`` compiles a window scan pattern:
+    every variable slot is FREE (equality with earlier bindings is enforced
+    by the natural join on the shared columns)."""
+    s = _slot(pat.s, vt, bound)
+    p = _slot(pat.p, vt, bound)
+    o = _slot(pat.o, vt, bound)
+    if scan:
+        s, p, o = (
+            Slot.free(sl.var) if sl.mode != SlotMode.CONST else sl
+            for sl in (s, p, o)
+        )
+    for sl in (s, p, o):
+        if sl.mode == SlotMode.FREE:
+            bound.add(sl.var)
+    return CompiledPattern(s, p, o)
+
+
+def _compile_filter_expr(e: Q.FilterExpr, vt: "_VarTable") -> Tuple:
+    if isinstance(e, Q.FilterNum):
+        return ("cmp", vt.col(e.var), e.op, e.value_id)
+    if e.op == "not":
+        return ("not", _compile_filter_expr(e.args[0], vt))
+    return (e.op,) + tuple(_compile_filter_expr(a, vt) for a in e.args)
+
+
+def _scan_shared(cp: CompiledPattern, before: Set[int]) -> Tuple[int, ...]:
+    return tuple(sorted(
+        {sl.var for sl in (cp.s, cp.p, cp.o) if sl.mode != SlotMode.CONST}
+        & before))
+
+
+def compile_query(
+    q: Q.Query,
+    kb_method: str = "scan",
+    scan_cap: int = 128,
+    bind_cap: int = 256,
+    out_cap: int = 512,
+    k_max: int = 8,
+    kb_stats: Optional[KBStats] = None,
+) -> Plan:
+    """Compile the AST into a Plan (same decisions as the reference:
+    stream patterns in connected listed order, then KB items — cost-ordered
+    under ``kb_method="auto"`` with stats — then OPTIONAL/UNION groups,
+    filters as soon as their variables are bound)."""
+    vt = _VarTable()
+    bound: Set[int] = set()
+    steps: List[Step] = []
+    pending_filters: List[Q.WhereItem] = []
+    aux = [0]
+    closure_specs = closure_path_specs(q)
+
+    def _kb_step(cp: CompiledPattern) -> KBJoin:
+        method, k = kb_method, k_max
+        if kb_method == "auto":
+            method, k = _choose_kb_method(cp, kb_stats, k_max)
+        return KBJoin(cp, method, k)
+
+    def fresh_aux() -> str:
+        aux[0] += 1
+        return "__aux%d" % aux[0]
+
+    def _filter_vars(item) -> Tuple[str, ...]:
+        return (item.var,) if isinstance(item, Q.FilterNum) else item.vars()
+
+    def _filter_step(item) -> Step:
+        if isinstance(item, Q.FilterNum):
+            return FilterNumStep(vt.col(item.var), item.op, item.value_id)
+        return FilterBoolStep(_compile_filter_expr(item, vt))
+
+    def flush_filters():
+        for item in list(pending_filters):
+            if all(vt.col(v) in bound for v in _filter_vars(item)):
+                steps.append(_filter_step(item))
+                pending_filters.remove(item)
+
+    # pass 1: stream patterns, each after the first sharing a variable with
+    # the already-joined set where possible (no cross joins)
+    remaining = [
+        it for it in q.where if isinstance(it, Q.Pattern) and it.src == Q.STREAM
+    ]
+    for item in q.where:
+        if isinstance(item, (Q.FilterNum, Q.FilterBool)):
+            pending_filters.append(item)
+    bound_names: Set[str] = set()
+    while remaining:
+        pick = next(
+            (p for p in remaining if set(p.vars()) & bound_names), remaining[0]
+        )
+        remaining.remove(pick)
+        shared_before = set(bound)
+        cp = _compile_pattern(pick, vt, bound, scan=True)
+        bound_names |= set(pick.vars())
+        steps.append(ScanJoin(cp, _scan_shared(cp, shared_before)))
+        flush_filters()
+
+    # pass 2: KB patterns / paths / subclass reasoning
+    kb_items: List[Q.WhereItem] = [
+        it for it in q.where
+        if (isinstance(it, Q.Pattern) and it.src == Q.KB)
+        or isinstance(it, (Q.PathKB, Q.PathClosure, Q.FilterSubclass))
+    ]
+    if kb_method == "auto" and kb_stats is not None and len(kb_items) > 1:
+        kb_items = order_kb_items(kb_items, kb_stats, closure_specs,
+                                  bound_names)
+    for item in kb_items:
+        if isinstance(item, Q.Pattern) and item.src == Q.KB:
+            steps.append(_kb_step(_compile_pattern(item, vt, bound)))
+        elif isinstance(item, Q.PathKB):
+            cur: Q.Term = item.start
+            for i, pid in enumerate(item.preds):
+                nxt = item.end if i == len(item.preds) - 1 else Q.Var(fresh_aux())
+                cp = _compile_pattern(
+                    Q.Pattern(cur, Q.Const(pid), nxt, Q.KB), vt, bound)
+                steps.append(_kb_step(cp))
+                cur = nxt
+        elif isinstance(item, Q.PathClosure):
+            # one join against the materialized closure-pair relation
+            cp_pred = CLOSURE_PRED_BASE + closure_specs.index(
+                (item.pred, item.min_hops))
+            cp = _compile_pattern(
+                Q.Pattern(item.start, Q.Const(cp_pred), item.end, Q.KB),
+                vt, bound)
+            steps.append(_kb_step(cp))
+        elif isinstance(item, Q.FilterSubclass):
+            cls_var = Q.Var(fresh_aux())
+            cp = _compile_pattern(
+                Q.Pattern(Q.Var(item.var), Q.Const(item.type_pred), cls_var,
+                          Q.KB), vt, bound)
+            steps.append(_kb_step(cp))
+            steps.append(
+                FilterInStep(vt.col(cls_var.name), "closure:%d" % item.super_class))
+        flush_filters()
+
+    # pass 3: optional / union groups
+    for item in q.where:
+        if isinstance(item, Q.OptionalGroup):
+            shared_before = set(bound)
+            sub_steps: List[Step] = []
+            sub_bound: Set[int] = set()
+            for p in item.patterns:
+                if p.src == Q.KB:
+                    sub_steps.append(_kb_step(_compile_pattern(p, vt, sub_bound)))
+                else:
+                    before = set(sub_bound)
+                    cp = _compile_pattern(p, vt, sub_bound, scan=True)
+                    sub_steps.append(ScanJoin(cp, _scan_shared(cp, before)))
+            bound |= sub_bound
+            shared = tuple(sorted(
+                shared_before
+                & {vt.col(v) for p in item.patterns for v in p.vars()}))
+            steps.append(OptionalSteps(tuple(sub_steps), shared))
+        elif isinstance(item, Q.UnionGroup):
+            union_before = set(bound)
+
+            def _branch(pats: Tuple[Q.Pattern, ...]) -> Tuple[Step, ...]:
+                bs: List[Step] = []
+                br_bound = set(union_before)
+                for p in pats:
+                    if p.src == Q.KB:
+                        bs.append(_kb_step(_compile_pattern(p, vt, br_bound)))
+                    else:
+                        before = set(br_bound)
+                        cp = _compile_pattern(p, vt, br_bound, scan=True)
+                        bs.append(ScanJoin(cp, _scan_shared(cp, before)))
+                bound.update(br_bound)
+                return tuple(bs)
+
+            steps.append(UnionSteps(_branch(item.left), _branch(item.right)))
+        flush_filters()
+
+    # any filters whose variables only appear in construct scope
+    for item in pending_filters:
+        steps.append(_filter_step(item))
+
+    def tslot(t):
+        if isinstance(t, Q.RowId):
+            return ("row", t.ns * (1 << 18))   # per-operator id namespace
+        if isinstance(t, Q.Const):
+            return ("const", t.id)
+        return ("var", vt.col(t.name))
+
+    templates = tuple(
+        (tslot(t.s), tslot(t.p), tslot(t.o)) for t in q.construct
+    )
+    return Plan(
+        name=q.name,
+        num_vars=max(1, len(vt.names)),
+        var_names=tuple(vt.names) or ("_",),
+        steps=tuple(steps),
+        templates=templates,
+        scan_cap=scan_cap,
+        bind_cap=bind_cap,
+        out_cap=out_cap,
+    )
+
+
+def plan_caps(plan: Plan) -> Dict[str, int]:
+    """The plan's capacities plus the largest probe ``k_max`` any KBJoin
+    carries."""
+    def max_k(steps: Sequence[Step]) -> int:
+        k = 0
+        for s in steps:
+            if isinstance(s, KBJoin) and s.method == "probe":
+                k = max(k, s.k_max)
+            elif isinstance(s, OptionalSteps):
+                k = max(k, max_k(s.sub))
+            elif isinstance(s, UnionSteps):
+                k = max(k, max_k(s.left), max_k(s.right))
+        return k
+
+    return {"scan_cap": plan.scan_cap, "bind_cap": plan.bind_cap,
+            "out_cap": plan.out_cap, "k_max": max_k(plan.steps)}
+
+
+# --------------------------------------------------------------------------
+# environment (closure sets) and KB pruning — the "used KB" machinery
+# --------------------------------------------------------------------------
+
+def prepare_env(q: Q.Query, kb: KnowledgeBase) -> Dict[str, torch.Tensor]:
+    """Closure sets required by the query's reasoning filters, computed by
+    the closure kernels on the KB's device."""
+    env: Dict[str, torch.Tensor] = {}
+    for item in q.where:
+        if isinstance(item, Q.FilterSubclass):
+            key, arr = closure_env_entry(kb, item.subclass_pred,
+                                         item.super_class)
+            env[key] = arr
+    return env
+
+
+def closure_env_entry(kb: KnowledgeBase, subclass_pred: int,
+                      super_class: int) -> Tuple[str, torch.Tensor]:
+    """One :func:`prepare_env` entry: ``("closure:<super>", sorted ids)``."""
+    edges = subclass_edges(kb, subclass_pred)
+    ids = _closure_set(edges, super_class, kb.device)
+    return "closure:%d" % super_class, torch.from_numpy(
+        ids.astype(np.int64)).to(kb.device)
+
+
+def _closure_set(edges, root: int, device) -> np.ndarray:
+    if edges:
+        idx, ids = build_class_index(edges)
+        if root in idx:
+            from repro_torch.kernels.closure import ops as cl_ops
+
+            adj = adjacency_from_edges(edges, idx)
+            dids, count = cl_ops.closure_descendants(
+                adj, idx[root], out_cap=len(ids), device=device)
+            sel = dids.cpu().numpy()[: int(count)]
+            return np.sort(ids[sel]).astype(np.uint32)
+    # no subclass edge touches the root: the closure is just {root}
+    return np.asarray([root], np.uint32)
+
+
+def kb_signature(q: Q.Query) -> Tuple[Tuple[int, ...], Dict[int, Set[int]]]:
+    """(predicates, {pred: allowed objects}) this query can ever touch."""
+    return tuple(q.kb_predicates()), {}
+
+
+def prune_kb_for(q: Q.Query, kb: KnowledgeBase, capacity: Optional[int] = None,
+                 closure_narrow: bool = True) -> KnowledgeBase:
+    """Extract this query's used KB: triples whose predicate the query
+    mentions (synthetic closure predicates included), with ``rdf:type`` rows
+    of a ``FilterSubclass`` narrowed to the super-class's closure (host BFS).
+    """
+    specs = closure_path_specs(q)
+    preds = tuple(sorted(set(kb_signature(q)[0]) | {
+        CLOSURE_PRED_BASE + i for i in range(len(specs))
+    }))
+    closure_traversed = {pid for pid, _ in specs}
+    objects_by_pred: Dict[int, Set[int]] = {}
+    if closure_narrow:
+        for item in q.where:
+            if isinstance(item, Q.FilterSubclass):
+                # never narrow a predicate a closure path traverses
+                if item.type_pred in closure_traversed:
+                    continue
+                edges = subclass_edges(kb, item.subclass_pred)
+                cls = set(int(c) for c in descendants(edges, item.super_class))
+                objects_by_pred.setdefault(item.type_pred, set()).update(cls)
+    return prune(kb, preds, objects_by_pred or None, capacity)
+
+
+# --------------------------------------------------------------------------
+# decomposition into an operator DAG (paper Fig. 4)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SubQuery:
+    """One SCEP operator's query + its used-KB signature."""
+
+    query: Q.Query
+    inputs: Tuple[str, ...] = ("stream",)   # upstream operator names
+    touches_kb: bool = False
+
+
+@dataclasses.dataclass
+class OperatorDAG:
+    name: str
+    subqueries: Dict[str, SubQuery]
+    final: str                              # name of the aggregation sub-query
+    var_preds: Dict[str, int]               # binding-graph protocol predicates
+    row_base: int                           # term id base for row nodes
+
+
+def _var_pred(vocab: Vocab, name: str) -> int:
+    return vocab.pred("?:%s" % name)
+
+
+def decompose(q: Q.Query, vocab: Vocab) -> OperatorDAG:
+    """Split a query into KB-touching enrichment operators + an aggregator.
+
+    KB items are grouped into connected components (shared variables),
+    each anchored at the first stream variable it touches; every group
+    becomes a sub-query that scans the stream patterns binding its
+    variables, runs its KB chain and publishes its bindings on the
+    binding-graph protocol.  Stream-only items stay in the final
+    aggregation operator, which joins the intermediate streams.
+    """
+    stream_pats = [
+        it for it in q.where if isinstance(it, Q.Pattern) and it.src == Q.STREAM
+    ]
+    kb_items: List[Q.WhereItem] = [
+        it for it in q.where
+        if (isinstance(it, Q.Pattern) and it.src == Q.KB)
+        or isinstance(it, (Q.PathKB, Q.PathClosure, Q.FilterSubclass))
+    ]
+    other_items = [
+        it for it in q.where if it not in stream_pats and it not in kb_items
+    ]
+
+    stream_vars: Set[str] = set()
+    for p in stream_pats:
+        stream_vars |= set(p.vars())
+
+    n_items = len(kb_items)
+    parent = list(range(n_items))
+
+    def find(i: int) -> int:
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    for i in range(n_items):
+        for j in range(i + 1, n_items):
+            if _kb_item_var_names(kb_items[i]) & _kb_item_var_names(kb_items[j]):
+                ri, rj = find(i), find(j)
+                if ri != rj:
+                    parent[max(ri, rj)] = min(ri, rj)
+
+    components: Dict[int, List[int]] = {}
+    for i in range(n_items):
+        components.setdefault(find(i), []).append(i)
+
+    groups: Dict[str, List[int]] = {}
+    for root, idxs in sorted(components.items()):
+        comp_vars: Set[str] = set()
+        for i in idxs:
+            comp_vars |= _kb_item_var_names(kb_items[i])
+        anchors = sorted(comp_vars & stream_vars)
+        anchor = anchors[0] if anchors else "__global"
+        groups.setdefault(anchor, []).extend(idxs)
+
+    subqueries: Dict[str, SubQuery] = {}
+    var_preds: Dict[str, int] = {}
+    row_base = int(vocab.term("row:base"))
+
+    def binding_templates(out_vars: Sequence[str], anchor: str,
+                          op_index: int) -> Tuple[Q.ConstructTemplate, ...]:
+        ordered = [v for v in out_vars if v == anchor] + [
+            v for v in out_vars if v != anchor
+        ]
+        tpls = []
+        for v in ordered:
+            var_preds.setdefault(v, _var_pred(vocab, v))
+            tpls.append(
+                Q.ConstructTemplate(Q.RowId(ns=op_index + 1),
+                                    Q.Const(var_preds[v]), Q.Var(v))
+            )
+        return tuple(tpls)
+
+    covered_pats: List[Q.Pattern] = []
+    for i, (anchor, idxs) in enumerate(sorted(groups.items())):
+        items = [kb_items[j] for j in sorted(idxs)]   # preserve listed order
+        name = "%s_kb%d_%s" % (q.name, i, anchor.strip("?_"))
+        needed_vars = set()
+        for it in items:
+            needed_vars |= _kb_item_var_names(it)
+        anchor_pats = [
+            p for p in stream_pats if set(p.vars()) & (needed_vars | {anchor})
+        ]
+        pat_vars = set()
+        for p in anchor_pats:
+            pat_vars |= set(p.vars())
+        out_vars = sorted(
+            (needed_vars | pat_vars | {anchor}) & set(q.variables())
+        )
+        sub_q = Q.Query(
+            name=name,
+            where=tuple(list(anchor_pats) + list(items)),
+            construct=binding_templates(out_vars, anchor, i),
+        )
+        subqueries[name] = SubQuery(sub_q, inputs=("stream",), touches_kb=True)
+        for p in anchor_pats:
+            if set(p.vars()) <= set(out_vars):
+                covered_pats.append(p)
+
+    final_name = "%s_agg" % q.name
+    agg_where: List[Q.WhereItem] = [
+        p for p in stream_pats if p not in covered_pats
+    ] + list(other_items)
+    for name, sub in subqueries.items():
+        row_var = "__row_%s" % name
+        for tpl in sub.query.construct:
+            assert isinstance(tpl.p, Q.Const)
+            agg_where.append(
+                Q.Pattern(Q.Var(row_var), Q.Const(tpl.p.id), tpl.o, Q.STREAM)
+            )
+    final_q = Q.Query(name=final_name, where=tuple(agg_where),
+                      construct=q.construct, select=q.select)
+    subqueries[final_name] = SubQuery(
+        final_q,
+        inputs=tuple(sorted(subqueries)) + ("stream",),
+        touches_kb=bool(final_q.kb_predicates()),
+    )
+    return OperatorDAG(
+        name=q.name,
+        subqueries=subqueries,
+        final=final_name,
+        var_preds=var_preds,
+        row_base=row_base,
+    )

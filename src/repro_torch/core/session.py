@@ -1,0 +1,233 @@
+"""The execution facade: one ``Session`` over the ported runtimes.
+
+    cfg = ExecutionConfig(mode="single_program", kb_method="auto")
+    sess = Session(cfg, vocab=vocab, kb=kb)
+    reg = sess.register(open("query.rq").read())     # text or Query AST
+    outs, overflow = reg.run(chunks)                 # whole stream
+    for out in reg.stream(chunks): ...               # incremental
+
+Entry points run on the card: ``ExecutionConfig.device`` defaults to
+``"cuda"``, and construction raises when no card is visible.  The KB and
+every chunk are moved to that device; pass ``device="cpu"`` to run the
+plain PyTorch versions of the kernels on the host.
+
+``monolithic`` and ``single_program`` produce bit-identical output streams.
+Knobs of the reference that this port does not have yet raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item; none is ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from . import query as Q
+from .kb import KnowledgeBase
+from .planner import OperatorDAG, decompose
+from .rdf import TripleBatch, Vocab
+from .runtime import DSCEPRuntime, MonolithicRuntime, RuntimeConfig
+from .sparql import ParseInfo, parse_query_info, serialize_query
+
+MODES = ("monolithic", "single_program")
+KB_METHODS = ("scan", "probe", "auto")
+
+
+def _not_ported(knob: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        "%s is not in the PyTorch port yet (ROADMAP.md queue 1: %s)"
+        % (knob, item))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionConfig:
+    """One frozen config for every ported execution mode."""
+
+    window_capacity: int = 1000
+    max_windows: int = 8
+    out_stream_cap: int = 2048
+    kb_method: str = "scan"            # "scan" | "probe" | "auto" (cost-based)
+    kb_capacity: Optional[int] = None
+    scan_cap: int = 128
+    bind_cap: int = 256
+    out_cap: int = 512
+    intermediate_cap: int = 512
+    mode: str = "single_program"       # monolithic | single_program
+    device: str = "cuda"               # where the KB, chunks and kernels run
+
+    # reference knobs still to port: any non-default value raises
+    window_step: Optional[int] = None
+    incremental: bool = False
+    window_from_query: bool = False
+    mesh: Optional[Any] = None
+    trace: Any = None
+    faults: Any = None
+    recovery: Any = None
+
+    def __post_init__(self):
+        if self.mode == "pipelined":
+            raise _not_ported("mode='pipelined'", "Pipelined runtime")
+        if self.mode not in MODES:
+            raise ValueError(
+                "unknown mode %r (expected one of %s)" % (self.mode, list(MODES)))
+        if self.kb_method not in KB_METHODS:
+            raise ValueError(
+                "unknown kb_method %r (expected one of %s)"
+                % (self.kb_method, list(KB_METHODS)))
+        if self.window_step is not None and self.window_step < 1:
+            raise ValueError("window_step must be >= 1, got %d"
+                             % self.window_step)
+        if (self.window_step is not None
+                and self.window_step < self.window_capacity):
+            raise _not_ported("window_step < window_capacity (sliding "
+                              "windows)", "Incremental evaluation")
+        if self.incremental:
+            raise _not_ported("incremental=True", "Incremental evaluation")
+        if self.window_from_query:
+            raise _not_ported("window_from_query=True (the paper queries "
+                              "carry STEP 1, which needs slides)",
+                              "Incremental evaluation")
+        if self.mesh is not None:
+            raise _not_ported("mesh=", "Sharded paths")
+        if self.trace:
+            raise _not_ported("trace=", "Observability")
+        if self.faults is not None or self.recovery is not None:
+            raise _not_ported("faults=/recovery=", "Faults and recovery")
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ExecutionConfig(device=%r) but no CUDA device is visible; "
+                "pass device='cpu' to run the plain PyTorch versions"
+                % self.device)
+
+    def runtime_config(self) -> RuntimeConfig:
+        return RuntimeConfig(
+            window_capacity=self.window_capacity,
+            max_windows=self.max_windows,
+            out_stream_cap=self.out_stream_cap,
+            kb_method=self.kb_method,
+            kb_capacity=self.kb_capacity,
+            scan_cap=self.scan_cap,
+            bind_cap=self.bind_cap,
+            out_cap=self.out_cap,
+            intermediate_cap=self.intermediate_cap,
+        )
+
+    def replace(self, **changes) -> "ExecutionConfig":
+        return dataclasses.replace(self, **changes)
+
+
+class RegisteredQuery:
+    """A continuous query registered with a :class:`Session`: owns the
+    compiled runtime of the session's mode and its drive surface."""
+
+    def __init__(self, session: "Session", query: Q.Query,
+                 info: Optional[ParseInfo] = None):
+        self.session = session
+        self.query = query
+        self.info = info
+        self.config = session.config
+        self.mode = self.config.mode
+        self.dag: Optional[OperatorDAG] = None
+        self._runtime = self._build_runtime()
+
+    def _build_runtime(self):
+        cfg = self.config
+        kb = self.session.kb
+        if kb is None and self.query.kb_predicates():
+            raise ValueError(
+                "query %r touches the KB (GRAPH <kb> patterns) but the "
+                "Session has no kb= attached" % self.query.name)
+        if self.mode == "monolithic":
+            return MonolithicRuntime(self.query, kb, cfg.runtime_config())
+        self.dag = decompose(self.query, self.session.vocab)
+        return DSCEPRuntime(self.dag, kb, self.session.vocab,
+                            cfg.runtime_config())
+
+    @property
+    def runtime(self):
+        return self._runtime
+
+    @property
+    def operators(self) -> Dict[str, Any]:
+        """Name -> SCEPOperator (one entry, the query itself, in monolithic)."""
+        if self.mode == "monolithic":
+            return {self.query.name: self._runtime.operator}
+        return dict(self._runtime.operators)
+
+    @property
+    def text(self) -> str:
+        """Canonical C-SPARQL serialization of the registered query."""
+        prefixes = dict(self.info.prefixes) if self.info else None
+        return serialize_query(self.query, self.session.vocab, prefixes,
+                               info=self.info)
+
+    def _on_device(self, chunk: TripleBatch) -> TripleBatch:
+        return chunk.to(self.session.device)
+
+    def process_chunk(self, chunk: TripleBatch) -> Tuple[TripleBatch, Dict[str, int]]:
+        """Push one chunk through; returns (output chunk, overflow counts)."""
+        out, ovf = self._runtime.process_chunk(self._on_device(chunk))
+        if not isinstance(ovf, dict):
+            ovf = {self.query.name: ovf}
+        return out, {n: int(v.sum()) for n, v in ovf.items()}
+
+    def run(self, chunks: Sequence[TripleBatch]
+            ) -> Tuple[List[TripleBatch], Dict[str, int]]:
+        """Push a whole stream through; returns (outputs, overflowed-window
+        counts per operator over this stream)."""
+        return self._runtime.process_stream(
+            [self._on_device(c) for c in chunks])
+
+    def stream(self, chunks: Sequence[TripleBatch]) -> Iterator[TripleBatch]:
+        """Yield one output chunk per input chunk."""
+        for c in chunks:
+            yield self._runtime.process_chunk(self._on_device(c))[0]
+
+    def overflow_totals(self) -> Dict[str, int]:
+        """Lifetime per-operator overflow counts (synced when read)."""
+        return self._runtime.overflow_totals()
+
+
+class Session:
+    """Entry point: register C-SPARQL text (or ASTs) and execute streams."""
+
+    def __init__(self, config: Optional[ExecutionConfig] = None, *,
+                 vocab: Optional[Vocab] = None,
+                 kb: Optional[KnowledgeBase] = None):
+        self.config = config if config is not None else ExecutionConfig()
+        self.device = torch.device(self.config.device)
+        self.vocab = vocab if vocab is not None else Vocab()
+        self.kb = kb.to(self.device) if kb is not None else None
+        self.queries: Dict[str, RegisteredQuery] = {}
+
+    def register(self, query: Union[str, Q.Query], name: Optional[str] = None,
+                 replace: bool = False) -> RegisteredQuery:
+        """Register a continuous query: C-SPARQL text or a Query AST.  A
+        duplicate name raises unless ``replace=True``."""
+        info: Optional[ParseInfo] = None
+        if isinstance(query, str):
+            query, info = parse_query_info(query, self.vocab, name)
+        elif not isinstance(query, Q.Query):
+            raise TypeError(
+                "register() takes C-SPARQL text or a repro_torch.core.query."
+                "Query, got %r" % type(query).__name__)
+        existing = self.queries.get(query.name)
+        if existing is not None and not replace:
+            prefixes = dict(info.prefixes) if info else None
+            raise ValueError(
+                "query %r is already registered.\nexisting:\n%s\nnew:\n%s\n"
+                "Pass replace=True to substitute the new registration."
+                % (query.name, existing.text,
+                   serialize_query(query, self.vocab, prefixes, info=info)))
+        reg = RegisteredQuery(self, query, info)
+        self.queries[query.name] = reg
+        return reg
+
+    def unregister(self, name: str) -> None:
+        del self.queries[name]
+
+    def register_file(self, path: str,
+                      name: Optional[str] = None) -> RegisteredQuery:
+        with open(path) as f:
+            return self.register(f.read(), name=name)

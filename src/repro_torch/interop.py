@@ -1,0 +1,70 @@
+"""Carry state into the port from plain numpy arrays and dicts.
+
+The same vocabulary, KB and stream chunks can feed both the reference
+package and this port: extract them with ``np.asarray`` on one side and
+rebuild them here.  Nothing in this module takes the reference's objects.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .core.kb import KnowledgeBase
+from .core.pattern import Bindings
+from .core.rdf import ID_DTYPE, PAD_ID, TripleBatch, Vocab
+
+KB_FIELDS = KnowledgeBase._fields
+
+
+def vocab_from_state(pred_to_id: Mapping[str, int],
+                     term_to_id: Mapping[str, int], next_pred: int,
+                     next_term: int) -> Vocab:
+    """A :class:`Vocab` holding exactly the given interning tables."""
+    v = Vocab()
+    v._pred_to_id = dict(pred_to_id)
+    v._term_to_id = dict(term_to_id)
+    v._id_to_str = {PAD_ID: "<pad>"}
+    v._id_to_str.update({i: n for n, i in pred_to_id.items()})
+    v._id_to_str.update({i: n for n, i in term_to_id.items()})
+    v._next_pred = int(next_pred)
+    v._next_term = int(next_term)
+    return v
+
+
+def _ids(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+def _mask(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, bool).copy()).to(device)
+
+
+def kb_from_arrays(arrays: Mapping[str, np.ndarray], device="cpu") -> KnowledgeBase:
+    """A KB from its 9 field arrays (``s_ps`` ... ``key_po`` ids, ``valid``)."""
+    missing = set(KB_FIELDS) - set(arrays)
+    if missing:
+        raise KeyError("KB arrays missing %s" % sorted(missing))
+    return KnowledgeBase(*(
+        _mask(arrays[f], device) if f == "valid" else _ids(arrays[f], device)
+        for f in KB_FIELDS))
+
+
+def triples_from_arrays(s, p, o, ts, graph, valid, device="cpu") -> TripleBatch:
+    """A TripleBatch from uint32 id columns and a bool validity column."""
+    return TripleBatch(_ids(s, device), _ids(p, device), _ids(o, device),
+                       _ids(ts, device), _ids(graph, device),
+                       _mask(valid, device))
+
+
+def bindings_from_arrays(cols, valid, overflow, device="cpu") -> Bindings:
+    """Bindings from ``cols [W, cap, nv]`` / ``valid [W, cap]`` / ``overflow
+    [W]`` (2-D / 1-D / scalar inputs get a window dimension of 1)."""
+    cols = np.asarray(cols)
+    valid = np.asarray(valid, bool)
+    overflow = np.asarray(overflow, bool)
+    if cols.ndim == 2:
+        cols, valid, overflow = cols[None], valid[None], overflow.reshape(1)
+    return Bindings(_ids(cols, device).to(ID_DTYPE), _mask(valid, device),
+                    _mask(overflow, device))

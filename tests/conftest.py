@@ -23,6 +23,11 @@ from repro.data.dbpedia import KBConfig, generate_kb
 from repro.data.tweets import TweetSchema, TweetStreamConfig, generate_tweets, stream_chunks
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where none is visible")
+
+
 class World:
     def __init__(self, num_tweets=40, num_artists=32, filler=200, seed=0):
         self.vocab = Vocab()

@@ -1,0 +1,182 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here carries the ``gpu`` marker and skips where no CUDA device
+is visible (the kernels have no CPU mode).  The file imports neither JAX
+nor the JAX package, so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
+
+Outputs are integer ids and 0/1 matrices: every comparison is exact.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.core import kb as pkb
+from repro_torch.core.pattern import Bindings, CompiledPattern, Slot
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.closure import kernel as p_cl_kernel
+from repro_torch.kernels.closure import ops as p_cl_ops
+from repro_torch.kernels.closure import ref as p_cl_ref
+from repro_torch.kernels.hash_join import ops as p_hj_ops
+
+BASE = 5000
+PATTERNS = {
+    "bound_const_free": CompiledPattern(Slot.bound(0), Slot.const_(2), Slot.free(1)),
+    "free_const_bound": CompiledPattern(Slot.free(1), Slot.const_(2), Slot.bound(0)),
+    "bound_free_free": CompiledPattern(Slot.bound(0), Slot.free(1), Slot.free(2)),
+    "const_const_free": CompiledPattern(Slot.const_(BASE + 3), Slot.const_(1), Slot.free(1)),
+    "bound_const_bound": CompiledPattern(Slot.bound(0), Slot.const_(3), Slot.bound(2)),
+    "repeated_free": CompiledPattern(Slot.free(1), Slot.const_(2), Slot.free(1)),
+}
+PROBE_PATTERNS = [k for k in PATTERNS if k not in ("bound_free_free",
+                                                    "repeated_free")]
+QUERY_DIR = os.path.join(os.path.dirname(__file__), "..", "examples", "queries")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _world(m=300, n=5000, nv=3, seed=0, spread=60, windows=3):
+    """Random bindings and a KB over a small id range, so joins hit, repeat
+    keys and fan out (the plain versions' inputs, on the CPU)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(BASE, BASE + spread, size=(windows, m, nv)).astype(np.uint32)
+    bvalid = rng.random((windows, m)) < 0.9
+    rows = np.stack([rng.integers(BASE, BASE + spread, n - 4),
+                     rng.integers(1, 4, n - 4),
+                     rng.integers(BASE, BASE + spread, n - 4)], axis=1)
+    loops = [(BASE + i, 2, BASE + i) for i in range(4)]   # ?x p ?x rows
+    kb = pkb.kb_from_triples(np.concatenate([rows, loops]), capacity=n + 5)
+    bind = interop.bindings_from_arrays(cols, bvalid, np.zeros(windows, bool))
+    return bind, kb
+
+
+def _to(b: Bindings, dev) -> Bindings:
+    return Bindings(*(t.to(dev) for t in b))
+
+
+def _same(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pat_name", sorted(PATTERNS))
+def test_scan_join_kernel_matches_plain(card, pat_name):
+    bind, kb = _world()
+    pat = PATTERNS[pat_name]
+    for out_cap in (7, 2000):
+        before = _cuda.LAUNCHES["join_compact"]
+        _same(p_hj_ops.join_compact(_to(bind, card), kb.to(card), pat, out_cap),
+              p_hj_ops.join_compact_torch(bind, kb, pat, out_cap))
+        assert _cuda.LAUNCHES["join_compact"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pat_name", PROBE_PATTERNS)
+def test_probe_join_kernel_matches_plain(card, pat_name):
+    bind, kb = _world()
+    pat = PATTERNS[pat_name]
+    for out_cap, k_max in ((7, 8), (2000, 2), (2000, 64)):
+        before = _cuda.LAUNCHES["probe_compact"]
+        _same(p_hj_ops.probe_compact(_to(bind, card), kb.to(card), pat,
+                                     out_cap, k_max),
+              p_hj_ops.probe_compact_torch(bind, kb, pat, out_cap, k_max))
+        assert _cuda.LAUNCHES["probe_compact"] == before + 1
+
+
+@pytest.mark.gpu
+def test_empty_bindings_on_the_card(card):
+    bind, kb = _world(windows=2)
+    empty = _to(bind._replace(valid=torch.zeros_like(bind.valid)), card)
+    pat = PATTERNS["bound_const_free"]
+    for got in (p_hj_ops.join_compact(empty, kb.to(card), pat, 64),
+                p_hj_ops.probe_compact(empty, kb.to(card), pat, 64)):
+        assert not got.valid.any() and not got.overflow.any()
+        assert not got.cols.any()
+
+
+def _hierarchy(n=300, seed=0):
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n), np.float32)
+    for i in range(1, n):                   # a DAG: edges to earlier nodes
+        for j in rng.choice(i, size=min(i, 2), replace=False):
+            if rng.random() < 0.7:
+                adj[i, j] = 1.0
+    return adj
+
+
+@pytest.mark.gpu
+def test_closure_kernels_match_plain(card):
+    reach = p_cl_ops._reach(_hierarchy(), 128, "cpu")
+    got = p_cl_kernel.closure_step_cuda(reach.to(card))
+    assert torch.equal(got.cpu(), p_cl_ref.closure_step_ref(reach))
+    for cap in (300, 9):
+        ids, count = p_cl_kernel.descendants_cuda(
+            reach.to(card), reach[:, 0].contiguous().to(card), cap)
+        r_ids, r_count = p_cl_ref.descendants_step_ref(
+            reach, reach[:, 0].contiguous(), cap)
+        assert torch.equal(ids.cpu(), r_ids) and int(count) == int(r_count)
+
+
+@pytest.mark.gpu
+def test_closure_ops_on_the_card_match_the_cpu(card):
+    adj = _hierarchy(n=150, seed=1)
+    for root, cap in ((0, 150), (3, 20)):
+        got = p_cl_ops.closure_descendants(adj, root, cap, device=card)
+        want = p_cl_ops.closure_descendants(adj, root, cap)
+        _same(got, want)
+    assert torch.equal(p_cl_ops.transitive_closure(adj, device=card).cpu(),
+                       p_cl_ops.transitive_closure(adj))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
+@pytest.mark.parametrize("method", ["scan", "probe", "auto"])
+def test_session_on_the_card_equals_the_cpu(card, mode, method):
+    from repro_torch.core import paper_queries as PQ
+    from repro_torch.core.rdf import Vocab
+    from repro_torch.core.session import ExecutionConfig, Session
+    from repro_torch.data.dbpedia import KBConfig, generate_kb
+    from repro_torch.data.tweets import (
+        TweetSchema, TweetStreamConfig, generate_tweets, stream_chunks)
+
+    vocab = Vocab()
+    kbd = generate_kb(vocab, KBConfig(num_artists=64, num_shows=32,
+                                      filler_triples=400, seed=0))
+    pool = np.concatenate([kbd.artist_ids, kbd.show_ids])
+    rows = generate_tweets(vocab, TweetSchema.create(vocab), pool,
+                           TweetStreamConfig(num_tweets=60, mentions_min=2,
+                                             mentions_max=3, seed=0))
+    chunks = list(stream_chunks(rows, 96))
+    texts = dict(PQ.RQ_TEXTS)
+    with open(os.path.join(QUERY_DIR, "artist_classes.rq")) as f:
+        texts["artist_classes"] = f.read()
+    caps = dict(mode=mode, kb_method=method, window_capacity=96,
+                max_windows=4, bind_cap=1024, scan_cap=128, out_cap=1024,
+                intermediate_cap=512)
+    _cuda.reset_launches()
+    for q, text in texts.items():
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            reg = Session(ExecutionConfig(device=dev, **caps), vocab=vocab,
+                          kb=kbd.kb).register(text)
+            outs[dev] = reg.run(chunks)
+        (gpu_outs, gpu_ovf), (cpu_outs, cpu_ovf) = outs["cuda"], outs["cpu"]
+        assert gpu_ovf == cpu_ovf, q
+        for a, b in zip(gpu_outs, cpu_outs):
+            _same(a, b)
+        assert sum(int(o.valid.sum()) for o in cpu_outs) > 0, q
+    assert _cuda.LAUNCHES["closure_step"] > 0 and _cuda.LAUNCHES["descendants"] > 0
+    if method == "scan":
+        assert _cuda.LAUNCHES["join_compact"] > 0
+    else:
+        assert _cuda.LAUNCHES["probe_compact"] > 0

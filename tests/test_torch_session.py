@@ -1,0 +1,215 @@
+"""PyTorch port vs the JAX reference: the whole slice through ``Session``.
+
+The same vocabulary, KB and stream chunks (carried over as numpy arrays)
+go through the reference ``Session`` (fused jnp joins, bit-identical to its
+Pallas kernels) and the port's ``Session`` on the CPU (the kernels' plain
+versions).  The output streams must be equal as ``np.uint32`` bytes with
+equal overflow totals, and the compiled plans must agree field by field.
+"""
+import copy
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import paper_queries as RPQ
+from repro.core import planner as rplanner
+from repro.core.rdf import Vocab as RVocab
+from repro.core.session import ExecutionConfig as RConfig
+from repro.core.session import Session as RSession
+from repro.data.dbpedia import KBConfig, generate_kb
+from repro.data.tweets import (
+    TweetSchema, TweetStreamConfig, generate_tweets, stream_chunks,
+)
+from repro_torch import interop
+from repro_torch.core import engine as pengine
+from repro_torch.core import planner as pplanner
+from repro_torch.core.session import ExecutionConfig, Session
+
+QUERY_DIR = os.path.join(os.path.dirname(__file__), "..", "examples", "queries")
+CAPS = dict(window_capacity=96, max_windows=4, bind_cap=1024, scan_cap=128,
+            out_cap=1024, intermediate_cap=512)
+QUERIES = ("q15", "q16", "cquery1", "artist_classes")
+CASES = ([(q, mode, "auto") for q in QUERIES
+          for mode in ("monolithic", "single_program")]
+         + [("cquery1", mode, m) for m in ("scan", "probe")
+            for mode in ("monolithic", "single_program")])
+
+
+def _texts():
+    texts = dict(RPQ.RQ_TEXTS)
+    with open(os.path.join(QUERY_DIR, "artist_classes.rq")) as f:
+        texts["artist_classes"] = f.read()
+    return texts
+
+
+class PortWorld:
+    """One reference world, and the same state as plain arrays."""
+
+    def __init__(self):
+        self.vocab = RVocab()
+        self.kbd = generate_kb(self.vocab, KBConfig(
+            num_artists=24, num_shows=12, filler_triples=80, seed=0))
+        tweets = TweetSchema.create(self.vocab)
+        pool = np.concatenate([self.kbd.artist_ids, self.kbd.show_ids])
+        rows = generate_tweets(self.vocab, tweets, pool, TweetStreamConfig(
+            num_tweets=36, mentions_min=2, mentions_max=3, seed=0))
+        self.chunks = list(stream_chunks(rows, 96))
+        self.kb_arrays = {f: np.asarray(getattr(self.kbd.kb, f))
+                          for f in self.kbd.kb._fields}
+        self.chunk_arrays = [[np.asarray(c) for c in ch] for ch in self.chunks]
+        self.texts = _texts()
+        self.ref = {}
+
+    def port_vocab(self):
+        v = self.vocab
+        return interop.vocab_from_state(v._pred_to_id, v._term_to_id,
+                                        v._next_pred, v._next_term)
+
+    def ref_run(self, q, mode, method):
+        key = (q, mode, method)
+        if key not in self.ref:
+            sess = RSession(RConfig(mode=mode, kb_method=method,
+                                    fuse_compaction=True, **CAPS),
+                            vocab=copy.deepcopy(self.vocab), kb=self.kbd.kb)
+            reg = sess.register(self.texts[q])
+            outs, overflow = reg.run(self.chunks)
+            self.ref[key] = (reg, [[np.asarray(c) for c in o] for o in outs],
+                             overflow, reg.overflow_totals())
+        return self.ref[key]
+
+    def port_register(self, q, mode, method, **kw):
+        sess = Session(ExecutionConfig(mode=mode, kb_method=method,
+                                       device="cpu", **CAPS, **kw),
+                       vocab=self.port_vocab(),
+                       kb=interop.kb_from_arrays(self.kb_arrays))
+        return sess.register(self.texts[q])
+
+    def port_chunks(self):
+        return [interop.triples_from_arrays(*c) for c in self.chunk_arrays]
+
+
+@pytest.fixture(scope="module")
+def pworld():
+    w = PortWorld()
+    assert len(w.chunks) >= 3
+    return w
+
+
+def _bytes(col) -> bytes:
+    if torch.is_tensor(col):
+        col = col.numpy()
+    return np.asarray(col).astype(np.uint32).tobytes()
+
+
+@pytest.mark.parametrize("q,mode,method", CASES)
+def test_session_output_equals_reference(pworld, q, mode, method):
+    _, ref_outs, ref_ovf, ref_totals = pworld.ref_run(q, mode, method)
+    reg = pworld.port_register(q, mode, method)
+    outs, overflow = reg.run(pworld.port_chunks())
+    assert len(outs) == len(ref_outs)
+    for i, (ro, po) in enumerate(zip(ref_outs, outs)):
+        for name, rc, pc in zip(po._fields, ro, po):
+            assert _bytes(rc) == _bytes(pc), (q, mode, method, i, name)
+    assert overflow == dict(ref_ovf)
+    assert reg.overflow_totals() == ref_totals
+    assert sum(int(o.valid.sum()) for o in outs) > 0
+
+
+def _norm(x):
+    """A plan (or part of one) as plain tuples, keeping the fields both
+    packages have (the reference's Pallas knobs have no counterpart)."""
+    if dataclasses.is_dataclass(x):
+        names = [f.name for f in dataclasses.fields(x)
+                 if f.name not in ("use_pallas", "fuse_compaction", "bm",
+                                   "bn", "interpret")]
+        return (type(x).__name__,) + tuple(
+            (n, _norm(getattr(x, n))) for n in names)
+    if isinstance(x, (tuple, list)):
+        return tuple(_norm(v) for v in x)
+    if hasattr(x, "value") and hasattr(x, "name"):      # SlotMode
+        return int(x)
+    return x
+
+
+@pytest.mark.parametrize("q", QUERIES)
+@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
+def test_compiled_plans_equal_reference(pworld, q, mode):
+    ref_reg = pworld.ref_run(q, mode, "auto")[0]
+    reg = pworld.port_register(q, mode, "auto")
+    assert sorted(reg.operators) == sorted(ref_reg.operators)
+    for name, op in reg.operators.items():
+        ref_op = ref_reg.operators[name]
+        ref_plan = ref_op.plan
+        if mode == "single_program" and name == ref_reg.dag.final:
+            # the reference runs a split sink (its plan rewritten to join
+            # upstream tables); the port keeps the augmented-window sink,
+            # whose plan is the reference's compile before that rewrite
+            sub = ref_reg.dag.subqueries[name]
+            assert not sub.touches_kb
+            ref_plan = rplanner.compile_query(
+                sub.query, kb_method="auto", scan_cap=CAPS["scan_cap"],
+                bind_cap=CAPS["bind_cap"], out_cap=CAPS["out_cap"])
+        assert _norm(op.plan) == _norm(ref_plan), name
+        assert pplanner.plan_caps(op.plan) == rplanner.plan_caps(ref_plan)
+        assert sorted(op.env) == sorted(ref_op.env)
+        for k in op.env:
+            assert _bytes(op.env[k]) == _bytes(ref_op.env[k])
+        assert (op.kb is None) == (ref_op.kb is None)
+        if op.kb is not None:
+            for f in op.kb._fields:
+                assert _bytes(getattr(op.kb, f)) == _bytes(
+                    getattr(ref_op.kb, f)), (name, f)
+    assert reg.text == ref_reg.text
+
+
+def test_stream_generator_matches_run(pworld):
+    reg = pworld.port_register("q15", "single_program", "auto")
+    outs, _ = reg.run(pworld.port_chunks())
+    streamed = list(reg.stream(pworld.port_chunks()))
+    for a, b in zip(outs, streamed):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    out, ovf = reg.process_chunk(pworld.port_chunks()[0])
+    assert all(torch.equal(x, y) for x, y in zip(out, outs[0]))
+    assert set(ovf) == set(reg.operators)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mode="pipelined"), dict(incremental=True), dict(window_step=16),
+    dict(window_from_query=True), dict(mesh=object()), dict(trace=True),
+    dict(faults=object()), dict(recovery=object()),
+])
+def test_unported_knobs_raise_naming_their_roadmap_item(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ExecutionConfig(device="cpu", **knob)
+
+
+def test_device_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExecutionConfig()
+
+
+def test_kb_touching_query_needs_a_kb(pworld):
+    sess = Session(ExecutionConfig(device="cpu", **CAPS),
+                   vocab=pworld.port_vocab())
+    with pytest.raises(ValueError, match="kb="):
+        sess.register(pworld.texts["q15"])
+
+
+def test_duplicate_registration_raises(pworld):
+    sess = Session(ExecutionConfig(device="cpu", **CAPS),
+                   vocab=pworld.port_vocab(),
+                   kb=interop.kb_from_arrays(pworld.kb_arrays))
+    sess.register(pworld.texts["q16"])
+    with pytest.raises(ValueError, match="already registered"):
+        sess.register(pworld.texts["q16"])
+    sess.register(pworld.texts["q16"], replace=True)
+
+
+def test_plan_steps_carry_only_ported_knobs():
+    fields = {f.name for f in dataclasses.fields(pengine.KBJoin)}
+    assert fields == {"pat", "method", "k_max"}
