@@ -9,26 +9,39 @@ Phases (each prints its lines; any failure exits non-zero):
    ``nvcc`` (one process per source, all started together) and print the
    card's name and power limit.
 2. **Kernels against their plain versions, on the card**: the scan join,
-   the probe join, the closure squaring step and the fused descendants
-   step, each held byte for byte (tolerance 0: the outputs are integer ids
-   and 0/1 matrices) against its plain PyTorch version on the same inputs,
-   at the main path's shapes plus edge cases; each timed with CUDA events
-   beside its plain version, its bound and, where one exists, one PyTorch
-   library call computing the same function.
+   the probe join, the match matrix, the closure squaring step and the
+   fused descendants step, each held byte for byte (tolerance 0: the
+   outputs are integer ids and 0/1 matrices) against its plain PyTorch
+   version on the same inputs, at the main path's shapes plus edge cases;
+   each timed with CUDA events beside its plain version, its bound and,
+   where one exists, one PyTorch library call computing the same function.
 3. **The main path at full scale**: the paper's queries (Q15, Q16, CQuery1,
    artist_classes) registered through ``Session`` in ``monolithic`` and
    ``single_program`` mode under ``kb_method`` scan, probe and auto, over a
-   ~0.86 M-triple KB and 8 stream chunks of 1000-triple windows.  Launch
-   counters are zeroed just before and read just after; every kernel must
-   have launched.  ``monolithic`` must equal ``single_program`` byte for
-   byte with zero overflow, and the GPU run must equal a CPU run of the
-   port (plain versions) where the CPU can hold it.  Each configuration
-   runs one warm-up chunk, then the 8 chunks ``REPEATS`` times (each pass
-   must give the same bytes); chunks/s is the median pass, with the
-   spread.
+   ~0.86 M-triple KB and ``CHUNKS`` stream chunks of 1000-triple tumbling
+   windows.  ``monolithic`` must equal ``single_program`` byte for byte
+   with zero overflow, and the GPU run must equal a CPU run of the port
+   (plain versions) on all its chunks.  Each configuration runs one
+   warm-up chunk, then the chunks ``REPEATS`` times (each pass must give
+   the same bytes); chunks/s is the median pass, with the spread, beside
+   the configuration's peak device memory.
 4. **Where the time goes**: a ``torch.profiler`` window over two chunks of
    CQuery1 (monolithic scan, monolithic auto, single_program auto): device
    time by kernel and by PyTorch operator, and the device's idle share.
+5. **Sliding windows and incremental evaluation**, on the same world: Q15,
+   Q16 and CQuery1 at ``RANGE 1000 STEP 250``, artist_classes at its own
+   ``RANGE 256 STEP 64`` (``window_from_query``), both modes, ``auto``
+   with and without incremental evaluation and ``scan`` with it.
+   Incremental must equal recompute, monolithic single_program, and GPU
+   the CPU (one chunk per query) byte for byte, with zero overflow and no
+   triple dropped by the slide packing.
+6. **The unfused scan join**: the four queries in both modes under
+   ``kb_method="scan", fuse_compaction=False`` (the match-matrix kernel),
+   tumbling, full KB; byte for byte the fused run of phase 3.
+
+Phases 3, 5 and 6 each drive their path with the launch counters zeroed
+just before and read just after; each kernel of the path must have
+launched, and the JSON line's ``launches`` sums the three runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -36,6 +49,7 @@ package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -66,6 +80,22 @@ CAPS = dict(bind_cap=4096, scan_cap=1024, out_cap=4096,
 LIVE_ROWS = 425        # valid binding rows per window in phase 2's joins
 REPEATS = 3            # timed passes over the stream per configuration
 
+# phase 5: sliding windows.  A chunk of SLIDE_CHUNK triples; each query's
+# (RANGE, STEP, max_windows) gives max_windows + R - 1 slides, which hold
+# the whole chunk whatever the packing (every slide but the last is filled
+# to at least STEP - 6).  Incremental evaluation runs the chunk as one
+# table, so scan_cap (> SLIDE_CHUNK) and bind_cap bound the chunk's rows;
+# recompute uses the same caps (bind_cap numbers the output graphs, so the
+# two compare byte for byte only under one bind_cap).
+SLIDE_CHUNK = CHUNK // 4
+SLIDE_CHUNKS = 8
+SLIDE_CAPS = dict(bind_cap=4096, scan_cap=2048, out_cap=4096,
+                  intermediate_cap=2048)
+SLIDE_GEOMETRY = {"q15": (1000, 250, 8), "q16": (1000, 250, 8),
+                  "cquery1": (1000, 250, 8),
+                  "artist_classes": (256, 64, 33)}   # the query's own RANGE
+SLIDE_CONFIGS = (("auto", False), ("auto", True), ("scan", True))
+
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
 METHODS = ("scan", "probe", "auto")
@@ -73,6 +103,7 @@ METHODS = ("scan", "probe", "auto")
 # the __global__ function each kernel wrapper launches (profiler names)
 KERNEL_SYMBOLS = {"join_compact": "scan_join_kernel",
                   "probe_compact": "probe_join_kernel",
+                  "match_matrix": "match_matrix_kernel",
                   "closure_step": "bool_matmul_kernel",
                   "descendants": "descendants_kernel"}
 
@@ -181,7 +212,7 @@ def make_world():
         "(%d triples), generated in %.1f s"
         % (int(kbd.kb.count()), vocab.num_terms, len(chunks), CHUNK,
            sum(int(c.count()) for c in chunks), time.time() - t0))
-    return vocab, kbd, tweets, chunks
+    return vocab, kbd, rows, chunks
 
 
 # --------------------------------------------------------------------------
@@ -268,6 +299,9 @@ def phase_kernels(vocab, kbd):
         "probe_compact": KernelRecord(
             "probe_compact", "src/repro_torch/kernels/csrc/hash_join.cu",
             "src/repro/kernels/hash_join/kernel.py:285"),
+        "match_matrix": KernelRecord(
+            "match_matrix", "src/repro_torch/kernels/csrc/hash_join.cu",
+            "src/repro/kernels/hash_join/kernel.py:112"),
         "closure_step": KernelRecord(
             "closure_step", "src/repro_torch/kernels/csrc/closure.cu",
             "src/repro/kernels/closure/kernel.py:105"),
@@ -285,8 +319,10 @@ def phase_kernels(vocab, kbd):
             rec.library_ms = cuda_ms(library)
 
     def check(name, tag, got, want):
-        err = _same_bindings(got, want) if hasattr(got, "cols") else \
-            max_abs_err(got, want)
+        record(name, tag, _same_bindings(got, want) if hasattr(got, "cols")
+               else max_abs_err(got, want))
+
+    def record(name, tag, err):
         rec = recs[name]
         rec.err = max(rec.err, err)
         rec.cases += 1
@@ -393,6 +429,79 @@ def phase_kernels(vocab, kbd):
           hj_ops.join_compact(b_coll, kb_coll, pat_coll, 1024),
           hj_ops.join_compact_torch(b_coll, kb_coll, pat_coll, 1024))
 
+    # -- match matrix: the candidate matrix of the unfused scan join
+    def check_mm(tag, b, k, pat):
+        """The kernel's [W, M, N] matrix against the plain one, a window at
+        a time (the plain version's temporaries stay one window wide)."""
+        got = hj_ops.match_matrix(b, k, pat)
+        if got.dtype != torch.bool or got.shape != (
+                b.cols.shape[0], b.cols.shape[1], k.capacity):
+            fail("match_matrix gave %s %s" % (got.dtype, tuple(got.shape)))
+        err = 0.0
+        for i in range(got.shape[0]):
+            want = hj_ops.match_matrix_torch(
+                b._replace(cols=b.cols[i:i + 1], valid=b.valid[i:i + 1],
+                           overflow=b.overflow[i:i + 1]), k, pat)
+            err = max(err, float((got[i] != want[0]).any()))
+        record("match_matrix", tag, err)
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    got = check_mm("W=%d M=%d N=%d (main-path shape)" % (w, m, n_kb), bind,
+                   kb, pat_type)
+    log("  match_matrix  W=%d output %.2f GB, max_memory_allocated %.2f GB"
+        % (w, got.numel() / 1e9, torch.cuda.max_memory_allocated() / 1e9))
+    del got
+    rec = recs["match_matrix"]
+    mm_fn = lambda: hj_ops.match_matrix(bind, kb, pat_type)    # noqa: E731
+    rec.ms = cuda_ms(mm_fn, iters=5)
+    rec.launch_ms = launch_ms(mm_fn, rec.symbol, iters=5)
+    rec.plain_ms = cuda_ms(lambda: hj_ops.match_matrix_torch(
+        bind, kb, pat_type), iters=2, warmup=1)
+    rec.bound_ms, rec.bound_by = _bound(
+        w * m * n_kb + 13 * n_kb + w * m * 4 * nv, 3.0 * live_rows * n_kb)
+    buf = torch.empty((w, m, n_kb), dtype=torch.int8, device="cuda")
+    log("  match_matrix  write-rate yardstick: fill_ of the same %.2f GB "
+        "%.4f ms" % (buf.numel() / 1e9, cuda_ms(lambda: buf.fill_(0), iters=5)))
+    del buf
+    # ids straddling 2^31, every slot mode, repeated variables, M and N off
+    # the kernel's tiles (64 rows x 1024 columns)
+    high = np.asarray([4096, 4097, (1 << 31) - 1, 1 << 31, (1 << 31) + 1,
+                       0xFFFFFFFE], np.int64)
+    hrows = np.stack([rng.choice(high, 5003), rng.integers(1, 4, 5003),
+                      rng.choice(high, 5003)], axis=1)
+    hrows[:6, 1] = 2
+    hrows[:6, 2] = hrows[:6, 0]
+    kb_high = kb_from_triples(hrows.astype(np.uint32), capacity=5007,
+                              device="cuda")
+    b_high = _bindings(3, 1000, 3, 377, high, rng)
+    b_high.cols[:, :377, 1:] = torch.from_numpy(
+        rng.choice(high, size=(3, 377, 2))).cuda()
+    for tag, pat in (
+            ("B C F", CompiledPattern(Slot.bound(0), Slot.const_(2),
+                                      Slot.free(1))),
+            ("F C B", CompiledPattern(Slot.free(2), Slot.const_(2),
+                                      Slot.bound(0))),
+            ("C C F, const 2^31", CompiledPattern(Slot.const_(1 << 31),
+                                                  Slot.const_(1),
+                                                  Slot.free(2))),
+            ("B F B", CompiledPattern(Slot.bound(0), Slot.free(1),
+                                      Slot.bound(2))),
+            ("B F F", CompiledPattern(Slot.bound(0), Slot.free(1),
+                                      Slot.free(2))),
+            ("?x C ?x (repeated free)", CompiledPattern(
+                Slot.free(1), Slot.const_(2), Slot.free(1))),
+            ("?x F ?x (repeated bound)", CompiledPattern(
+                Slot.bound(0), Slot.free(1), Slot.bound(0)))):
+        check_mm("W=3 M=1000 N=5007 ids across 2^31, %s" % tag, b_high,
+                 kb_high, pat)
+    check_mm("W=3 M=1000 N=5003, ?x p ?x", b_small, kb_small, pat_rep)
+    kb_none = kb_from_triples(np.zeros((0, 3), np.uint32), capacity=5,
+                              device="cuda")
+    check_mm("empty KB (5 invalid rows)", b_high, kb_none, pat_type)
+    check_mm("empty KB (0 rows)", b_high,
+             kb_none._make(c[:0] for c in kb_none), pat_type)
+
     # -- closure kernels on the world's class hierarchy
     edges = subclass_edges(kb, sch.subclass_of)
     idx, ids = build_class_index(edges)
@@ -454,12 +563,12 @@ def query_texts():
     return texts
 
 
-def exec_config(mode, method, device):
+def exec_config(mode, method, device, **kw):
     from repro_torch.core.session import ExecutionConfig
 
-    return ExecutionConfig(mode=mode, kb_method=method, device=device,
-                           window_capacity=1000, max_windows=MAX_WINDOWS,
-                           **CAPS)
+    cfg = dict(window_capacity=1000, max_windows=MAX_WINDOWS, **CAPS)
+    cfg.update(kw)
+    return ExecutionConfig(mode=mode, kb_method=method, device=device, **cfg)
 
 
 def _launch_delta(before):
@@ -477,15 +586,18 @@ def run_session(vocab, kb, chunks, text, cfg, repeats=1):
     """Register (plan time) and run the stream.  With ``repeats > 1`` one
     warm-up chunk runs first, then the stream ``repeats`` times, each pass
     timed and held to the first's bytes.  Returns a dict: outputs on the
-    host, overflow totals, plan seconds, run seconds per pass, and the
-    kernel launches of the registration and of one pass."""
+    host, overflow totals, plan seconds, run seconds per pass, the kernel
+    launches of the registration and of one pass, the peak device memory
+    (the world's KB included) and the window (capacity, step) in effect."""
     from repro_torch.core.session import Session
     from repro_torch.kernels import _cuda
 
     # one vocab for every session: a query interns the same names whichever
     # session registers it first, so outputs stay comparable
+    gc.collect()        # a Session and its queries form a reference cycle
     sess = Session(cfg, vocab=vocab, kb=kb)
     sync()
+    torch.cuda.reset_peak_memory_stats()
     before = dict(_cuda.LAUNCHES)
     t0 = time.perf_counter()
     reg = sess.register(text)
@@ -511,7 +623,36 @@ def run_session(vocab, kb, chunks, text, cfg, repeats=1):
     return {"outs": [tuple(c.cpu() for c in o) for o in outs],
             "overflow": overflow, "plan_s": plan_s, "run_s": run_s,
             "plan_launches": plan_launches, "run_launches": run_launches,
-            "reg": reg}
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "geometry": (reg.config.window_capacity,
+                         reg.config.window_step)}
+
+
+def rate_text(res) -> str:
+    """chunks/s of the median pass (slowest-fastest) and peak memory."""
+    n = len(res["outs"])
+    rates = sorted(n / t for t in res["run_s"])
+    return ("%d chunks: %.2f chunks/s median of %d passes (%.2f-%.2f), "
+            "peak %.2f GB" % (n, rates[len(rates) // 2], len(rates), rates[0],
+                              rates[-1], res["peak_gb"]))
+
+
+def n_triples(outs) -> int:
+    return sum(int(o[5].sum()) for o in outs)
+
+
+def path_launches(name, needed, smi):
+    """Read the counters after a path's run (zeroed just before it) and
+    fail if a kernel of the path never launched."""
+    from repro_torch.kernels import _cuda
+
+    sync()
+    launches = dict(_cuda.LAUNCHES)
+    log("%s launches: %s [%s]" % (name, json.dumps(launches), smi))
+    for k in needed:
+        if launches[k] <= 0:
+            fail("kernel %s never launched on the %s" % (k, name))
+    return launches
 
 
 def _short(launches) -> str:
@@ -538,30 +679,23 @@ def phase_main(vocab, kbd, chunks, smi):
                                   exec_config(mode, method, "cuda"), REPEATS)
                 outs, ovf = res["outs"], res["overflow"]
                 results[(q, mode, method)] = outs
-                n_out = sum(int(o[5].sum()) for o in outs)
-                rates = sorted(len(outs) / t for t in res["run_s"])
-                log("  %-14s %-14s %-5s plan %.3f s, %d chunks: %.2f chunks/s "
-                    "median of %d passes (%.2f-%.2f), %d output triples, "
+                log("  %-14s %-14s %-5s plan %.3f s, %s, %d output triples, "
                     "overflow %s, launches plan {%s} pass {%s} [%s]"
-                    % (q, mode, method, res["plan_s"], len(outs),
-                       rates[len(rates) // 2], len(rates), rates[0], rates[-1],
-                       n_out, ovf, _short(res["plan_launches"]),
+                    % (q, mode, method, res["plan_s"], rate_text(res),
+                       n_triples(outs), ovf, _short(res["plan_launches"]),
                        _short(res["run_launches"]), smi))
                 if any(ovf.values()):
                     fail("overflow in %s %s %s: %s" % (q, mode, method, ovf))
-                if n_out == 0:
+                if n_triples(outs) == 0:
                     fail("empty output stream for %s %s %s" % (q, mode, method))
             if not same_outputs(results[(q, "monolithic", method)],
                                 results[(q, "single_program", method)]):
                 fail("monolithic != single_program for %s %s" % (q, method))
             log("  %-14s %-5s monolithic == single_program byte for byte"
                 % (q, method))
-    sync()
-    launches = dict(_cuda.LAUNCHES)
-    log("phase 3 launches: %s" % json.dumps(launches))
-    for name, count in launches.items():
-        if count <= 0:
-            fail("kernel %s never launched on the main path" % name)
+    launches = path_launches(
+        "phase 3 (tumbling main path)",
+        ("join_compact", "probe_compact", "closure_step", "descendants"), smi)
 
     # host-side window packing of one merged chunk (host clock, synced)
     merged = [merge_streams([c]) for c in gpu_chunks]
@@ -581,10 +715,127 @@ def phase_main(vocab, kbd, chunks, smi):
     for q, mode, method in combos:
         res = run_session(vocab, kb_cpu, chunks, texts[q],
                           exec_config(mode, method, "cpu"))
-        if not same_outputs(res["outs"], results[(q, mode, method)]):
+        if not same_outputs(res["outs"],
+                            results[(q, mode, method)]):
             fail("GPU != CPU for %s %s %s" % (q, mode, method))
         log("  %-14s %-14s %-5s GPU == CPU on %d chunks (CPU %.1f s)"
             % (q, mode, method, len(res["outs"]), res["run_s"][0]))
+    return launches, results
+
+
+def slide_config(q, mode, method, incremental, device):
+    """Phase 5's configuration of query ``q``: its (RANGE, STEP) geometry
+    with max_windows slides enough for a whole chunk."""
+    cap, step, max_windows = SLIDE_GEOMETRY[q]
+    geometry = (dict(window_from_query=True) if q == "artist_classes"
+                else dict(window_capacity=cap, window_step=step))
+    return exec_config(mode, method, device, max_windows=max_windows,
+                       incremental=incremental,
+                       out_stream_cap=max_windows * SLIDE_CAPS["out_cap"],
+                       **SLIDE_CAPS, **geometry)
+
+
+def phase_sliding(vocab, kbd, rows, smi):
+    from repro_torch.core.stream import merge_streams
+    from repro_torch.core.window import count_slides
+    from repro_torch.data.tweets import stream_chunks
+    from repro_torch.kernels import _cuda
+
+    texts = query_texts()
+    chunks = list(stream_chunks(rows, SLIDE_CHUNK))[:SLIDE_CHUNKS]
+    gpu_chunks = [c.to("cuda") for c in chunks]
+    log("phase 5: %d chunks of capacity %d (%d triples), caps %s, "
+        "1 warm-up chunk + %d timed passes per configuration"
+        % (len(chunks), SLIDE_CHUNK, sum(int(c.count()) for c in chunks),
+           " ".join("%s=%d" % kv for kv in SLIDE_CAPS.items()), REPEATS))
+    # the slides of every geometry hold the whole chunk: no triple dropped
+    for q, (cap, step, max_windows) in SLIDE_GEOMETRY.items():
+        dropped, used = 0, 0
+        for c in gpu_chunks:
+            view = count_slides(merge_streams([c]), cap, max_windows, step)
+            dropped += int((view.stream.valid
+                            & (view.slide_of_row < 0)).sum())
+            used = max(used, int(view.slide_valid.sum()))
+        log("  %-14s RANGE %d STEP %d, max_windows %d: %d slides, at most "
+            "%d used; %d triples dropped" % (q, cap, step, max_windows,
+                                             max_windows + -(-cap // step) - 1,
+                                             used, dropped))
+        if dropped:
+            fail("the slides of %s dropped %d triples" % (q, dropped))
+
+    results = {}
+    _cuda.reset_launches()
+    for q in QUERIES:
+        for method, incremental in SLIDE_CONFIGS:
+            for mode in MODES:
+                cfg = slide_config(q, mode, method, incremental, "cuda")
+                res = run_session(vocab, kbd.kb, gpu_chunks, texts[q], cfg,
+                                  REPEATS)
+                outs, ovf = res["outs"], res["overflow"]
+                results[(q, mode, method, incremental)] = outs
+                log("  %-14s %-14s %-5s %-11s RANGE %d STEP %d: %s, %d "
+                    "output triples, overflow %s [%s]"
+                    % (q, mode, method,
+                       "incremental" if incremental else "recompute",
+                       *res["geometry"], rate_text(res),
+                       n_triples(outs), ovf, smi))
+                if any(ovf.values()):
+                    fail("overflow in %s %s %s incremental=%s: %s"
+                         % (q, mode, method, incremental, ovf))
+                if n_triples(outs) == 0:
+                    fail("empty output stream for %s %s %s" % (q, mode, method))
+        ref = results[(q, "monolithic", "auto", False)]
+        for key, outs in results.items():
+            if key[0] == q and not same_outputs(outs, ref):
+                fail("%s %s %s incremental=%s != monolithic auto recompute"
+                     % key)
+        log("  %-14s incremental == recompute, scan == auto, monolithic == "
+            "single_program byte for byte" % q)
+    launches = path_launches(
+        "phase 5 (sliding windows)",
+        ("join_compact", "probe_compact", "closure_step", "descendants"), smi)
+
+    kb_cpu = kbd.kb.to("cpu")
+    for q in QUERIES:
+        res = run_session(vocab, kb_cpu, chunks[:1], texts[q],
+                          slide_config(q, "single_program", "auto", True,
+                                       "cpu"))
+        if not same_outputs(
+                res["outs"], results[(q, "single_program", "auto", True)][:1]):
+            fail("GPU != CPU for %s single_program auto incremental" % q)
+        log("  %-14s single_program auto incremental GPU == CPU on 1 chunk "
+            "(CPU %.1f s)" % (q, res["run_s"][0]))
+    return launches
+
+
+def phase_unfused(vocab, kbd, chunks, fused, smi):
+    from repro_torch.kernels import _cuda
+
+    texts = query_texts()
+    gpu_chunks = [c.to("cuda") for c in chunks]
+    log("phase 6: kb_method=scan, fuse_compaction=False, tumbling, %d "
+        "chunks, caps as phase 3" % len(gpu_chunks))
+    _cuda.reset_launches()
+    for q in QUERIES:
+        for mode in MODES:
+            res = run_session(vocab, kbd.kb, gpu_chunks, texts[q],
+                              exec_config(mode, "scan", "cuda",
+                                          fuse_compaction=False), REPEATS)
+            outs, ovf = res["outs"], res["overflow"]
+            log("  %-14s %-14s unfused scan: %s, %d output triples, overflow "
+                "%s, launches pass {%s} [%s]"
+                % (q, mode, rate_text(res), n_triples(outs), ovf,
+                   _short(res["run_launches"]), smi))
+            if any(ovf.values()):
+                fail("overflow in %s %s unfused: %s" % (q, mode, ovf))
+            if not same_outputs(outs, fused[(q, mode, "scan")]):
+                fail("unfused != fused for %s %s" % (q, mode))
+        log("  %-14s unfused == fused byte for byte" % q)
+    launches = path_launches("phase 6 (unfused scan join)",
+                             ("match_matrix", "closure_step", "descendants"),
+                             smi)
+    if launches["join_compact"]:
+        fail("the unfused path launched the fused scan join")
     return launches
 
 
@@ -596,13 +847,16 @@ def phase_profile(vocab, kbd, chunks, smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.session import Session
+
     texts = query_texts()
     gpu_chunks = [c.to("cuda") for c in chunks[:3]]
     for q, mode, method in (("cquery1", "monolithic", "scan"),
                             ("cquery1", "monolithic", "auto"),
                             ("cquery1", "single_program", "auto")):
-        reg = run_session(vocab, kbd.kb, gpu_chunks[:1], texts[q],
-                          exec_config(mode, method, "cuda"))["reg"]
+        reg = Session(exec_config(mode, method, "cuda"), vocab=vocab,
+                      kb=kbd.kb).register(texts[q])
+        reg.run(gpu_chunks[:1])
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             sync()
@@ -662,7 +916,7 @@ def main() -> int:
             if "registers" in line or "error" in line:
                 log("  ptxas %s: %s" % (name, line.strip()))
 
-    vocab, kbd, _, chunks = make_world()
+    vocab, kbd, rows, chunks = make_world()
 
     log("phase 2: kernels against their plain versions (tolerance 0)")
     recs = phase_kernels(vocab, kbd)
@@ -675,12 +929,24 @@ def main() -> int:
                 "%.4f ms" % rec.library_ms if rec.library_ms is not None
                 else "none", rec.bound_ms, rec.bound_by, smi))
 
-    launches = phase_main(vocab, kbd, chunks, smi)
+    log("phase 2 done at %.1f s" % (time.time() - t_start))
+    launches, results = phase_main(vocab, kbd, chunks, smi)
+    log("phase 3 done at %.1f s" % (time.time() - t_start))
     log("phase 4: where the time goes (torch.profiler)")
     phase_profile(vocab, kbd, chunks, smi)
+    log("phase 4 done at %.1f s" % (time.time() - t_start))
+    slide_launches = phase_sliding(vocab, kbd, rows, smi)
+    log("phase 5 done at %.1f s" % (time.time() - t_start))
+    unfused_launches = phase_unfused(vocab, kbd, chunks, results, smi)
+    log("phase 6 done at %.1f s" % (time.time() - t_start))
+    total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
+             for k in launches}
+    for name, count in total.items():
+        if count <= 0:
+            fail("kernel %s never launched on any path" % name)
     log("total %.1f s" % (time.time() - t_start))
     log(smi)
-    print(json.dumps({"kernels": [recs[k].row(launches[k]) for k in recs]}))
+    print(json.dumps({"kernels": [recs[k].row(total[k]) for k in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

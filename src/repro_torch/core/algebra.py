@@ -5,13 +5,17 @@ here, batched over the window dimension ``W`` (binding tables are ``[W, cap,
 nv]``, windows ``[W, C]``):
 
 * basic graph patterns      -> ``scan_pattern`` + ``join``
-* KB access (two methods)   -> ``kb_join`` (``"scan"`` | ``"probe"``), always
-                               the fused join kernels of
-                               :mod:`repro_torch.kernels.hash_join`
+* KB access (two methods)   -> ``kb_join`` (``"scan"`` | ``"probe"``) over the
+                               join kernels of
+                               :mod:`repro_torch.kernels.hash_join`: the fused
+                               scan and probe joins, or the unfused scan
+                               join (match matrix, then compaction)
 * FILTER                    -> ``filter_num`` / ``filter_bool`` / ``filter_in``
                                / ``filter_bound``
 * UNION / OPTIONAL          -> ``union`` / ``optional_join``
 * CONSTRUCT                 -> ``construct``
+* incremental evaluation    -> ``scan_pattern_delta`` / ``delta_retract`` /
+                               ``delta_window_mask`` (slide-span columns)
 
 Everything is deterministic and order-preserving, and ``canonical_order``
 makes the published row order a function of the result set, so decomposed
@@ -33,9 +37,11 @@ from ..kernels.hash_join import ops as hj_ops
 from .kb import KnowledgeBase
 from .pattern import (
     Bindings, CompiledPattern, SlotMode, compact_index, compact_rows,
-    gather_rows,
+    gather_rows, universe_bindings,
 )
-from .rdf import ID_DTYPE, NUM_BASE, PAD_ID, ROW_BASE, TripleBatch, lexsort_order
+from .rdf import (
+    ID_DTYPE, NUM_BASE, PAD_ID, ROW_BASE, U32_MAX, TripleBatch, lexsort_order,
+)
 
 
 # --------------------------------------------------------------------------
@@ -57,9 +63,9 @@ def _repeat_pairs(slots):
                 yield i, j
 
 
-def scan_pattern(window: TripleBatch, pat: CompiledPattern, num_vars: int,
-                 out_cap: int) -> Bindings:
-    """Match one triple pattern against every window ``[W, C]``."""
+def _scan_rows(window: TripleBatch, pat: CompiledPattern, width: int):
+    """Match mask ``[W, n]`` of one triple pattern over ``window [W, n]``
+    and the rows ``[W, n, width]`` binding the pattern's variables."""
     cols = (window.s, window.p, window.o)
     slots = (pat.s, pat.p, pat.o)
     m = window.valid
@@ -68,10 +74,17 @@ def scan_pattern(window: TripleBatch, pat: CompiledPattern, num_vars: int,
     for i, j in _repeat_pairs(slots):
         m = m & (cols[i] == cols[j])
     w, n = window.valid.shape
-    out = torch.zeros((w, n, num_vars), dtype=ID_DTYPE, device=m.device)
+    out = torch.zeros((w, n, width), dtype=ID_DTYPE, device=m.device)
     for i, slot in enumerate(slots):
         if slot.mode != SlotMode.CONST:
             out[..., slot.var] = cols[i]
+    return m, out
+
+
+def scan_pattern(window: TripleBatch, pat: CompiledPattern, num_vars: int,
+                 out_cap: int) -> Bindings:
+    """Match one triple pattern against every window ``[W, C]``."""
+    m, out = _scan_rows(window, pat, num_vars)
     rows, valid, overflow = compact_rows(out, m, out_cap)
     return Bindings(rows, valid, overflow)
 
@@ -129,20 +142,97 @@ def optional_join(a: Bindings, b: Bindings, shared: Tuple[int, ...],
 
 
 # --------------------------------------------------------------------------
-# KB access — the paper's two measured methods, fused kernels only
+# KB access — the paper's two measured methods
 # --------------------------------------------------------------------------
 
+# candidate-matrix entries one step of the unfused compaction scans, which
+# keeps every ``nonzero`` below INT_MAX elements
+COMPACT_BLOCK = 1 << 30
+# candidate-matrix bytes one match-matrix launch may write: the unfused join
+# launches over as many windows at once as fit (all 8 windows of a
+# full-width tumbling chunk, 4096 x 860,600 bytes each, in one launch)
+MM_LAUNCH_BYTES = 1 << 35
+
+
+def _first_matches(mm: torch.Tensor, rows: int, need: int):
+    """Flat row-major indices of the first ``need`` set entries of ``mm [M,
+    N]`` among its first ``rows`` rows, and how many entries the scan found
+    (``>= need`` whenever there are that many: it stops once it has them).
+    Memory grows with the matches, never with ``M x N``."""
+    n = mm.shape[1]
+    step = max(1, COMPACT_BLOCK // max(1, n))
+    hits, found = [], 0
+    for r0 in range(0, rows, step):
+        nz = mm[r0:r0 + step].reshape(-1).nonzero().squeeze(1)
+        hits.append(nz + r0 * n)
+        found += nz.numel()
+        if found >= need:
+            break
+    if not hits:
+        return torch.zeros((0,), dtype=torch.int64, device=mm.device), 0
+    return torch.cat(hits)[:need], found
+
+
+def kb_join_scan(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
+                 out_cap: int, fuse_compaction: bool = True) -> Bindings:
+    """Join bindings against a KB partition by full scan.
+
+    Cost is linear in the *total* partition size — the behaviour of paper
+    Figs. 6/7 (unused triples still cost time), and the reason KB pruning
+    wins.  ``fuse_compaction=True`` runs the fused scan join (matches are
+    compacted where they are found).  ``False`` is the unfused baseline:
+    the match-matrix kernel writes the ``[W, M, N]`` candidate matrix of as
+    many windows as ``MM_LAUNCH_BYTES`` holds in one launch, then each
+    window's matches are compacted in row-major order into the ``out_cap``
+    extended rows.  Both give the same bytes.
+    """
+    if fuse_compaction:
+        return hj_ops.join_compact(bind, kb, pat, out_cap)
+    w, m, nv = bind.cols.shape
+    n = kb.capacity
+    dev = bind.cols.device
+    kcols = (kb.s_ps, kb.p_ps, kb.o_ps)
+    rows = torch.zeros((w, out_cap, nv), dtype=ID_DTYPE, device=dev)
+    # rows past a window's last valid one match nothing
+    used = (torch.where(bind.valid, torch.arange(m, device=dev), -1)
+            .amax(dim=1) + 1).tolist()
+    totals = []
+    group = max(1, MM_LAUNCH_BYTES // max(1, m * n))
+    for g0 in range(0, w, group):
+        mm = hj_ops.match_matrix(Bindings(bind.cols[g0:g0 + group],
+                                          bind.valid[g0:g0 + group],
+                                          bind.overflow[g0:g0 + group]),
+                                 kb, pat)
+        for i in range(g0, g0 + mm.shape[0]):
+            sel, found = _first_matches(mm[i - g0], used[i], out_cap + 1)
+            sel = sel[:out_cap]
+            ext = bind.cols[i, sel // n]
+            for k, slot in enumerate((pat.s, pat.p, pat.o)):
+                if slot.mode == SlotMode.FREE:
+                    ext[:, slot.var] = kcols[k][sel % n]
+            rows[i, :sel.shape[0]] = ext
+            totals.append(found)
+        del mm
+    total = torch.tensor(totals, dtype=torch.int64, device=dev)
+    k = torch.arange(out_cap, device=dev)
+    valid = k[None, :] < total.clamp(max=out_cap)[:, None]
+    return Bindings(rows, valid, (total > out_cap) | bind.overflow)
+
+
 def kb_join(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
-            out_cap: int, method: str = "scan", k_max: int = 8) -> Bindings:
+            out_cap: int, method: str = "scan", k_max: int = 8,
+            fuse_compaction: bool = True) -> Bindings:
     """Dispatch one KB join to its access method (resolved at plan time).
 
-    An ineligible probe (variable predicate or no anchored endpoint) falls
-    back to the scan, preserving semantics for hand-built plans.
+    The probe always runs the fused probe kernel, as the reference's
+    kernel path does whatever ``fuse_compaction`` says; an ineligible probe
+    (variable predicate or no anchored endpoint) falls back to the scan,
+    preserving semantics for hand-built plans.
     """
     if method == "probe" and pat.p.mode == SlotMode.CONST and not (
             pat.s.mode == SlotMode.FREE and pat.o.mode == SlotMode.FREE):
         return hj_ops.probe_compact(bind, kb, pat, out_cap, k_max)
-    return hj_ops.join_compact(bind, kb, pat, out_cap)
+    return kb_join_scan(bind, kb, pat, out_cap, fuse_compaction)
 
 
 # --------------------------------------------------------------------------
@@ -306,3 +396,78 @@ def construct(
         s=out[..., 0], p=out[..., 1], o=out[..., 2], ts=out[..., 3],
         graph=out[..., 4], valid=valid,
     ), overflow
+
+
+# --------------------------------------------------------------------------
+# incremental (delta) evaluation — slide-span tracking
+# --------------------------------------------------------------------------
+#
+# Sliding count windows overlap on whole slides (window w = slides
+# w..w+R-1, see core/window.py), and every step of a delta-safe plan is
+# monotone in the stream triples it consumes: a joined binding row exists in
+# window w iff all its contributing triples do.  So the engine evaluates the
+# merged chunk ONCE, tracking for every binding row the interval
+# [min_slide, max_slide] of contributing slides, and selects window w's rows
+# with an interval test.  Spans only grow under joins, so a row whose span
+# already exceeds R-1 slides is retracted eagerly (``delta_retract``).
+#
+# The interval rides in two extra columns after the ``num_vars`` variable
+# columns, encoded so that the elementwise maximum ``join`` already takes
+# merges spans:
+#
+#   col nv     = max_slide + 1                  ("enc_max"; 0 = no triples)
+#   col nv + 1 = SPAN_ENC_K - (min_slide + 1)   ("enc_min" complement)
+#
+# A row with no stream triples (the universe row, KB-only derivations) has
+# both columns 0 and belongs to every window.  KB joins, filters, union and
+# compaction treat the columns as opaque words.  The reference computes in
+# uint32 and relies on its wraparound; ids here are int64, so every such
+# sum is masked to 32 bits.
+
+SPAN_ENC_K = 0xFFFFFFFF
+
+
+def delta_universe(capacity: int, num_vars: int, device="cpu") -> Bindings:
+    """The BGP identity (one table) with empty span columns attached."""
+    return universe_bindings(1, capacity, num_vars + 2, device)
+
+
+def scan_pattern_delta(stream: TripleBatch, pat: CompiledPattern,
+                       num_vars: int, out_cap: int,
+                       slide_of_row: torch.Tensor) -> Bindings:
+    """``scan_pattern`` over the whole merged chunk ``stream [n]``: one
+    table of ``num_vars + 2`` columns, the extra two holding each row's
+    slide as a one-slide span.  Rows the slide packing dropped
+    (``slide_of_row == -1``) are excluded, as in the windows."""
+    m, out = _scan_rows(stream.map(lambda c: c[None]), pat, num_vars + 2)
+    m = m & (slide_of_row >= 0)[None]
+    enc = slide_of_row.clamp(min=0) + 1
+    out[0, :, num_vars] = enc
+    out[0, :, num_vars + 1] = SPAN_ENC_K - enc
+    rows, valid, overflow = compact_rows(out, m, out_cap)
+    return Bindings(rows, valid, overflow)
+
+
+def delta_retract(bind: Bindings, num_vars: int, max_span: int) -> Bindings:
+    """Retract rows whose slide span exceeds ``max_span`` slides (a span of
+    k means max_slide - min_slide == k): spans only grow under joins, so
+    such rows never re-enter a window."""
+    enc_max = bind.cols[..., num_vars]
+    enc_min = bind.cols[..., num_vars + 1]
+    # (mx + 1) + (K - (mn + 1)) - K == mx - mn in 32-bit arithmetic
+    span = (enc_max + enc_min - SPAN_ENC_K) & U32_MAX
+    keep = (enc_max == 0) | (span <= max_span)
+    return bind._replace(valid=bind.valid & keep)
+
+
+def delta_window_mask(bind: Bindings, num_vars: int, window: torch.Tensor,
+                      slides_per_window: int) -> torch.Tensor:
+    """Membership ``[V, cap]`` of the rows of one span-tagged table in each
+    window of ``window [V]`` (window w = slides ``w .. w + R - 1``): the
+    row's span must sit inside that range.  Span-free rows pass."""
+    w = (window.to(ID_DTYPE) & U32_MAX)[:, None]
+    enc_max = bind.cols[0, :, num_vars][None, :]
+    enc_min = bind.cols[0, :, num_vars + 1][None, :]
+    in_w = ((enc_max <= ((w + slides_per_window) & U32_MAX))
+            & (((SPAN_ENC_K - 1 - enc_min) & U32_MAX) >= w))
+    return bind.valid[0][None, :] & in_w

@@ -3,7 +3,9 @@
 A :class:`Plan` is a static list of steps (Python-level control flow only).
 Executing it runs PyTorch ops eagerly over the whole window batch at once:
 the window dimension ``W`` is written out in every op (the reference
-``vmap``-s a per-window program instead).
+``vmap``-s a per-window program instead).  :func:`run_plan_slides` is the
+incremental path: the step chain runs once per chunk over span-tagged
+bindings, and only the per-window tail runs batched over ``W``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from . import algebra
 from .kb import KnowledgeBase
 from .pattern import Bindings, CompiledPattern, universe_bindings
 from .rdf import ID_DTYPE, TripleBatch
-from .window import Windows
+from .window import SlideView, Windows
 
 
 # --------------------------------------------------------------------------
@@ -36,6 +38,7 @@ class KBJoin:
     pat: CompiledPattern
     method: str = "scan"          # "scan" | "probe"  (paper's two methods)
     k_max: int = 8
+    fuse_compaction: bool = True  # False: the unfused scan (match matrix)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +129,8 @@ def _apply(step: Step, cur: Bindings, window: TripleBatch,
     if isinstance(step, KBJoin):
         assert kb is not None, "plan %s touches the KB but none attached" % plan.name
         return algebra.kb_join(cur, kb, step.pat, plan.bind_cap,
-                               method=step.method, k_max=step.k_max)
+                               method=step.method, k_max=step.k_max,
+                               fuse_compaction=step.fuse_compaction)
     if isinstance(step, FilterNumStep):
         return algebra.filter_num(cur, step.var, step.op, step.value_id)
     if isinstance(step, FilterBoolStep):
@@ -203,3 +207,82 @@ def run_plan_windows(plan: Plan, windows: Windows,
     graph_base = torch.arange(w, dtype=ID_DTYPE, device=dev) * plan.bind_cap
     out, _, ovf = run_plan(plan, windows.triples, kb, env, graph_base)
     return out._replace(valid=out.valid & windows.window_valid[:, None]), ovf
+
+
+# --------------------------------------------------------------------------
+# incremental (delta) execution over slides
+# --------------------------------------------------------------------------
+
+def _apply_delta(step: Step, cur: Bindings, view: SlideView,
+                 kb: Optional[KnowledgeBase], env: Env, plan: Plan,
+                 max_span: int) -> Bindings:
+    """One plan step over one span-tagged table (``num_vars + 2`` columns).
+
+    Every step here is monotone (``planner.plan_supports_delta`` gates
+    plans to this vocabulary): stream scans stamp each match with its
+    slide, joins merge spans through the elementwise-max merge, and a
+    retract after every stream join drops rows whose span no longer fits a
+    window.  KB joins and filters treat the span columns as opaque words.
+    """
+    if isinstance(step, ScanJoin):
+        b = algebra.scan_pattern_delta(view.stream, step.pat, plan.num_vars,
+                                       plan.scan_cap, view.slide_of_row)
+        joined = algebra.join(cur, b, step.shared, plan.bind_cap)
+        return algebra.delta_retract(joined, plan.num_vars, max_span)
+    if isinstance(step, UnionSteps):
+        left = cur
+        for s in step.left:
+            left = _apply_delta(s, left, view, kb, env, plan, max_span)
+        right = cur
+        for s in step.right:
+            right = _apply_delta(s, right, view, kb, env, plan, max_span)
+        return algebra.union(left, right, plan.bind_cap)
+    if isinstance(step, (KBJoin, FilterNumStep, FilterBoolStep, FilterInStep)):
+        return _apply(step, cur, view.stream, kb, env, plan)
+    raise TypeError(
+        "step %r is not delta-safe: plan_supports_delta should have routed "
+        "this plan to per-window recompute" % (step,))
+
+
+def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
+                    max_windows: int, kb: Optional[KnowledgeBase], env: Env):
+    """Incremental execution: one chunk-level pass, per-window selection.
+
+    The step chain runs ONCE over the merged stream (``W = 1``) with slide
+    spans riding along, instead of once per window as in
+    :func:`run_plan_windows`; each window then selects its rows with an
+    interval test, and the finalize tail (project -> distinct ->
+    canonical_order -> construct) runs batched over the ``W`` selections of
+    that one table.  The tail is the set-to-stream function recompute uses
+    and the selected binding sets are equal, so the output is the same
+    bytes.  The chunk-level pass shares one ``scan_cap``/``bind_cap``
+    across the chunk where recompute has them per window, so overflow trips
+    earlier here; the flag reports it as usual.
+
+    Returns a ``[W, out_cap]``-leaf TripleBatch plus a ``[W]`` overflow flag.
+    """
+    r = slides_per_window
+    dev = view.slide_valid.device
+    cur = algebra.delta_universe(plan.bind_cap, plan.num_vars, dev)
+    for step in plan.steps:
+        cur = _apply_delta(step, cur, view, kb, env, plan, r - 1)
+    out_vars = plan_out_vars(plan)
+    assert out_vars, (
+        "plan %s has no output variables: plan_supports_delta should have "
+        "routed it to per-window recompute" % plan.name)
+    sig = tuple(sorted(out_vars, key=lambda c: plan.var_names[c]))
+
+    wid = torch.arange(max_windows, device=dev)
+    widx = wid[:, None] + torch.arange(r, device=dev)[None, :]       # [W, R]
+    w_ts = view.slide_ts[widx].amax(dim=1)
+    w_valid = view.slide_valid[widx].any(dim=1)
+    memb = algebra.delta_window_mask(cur, plan.num_vars, wid, r)    # [W, cap]
+    chunk_ovf = cur.overflow.expand(max_windows)
+    rows = Bindings(cur.cols[..., :plan.num_vars].expand(
+        max_windows, plan.bind_cap, plan.num_vars), memb, chunk_ovf)
+    emit = algebra.canonical_order(
+        algebra.distinct(algebra.project(rows, out_vars)), sig)
+    out, c_ovf = algebra.construct(emit, plan.templates, w_ts, plan.out_cap,
+                                   wid.to(ID_DTYPE) * plan.bind_cap)
+    out = out._replace(valid=out.valid & w_valid[:, None])
+    return out, chunk_ovf | emit.overflow | c_ovf

@@ -2,8 +2,8 @@
 
 The operator owns a compiled plan, its pruned KB partition and the static
 window geometry.  ``process`` merges/orders input chunks, windows them,
-runs the engine over every window at once and publishes the constructed
-output stream.
+runs the engine over every window at once (or, in incremental mode, once
+over the chunk's slides) and publishes the constructed output stream.
 """
 from __future__ import annotations
 
@@ -12,12 +12,16 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .engine import Plan, run_plan_windows
+from .engine import Plan, run_plan_slides, run_plan_windows
 from .kb import KnowledgeBase
 from .pattern import compact_rows
+from .planner import plan_supports_delta
 from .rdf import TripleBatch
 from .stream import merge_streams
-from .window import Windows, count_windows
+from .window import (
+    SlideView, Windows, count_slides, count_windows, window_slides,
+    windows_from_slides,
+)
 
 
 def publish_chunk(out_w: TripleBatch, out_stream_cap: int) -> TripleBatch:
@@ -36,6 +40,9 @@ class OperatorConfig:
     window_capacity: int = 1000      # paper: "a maximum of 1000 RDF triples"
     max_windows: int = 8             # windows per processed chunk
     out_stream_cap: int = 2048       # published stream chunk capacity
+    window_step: Optional[int] = None  # STEP m slide; None / >= capacity tumbles
+    incremental: bool = False        # delta evaluation over slides (when
+                                     # the plan allows it)
 
 
 class SCEPOperator:
@@ -55,10 +62,30 @@ class SCEPOperator:
         (the DAG runtime keeps upstream results in their window)."""
         return run_plan_windows(self.plan, windows, self.kb, self.env)
 
+    def process_slides(self, view: SlideView):
+        """Slide-aligned engine step for incremental mode: the chunk runs
+        once with delta state when the plan is delta-safe, else the
+        overlapping windows are materialized and recomputed one by one;
+        either way the ``[W, out_cap]`` output is the same bytes."""
+        cfg = self.config
+        _, r = window_slides(cfg.window_capacity, cfg.window_step)
+        if plan_supports_delta(self.plan):
+            return run_plan_slides(self.plan, view, r, cfg.max_windows,
+                                   self.kb, self.env)
+        windows = windows_from_slides(view, cfg.window_capacity,
+                                      cfg.max_windows, cfg.window_step)
+        return self.process_windows(windows)
+
     def process(self, chunks: Sequence[TripleBatch]) -> Tuple[TripleBatch, torch.Tensor]:
         """Process one round of input chunks; returns (output chunk, overflow[W])."""
         cfg = self.config
         merged = merge_streams(chunks)                       # Aggregator
-        windows = count_windows(merged, cfg.window_capacity, cfg.max_windows)
-        out_w, overflow = self.process_windows(windows)      # engines
+        if cfg.incremental:
+            view = count_slides(merged, cfg.window_capacity, cfg.max_windows,
+                                cfg.window_step)
+            out_w, overflow = self.process_slides(view)
+        else:
+            windows = count_windows(merged, cfg.window_capacity,
+                                    cfg.max_windows, cfg.window_step)
+            out_w, overflow = self.process_windows(windows)  # engines
         return publish_chunk(out_w, cfg.out_stream_cap), overflow

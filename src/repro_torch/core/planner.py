@@ -315,11 +315,13 @@ def compile_query(
     out_cap: int = 512,
     k_max: int = 8,
     kb_stats: Optional[KBStats] = None,
+    fuse_compaction: bool = True,
 ) -> Plan:
     """Compile the AST into a Plan (same decisions as the reference:
     stream patterns in connected listed order, then KB items — cost-ordered
     under ``kb_method="auto"`` with stats — then OPTIONAL/UNION groups,
-    filters as soon as their variables are bound)."""
+    filters as soon as their variables are bound).  Every KB join carries
+    ``fuse_compaction`` (False: the unfused scan join)."""
     vt = _VarTable()
     bound: Set[int] = set()
     steps: List[Step] = []
@@ -331,7 +333,7 @@ def compile_query(
         method, k = kb_method, k_max
         if kb_method == "auto":
             method, k = _choose_kb_method(cp, kb_stats, k_max)
-        return KBJoin(cp, method, k)
+        return KBJoin(cp, method, k, fuse_compaction)
 
     def fresh_aux() -> str:
         aux[0] += 1
@@ -470,6 +472,32 @@ def compile_query(
         bind_cap=bind_cap,
         out_cap=out_cap,
     )
+
+
+def plan_supports_delta(plan: Plan) -> bool:
+    """Whether incremental (slide-delta) evaluation is valid for ``plan``.
+
+    ``engine.run_plan_slides`` tracks, per binding row, the span of slides
+    its stream triples came from and selects each window's rows by an
+    interval test, which is sound only when every step is *monotone* (a
+    derivation exists in a window iff all its contributing triples do):
+    stream scans, KB joins of any method, filters and UNION.  OPTIONAL is
+    non-monotone, and a plan without output variables skips the
+    pre-CONSTRUCT distinct, making row multiplicity observable; both fall
+    back to per-window recompute.
+    """
+    def steps_ok(steps: Sequence[Step]) -> bool:
+        for s in steps:
+            if isinstance(s, UnionSteps):
+                if not (steps_ok(s.left) and steps_ok(s.right)):
+                    return False
+            elif not isinstance(s, (ScanJoin, KBJoin, FilterNumStep,
+                                    FilterBoolStep, FilterInStep)):
+                return False
+        return True
+
+    has_out = any(kind == "var" for tpl in plan.templates for kind, _ in tpl)
+    return has_out and steps_ok(plan.steps)
 
 
 def plan_caps(plan: Plan) -> Dict[str, int]:

@@ -24,7 +24,7 @@ from .planner import (
 )
 from .rdf import TripleBatch, Vocab
 from .stream import merge_streams
-from .window import Windows, count_windows
+from .window import Windows, count_slides, count_windows, windows_from_slides
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +32,13 @@ class RuntimeConfig:
     window_capacity: int = 1000
     max_windows: int = 8
     out_stream_cap: int = 2048
+    # sliding count windows: STEP m slide size (None / >= capacity tumbles)
+    window_step: Optional[int] = None
+    # incremental (delta) evaluation: each chunk runs once with slide-span
+    # tracking and every window selects its rows, instead of re-running the
+    # join chain per window.  Same output bytes; plans with OPTIONAL
+    # (non-monotone) fall back to recompute per operator.
+    incremental: bool = False
     # KB-access method: "scan" | "probe" | "auto" (per-join cost model)
     kb_method: str = "scan"
     kb_capacity: Optional[int] = None
@@ -41,10 +48,14 @@ class RuntimeConfig:
     # capacity of window-aligned intermediate binding streams between
     # operators (the aggregator's window grows by the sum of these)
     intermediate_cap: int = 512
+    # scan-method KB joins: fused (matches compacted where they are found)
+    # or unfused (the [M, N] candidate matrix, then compaction)
+    fuse_compaction: bool = True
 
     def operator_config(self) -> OperatorConfig:
         return OperatorConfig(self.window_capacity, self.max_windows,
-                              self.out_stream_cap)
+                              self.out_stream_cap, self.window_step,
+                              self.incremental)
 
 
 def build_operators(dag: OperatorDAG, kb: KnowledgeBase,
@@ -70,6 +81,7 @@ def build_operators(dag: OperatorDAG, kb: KnowledgeBase,
             out_cap=(config.out_cap if name == dag.final
                      else min(config.intermediate_cap, config.out_cap)),
             kb_stats=kb_stats,
+            fuse_compaction=config.fuse_compaction,
         )
         env = prepare_env(sub.query, kb)
         operators[name] = SCEPOperator(name, plan, op_kb, env,
@@ -121,15 +133,27 @@ class DSCEPRuntime:
         per-operator overflow flags [W])."""
         cfg = self.config
         merged = merge_streams([chunk])
-        windows = count_windows(merged, cfg.window_capacity, cfg.max_windows)
+        view = None
+        if cfg.incremental:
+            # upstreams run delta over the slides; the aggregator still gets
+            # materialized windows (upstream outputs are window-aligned)
+            view = count_slides(merged, cfg.window_capacity, cfg.max_windows,
+                                cfg.window_step)
+            windows = windows_from_slides(view, cfg.window_capacity,
+                                          cfg.max_windows, cfg.window_step)
+        else:
+            windows = count_windows(merged, cfg.window_capacity,
+                                    cfg.max_windows, cfg.window_step)
         final = self.dag.final
         overflow: Dict[str, torch.Tensor] = {}
         upstream_out: Dict[str, TripleBatch] = {}
         for name in self.dag.subqueries:
             if name == final:
                 continue
-            upstream_out[name], overflow[name] = \
-                self.operators[name].process_windows(windows)
+            op = self.operators[name]
+            upstream_out[name], overflow[name] = (
+                op.process_slides(view) if view is not None
+                else op.process_windows(windows))
         aug = augment_windows(self.dag, windows, upstream_out)
         out_w, overflow[final] = self.operators[final].process_windows(aug)
         for name, flags in overflow.items():
@@ -162,6 +186,7 @@ class MonolithicRuntime:
             bind_cap=config.bind_cap, out_cap=config.out_cap,
             kb_stats=(collect_kb_stats(kb) if config.kb_method == "auto"
                       else None),
+            fuse_compaction=config.fuse_compaction,
         )
         env = prepare_env(q, kb)
         if config.kb_capacity:

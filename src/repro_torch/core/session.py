@@ -11,8 +11,9 @@ Entry points run on the card: ``ExecutionConfig.device`` defaults to
 every chunk are moved to that device; pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels on the host.
 
-``monolithic`` and ``single_program`` produce bit-identical output streams.
-Knobs of the reference that this port does not have yet raise
+``monolithic`` and ``single_program`` produce bit-identical output streams,
+and so do sliding windows with and without incremental evaluation.  Knobs
+of the reference that this port does not have yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item; none is ignored.
 """
 from __future__ import annotations
@@ -46,19 +47,34 @@ class ExecutionConfig:
     window_capacity: int = 1000
     max_windows: int = 8
     out_stream_cap: int = 2048
+    # sliding count windows: slide size in triples (C-SPARQL ``STEP m``).
+    # None or >= window_capacity tumbles; otherwise windows overlap on
+    # ceil(window_capacity / step) consecutive slides (core/window.py)
+    window_step: Optional[int] = None
+    # incremental (delta) evaluation: each chunk runs once with slide-span
+    # state instead of once per window; same output bytes.  Plans with
+    # OPTIONAL fall back to per-window recompute, operator by operator
+    incremental: bool = False
+    # per-query window geometry: a registration's ``[RANGE TRIPLES n STEP
+    # m]`` clause overrides window_capacity/window_step for that query only
+    window_from_query: bool = False
     kb_method: str = "scan"            # "scan" | "probe" | "auto" (cost-based)
     kb_capacity: Optional[int] = None
     scan_cap: int = 128
     bind_cap: int = 256
     out_cap: int = 512
     intermediate_cap: int = 512
+    # scan-method KB joins: True runs the fused scan join; False the
+    # unfused one (the match-matrix kernel writes the [W, M, N] candidate
+    # matrix, then its matches are compacted), the paper's KB-scan
+    # baseline: a measurement baseline, slower on every configuration
+    # measured, not a deployment setting.  The reference defaults to
+    # False; both give the same bytes
+    fuse_compaction: bool = True
     mode: str = "single_program"       # monolithic | single_program
     device: str = "cuda"               # where the KB, chunks and kernels run
 
     # reference knobs still to port: any non-default value raises
-    window_step: Optional[int] = None
-    incremental: bool = False
-    window_from_query: bool = False
     mesh: Optional[Any] = None
     trace: Any = None
     faults: Any = None
@@ -77,16 +93,6 @@ class ExecutionConfig:
         if self.window_step is not None and self.window_step < 1:
             raise ValueError("window_step must be >= 1, got %d"
                              % self.window_step)
-        if (self.window_step is not None
-                and self.window_step < self.window_capacity):
-            raise _not_ported("window_step < window_capacity (sliding "
-                              "windows)", "Incremental evaluation")
-        if self.incremental:
-            raise _not_ported("incremental=True", "Incremental evaluation")
-        if self.window_from_query:
-            raise _not_ported("window_from_query=True (the paper queries "
-                              "carry STEP 1, which needs slides)",
-                              "Incremental evaluation")
         if self.mesh is not None:
             raise _not_ported("mesh=", "Sharded paths")
         if self.trace:
@@ -105,12 +111,15 @@ class ExecutionConfig:
             window_capacity=self.window_capacity,
             max_windows=self.max_windows,
             out_stream_cap=self.out_stream_cap,
+            window_step=self.window_step,
+            incremental=self.incremental,
             kb_method=self.kb_method,
             kb_capacity=self.kb_capacity,
             scan_cap=self.scan_cap,
             bind_cap=self.bind_cap,
             out_cap=self.out_cap,
             intermediate_cap=self.intermediate_cap,
+            fuse_compaction=self.fuse_compaction,
         )
 
     def replace(self, **changes) -> "ExecutionConfig":
@@ -126,10 +135,28 @@ class RegisteredQuery:
         self.session = session
         self.query = query
         self.info = info
-        self.config = session.config
-        self.mode = self.config.mode
+        cfg = session.config
+        # per-query window geometry: the registration's RANGE TRIPLES clause
+        # (with its STEP, or tumbling without one) overrides the session's
+        if cfg.window_from_query and info is not None and info.window_triples:
+            cfg = cfg.replace(window_capacity=info.window_triples,
+                              window_step=info.window_step)
+        self.config = cfg
+        self.mode = cfg.mode
         self.dag: Optional[OperatorDAG] = None
         self._runtime = self._build_runtime()
+
+    @property
+    def window_geometry(self) -> Tuple[int, Optional[int]]:
+        """``(window_triples, window_step)`` of this registration: the
+        effective window capacity, and the query text's STEP whenever it
+        has one (even where ``window_from_query=False`` left it without
+        effect), else the session's ``window_step``.  A step that is None
+        or ``>=`` the capacity means tumbling."""
+        step = self.config.window_step
+        if self.info is not None and self.info.window_step:
+            step = self.info.window_step
+        return (self.config.window_capacity, step)
 
     def _build_runtime(self):
         cfg = self.config

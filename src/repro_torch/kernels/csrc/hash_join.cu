@@ -1,11 +1,14 @@
 // Window-vs-KB joins for Hopper (sm_90a): the fused scan join and the fused
-// probe join, each as count -> exclusive scan -> scatter.
+// probe join, each as count -> exclusive scan -> scatter, and the unfused
+// scan join's candidate matrix.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/hash_join/kernel.py  join_compact_pallas
 //     (_count_kernel, _scatter_kernel, _tile_match, _extend_tile)
 //   src/repro/kernels/hash_join/kernel.py  probe_compact_pallas
 //     (_probe_kernel, _probe_match, _probe_extend)
+//   src/repro/kernels/hash_join/kernel.py  match_matrix_pallas
+//     (_match_kernel)
 //
 // The TPU grid runs in order and carries running bases across grid steps
 // (counts_ref / rowbase_ref / base_ref).  CUDA blocks run in parallel, so
@@ -30,6 +33,20 @@
 // thread per binding row; the count pass stores [lo, hi) for the scatter
 // pass, which re-checks the candidates and writes matches in candidate
 // order.
+//
+// Match matrix.  Writes the int8 [W, M, N] all-slot equality of every
+// binding row against every KB row (1 = match), which the caller compacts.
+// Bounded by its int8 writes: W*M*N bytes out against 13 bytes a KB row and
+// 4*nv bytes a binding row in.  Design: each thread owns a run of 16
+// consecutive KB columns and keeps their words in registers (loaded once)
+// for the block's 64 binding rows, whose bound values and validity the
+// block stages in shared memory; per row it writes its 16 results as one
+// 16-byte store where the row's alignment allows, so a warp stores 512
+// contiguous bytes.  The CONST slots and repeated-variable agreement
+// depend on the KB row alone and are folded once per column into a bit
+// mask; a dead row, or a run no KB row of which can match, costs one
+// store of zeros.  Output offsets are 64-bit: M*N alone
+// passes 2^31 at the main path's shapes.
 //
 // Ids are uint32 words.  The pattern is passed as small int arguments
 // (slot modes, constants, variable columns, repeated-variable flags): one
@@ -226,6 +243,93 @@ __global__ void probe_join_kernel(const uint32_t* __restrict__ cols,
   if (!kScatter) counts[r] = cnt;
 }
 
+constexpr int kMMThreads = 256;
+constexpr int kMMCols = 16;                     // KB columns per thread
+constexpr int kMMTile = kMMThreads * kMMCols;   // KB columns per block
+constexpr int kMMRows = 64;                     // binding rows per block
+
+// One thread's 16 results of one row (4 words of 4 bytes) to ``dst``: one
+// 16-byte store where the address allows it, else 8-, 4- or 1-byte ones
+// (a row starts at w*M*N + r*N, aligned only as far as N is).
+__device__ __forceinline__ void store_run(uint8_t* dst, const uint32_t* word,
+                                          int nc) {
+  const uintptr_t addr = (uintptr_t)dst;
+  if (nc == kMMCols && (addr & 15u) == 0) {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(word[0], word[1], word[2], word[3]);
+  } else if (nc == kMMCols && (addr & 7u) == 0) {
+    reinterpret_cast<uint2*>(dst)[0] = make_uint2(word[0], word[1]);
+    reinterpret_cast<uint2*>(dst)[1] = make_uint2(word[2], word[3]);
+  } else if (nc == kMMCols && (addr & 3u) == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) reinterpret_cast<uint32_t*>(dst)[q] = word[q];
+  } else {
+    for (int k = 0; k < nc; ++k)
+      dst[k] = (uint8_t)(word[k >> 2] >> (8 * (k & 3)));
+  }
+}
+
+__global__ void __launch_bounds__(kMMThreads)
+match_matrix_kernel(const uint32_t* __restrict__ cols,
+                    const uint8_t* __restrict__ bvalid, int M, int nv,
+                    const uint32_t* __restrict__ ks,
+                    const uint32_t* __restrict__ kp,
+                    const uint32_t* __restrict__ ko,
+                    const uint8_t* __restrict__ kvalid, int N, Pattern pat,
+                    uint8_t* __restrict__ out) {
+  __shared__ uint32_t r_bv[3][kMMRows];
+  __shared__ uint8_t r_live[kMMRows];
+  const int w = blockIdx.z;
+  const int r0 = blockIdx.y * kMMRows;
+  const int rows = min(kMMRows, M - r0);
+  for (int i = threadIdx.x; i < kMMRows; i += blockDim.x) {
+    const long long r = (long long)w * M + r0 + i;
+    const bool live = i < rows && bvalid[r];
+    r_live[i] = live;
+    for (int k = 0; k < 3; ++k)
+      r_bv[k][i] = (live && pat.mode[k] == 1)
+                       ? cols[r * nv + pat.var[k]] : 0u;
+  }
+  __syncthreads();
+
+  const int c0 = blockIdx.x * kMMTile + threadIdx.x * kMMCols;
+  if (c0 >= N) return;
+  const int nc = min(kMMCols, N - c0);
+  uint32_t a[kMMCols], b[kMMCols], c[kMMCols];
+  unsigned ok = 0u;                         // bit k: column k passes the
+#pragma unroll                              // KB-only conditions
+  for (int k = 0; k < kMMCols; ++k) {
+    const int j = c0 + min(k, nc - 1);
+    a[k] = ks[j];
+    b[k] = kp[j];
+    c[k] = ko[j];
+    const bool m = k < nc && kvalid[j] &&
+                   (pat.mode[0] != 0 || a[k] == pat.cst[0]) &&
+                   (pat.mode[1] != 0 || b[k] == pat.cst[1]) &&
+                   (pat.mode[2] != 0 || c[k] == pat.cst[2]) &&
+                   (!pat.eq01 || a[k] == b[k]) &&
+                   (!pat.eq02 || a[k] == c[k]) &&
+                   (!pat.eq12 || b[k] == c[k]);
+    ok |= (unsigned)m << k;
+  }
+  for (int i = 0; i < rows; ++i) {
+    uint32_t word[4] = {0u, 0u, 0u, 0u};
+    if (r_live[i] && ok) {
+      const uint32_t b0 = r_bv[0][i], b1 = r_bv[1][i], b2 = r_bv[2][i];
+#pragma unroll
+      for (int k = 0; k < kMMCols; ++k) {
+        const bool m = ((ok >> k) & 1u) &&
+                       (pat.mode[0] != 1 || a[k] == b0) &&
+                       (pat.mode[1] != 1 || b[k] == b1) &&
+                       (pat.mode[2] != 1 || c[k] == b2);
+        word[k >> 2] |= (uint32_t)m << (8 * (k & 3));
+      }
+    }
+    store_run(out + ((long long)w * M + r0 + i) * (long long)N + c0, word,
+              nc);
+  }
+}
+
 Pattern make_pattern(int s_mode, unsigned s_cst, int s_var, int p_mode,
                      unsigned p_cst, int p_var, int o_mode, unsigned o_cst,
                      int o_var, int eq01, int eq02, int eq12) {
@@ -299,6 +403,23 @@ int probe_join_launch(int phase, const void* cols, const void* bvalid, int W,
         (const uint32_t*)keys, N, pat, anchor, p_cst, k_max, nullptr, nullptr,
         (int*)range, (const long long*)offsets, (uint32_t*)out, out_cap);
   }
+  return (int)cudaGetLastError();
+}
+
+int match_matrix_launch(const void* cols, const void* bvalid, int W, int M,
+                        int nv, const void* ks, const void* kp, const void* ko,
+                        const void* kvalid, int N, int s_mode, unsigned s_cst,
+                        int s_var, int p_mode, unsigned p_cst, int p_var,
+                        int o_mode, unsigned o_cst, int o_var, int eq01,
+                        int eq02, int eq12, void* out, void* stream) {
+  if (W == 0 || M == 0 || N == 0) return 0;
+  const Pattern pat = make_pattern(s_mode, s_cst, s_var, p_mode, p_cst, p_var,
+                                   o_mode, o_cst, o_var, eq01, eq02, eq12);
+  const dim3 grid((N + kMMTile - 1) / kMMTile, (M + kMMRows - 1) / kMMRows, W);
+  match_matrix_kernel<<<grid, kMMThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)cols, (const uint8_t*)bvalid, M, nv,
+      (const uint32_t*)ks, (const uint32_t*)kp, (const uint32_t*)ko,
+      (const uint8_t*)kvalid, N, pat, (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,13 @@
-"""CUDA wrappers for the fused scan join and the fused probe join.
+"""CUDA wrappers for the fused scan join, the fused probe join and the
+unfused scan join's match matrix.
 
 The kernels live in ``kernels/csrc/hash_join.cu`` (see its header for the
 TPU kernels they replace and what bounds them on the H100).  Each wrapper
 checks its arguments, converts the int64-held uint32 binding ids to 32-bit
 words (the KB columns arrive as words already: ``KnowledgeBase.words``),
-launches count -> ``torch.cumsum`` -> scatter on PyTorch's current stream,
-and counts one launch.  Nothing is built or loaded at import time.
+launches its kernels on PyTorch's current stream (for the joins: count ->
+``torch.cumsum`` -> scatter), and counts one launch.  Nothing is built or
+loaded at import time.
 """
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ def _lib():
             [I, P, P, I, I, I, P, P, P, P, I] + _SIG_PATTERN
             + [I, I, P, P, P, P, P, I, P])
         lib.probe_join_launch.restype = I
+        lib.match_matrix_launch.argtypes = (
+            [P, P, I, I, I, P, P, P, P, I] + _SIG_PATTERN + [I, I, I, P, P])
+        lib.match_matrix_launch.restype = I
         _READY.add("sig")
     return lib
 
@@ -147,3 +152,37 @@ def probe_compact_cuda(
     _cuda.count_launch("probe_compact")
     return from_u32_bits(out), counts64, fan
 
+
+
+# grid limits of the match-matrix launch: W on grid.z, M / 64 on grid.y
+_MM_MAX_W = 65535
+_MM_MAX_M = 65535 * 64
+
+
+def match_matrix_cuda(
+    cols: torch.Tensor, bvalid: torch.Tensor,
+    ks: torch.Tensor, kp: torch.Tensor, ko: torch.Tensor, kvalid: torch.Tensor,
+    pat: CompiledPattern,
+) -> torch.Tensor:
+    """Candidate matrix over int32 KB words: int8 ``[W, M, N]``, 1 where
+    binding row ``m`` of window ``w`` matches KB row ``n`` in every slot
+    (valid rows only), else 0."""
+    c32, bv = _bind_words(cols, bvalid)
+    _require_kb(ks, kp, ko)
+    _cuda.require(kvalid, torch.bool, 1, "KB valid")
+    if c32.device != ks.device:
+        raise ValueError("bindings and KB are on different devices")
+    w, m, nv = c32.shape
+    n = ks.shape[0]
+    if w > _MM_MAX_W or m > _MM_MAX_M:
+        raise ValueError("match matrix takes W <= %d and M <= %d, got W=%d "
+                         "M=%d" % (_MM_MAX_W, _MM_MAX_M, w, m))
+    pargs, eq = pattern_args(pat)
+    lib = _lib()
+    out = torch.empty((w, m, n), dtype=torch.int8, device=c32.device)
+    _cuda.check(lib.match_matrix_launch(
+        c32.data_ptr(), bv.data_ptr(), w, m, nv, ks.data_ptr(), kp.data_ptr(),
+        ko.data_ptr(), kvalid.data_ptr(), n, *pargs, *eq, out.data_ptr(),
+        _cuda.stream_of(c32)), "match_matrix")
+    _cuda.count_launch("match_matrix")
+    return out

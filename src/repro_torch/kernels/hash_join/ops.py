@@ -6,6 +6,8 @@ PyTorch twin for CPU tensors.
 * :func:`probe_compact` / :func:`probe_compact_torch` — the fused probe
   join: composite-key binary search, bounded ``k_max`` gather, exact
   re-check and compaction.
+* :func:`match_matrix` / :func:`match_matrix_torch` — the unfused scan
+  join's bool ``[W, M, N]`` candidate matrix, which the caller compacts.
 
 Binding tables carry the window dimension ``[W, M, nv]``; the kernels put
 ``W`` on their grid.  Every path is bit-identical to compacting the
@@ -60,6 +62,34 @@ def probe_compact(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
         k_max)
     fan_ovf = torch.any((fan > 0) & bind.valid, dim=1)
     return _finish(rows, counts, out_cap, fan_ovf | bind.overflow)
+
+
+def match_matrix(bind: Bindings, kb: KnowledgeBase,
+                 pat: CompiledPattern) -> torch.Tensor:
+    """Candidate matrix of every window's bindings against the KB: bool
+    ``[W, M, N]``.  The kernel writes 0/1 bytes, viewed as bool in place."""
+    if not bind.cols.is_cuda:
+        return match_matrix_torch(bind, kb, pat)
+    w = kb.words
+    return kernel.match_matrix_cuda(
+        bind.cols, bind.valid, w.s_ps, w.p_ps, w.o_ps, w.valid,
+        pat).view(torch.bool)
+
+
+def match_matrix_torch(bind: Bindings, kb: KnowledgeBase,
+                       pat: CompiledPattern) -> torch.Tensor:
+    """Plain candidate matrix, built in row blocks of ``PLAIN_BLOCK``
+    entries into one bool ``[W, M, N]`` output."""
+    w, m, _ = bind.cols.shape
+    n = kb.capacity
+    kcols = (kb.s_ps, kb.p_ps, kb.o_ps)
+    out = torch.empty((w, m, n), dtype=torch.bool, device=bind.cols.device)
+    step = max(1, PLAIN_BLOCK // max(1, w * n))
+    for r0 in range(0, m, step):
+        out[:, r0:r0 + step] = _match(bind.cols[:, r0:r0 + step],
+                                      bind.valid[:, r0:r0 + step], kcols,
+                                      kb.valid, pat)
+    return out
 
 
 def _match(cols, bvalid, kcols, kvalid, pat: CompiledPattern):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch.core import algebra as palg
 from repro_torch.core import kb as pkb
 from repro_torch.core.pattern import Bindings, CompiledPattern, Slot
 from repro_torch.kernels import _cuda
@@ -31,9 +32,13 @@ PATTERNS = {
     "const_const_free": CompiledPattern(Slot.const_(BASE + 3), Slot.const_(1), Slot.free(1)),
     "bound_const_bound": CompiledPattern(Slot.bound(0), Slot.const_(3), Slot.bound(2)),
     "repeated_free": CompiledPattern(Slot.free(1), Slot.const_(2), Slot.free(1)),
+    "repeated_bound": CompiledPattern(Slot.bound(0), Slot.free(1), Slot.bound(0)),
 }
 PROBE_PATTERNS = [k for k in PATTERNS if k not in ("bound_free_free",
-                                                    "repeated_free")]
+                                                    "repeated_free",
+                                                    "repeated_bound")]
+HIGH = np.array([4096, 4097, (1 << 31) - 1, 1 << 31, (1 << 31) + 1,
+                 0xFFFFFFFE], np.uint64)
 QUERY_DIR = os.path.join(os.path.dirname(__file__), "..", "examples", "queries")
 
 
@@ -57,6 +62,21 @@ def _world(m=300, n=5000, nv=3, seed=0, spread=60, windows=3):
     kb = pkb.kb_from_triples(np.concatenate([rows, loops]), capacity=n + 5)
     bind = interop.bindings_from_arrays(cols, bvalid, np.zeros(windows, bool))
     return bind, kb
+
+
+def _high_world(m=301, n=5003, windows=3, seed=1, kb_rows=None):
+    """Bindings and a KB over ids straddling ``2**31`` (sizes off the
+    kernel's tiles), with ``s == o`` rows for the repeated variables."""
+    rng = np.random.default_rng(seed)
+    cols = rng.choice(HIGH, size=(windows, m, 3)).astype(np.uint32)
+    bvalid = rng.random((windows, m)) < 0.9
+    n = n if kb_rows is None else kb_rows
+    rows = np.stack([rng.choice(HIGH, n), rng.integers(1, 4, n),
+                     rng.choice(HIGH, n)], axis=1).astype(np.uint32)
+    rows[: min(n, 6), 1] = 2
+    rows[: min(n, 6), 2] = rows[: min(n, 6), 0]
+    kb = pkb.kb_from_triples(rows, capacity=max(n, 1) + 5)
+    return interop.bindings_from_arrays(cols, bvalid, np.zeros(windows, bool)), kb
 
 
 def _to(b: Bindings, dev) -> Bindings:
@@ -104,6 +124,47 @@ def test_empty_bindings_on_the_card(card):
         assert not got.cols.any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("pat_name", sorted(PATTERNS))
+def test_match_matrix_kernel_matches_plain(card, pat_name):
+    pat = PATTERNS[pat_name]
+    for bind, kb in (_world(), _high_world(), _high_world(kb_rows=0)):
+        before = _cuda.LAUNCHES["match_matrix"]
+        got = p_hj_ops.match_matrix(_to(bind, card), kb.to(card), pat)
+        assert _cuda.LAUNCHES["match_matrix"] == before + 1
+        assert got.dtype == torch.bool
+        assert torch.equal(got.cpu(), p_hj_ops.match_matrix_torch(bind, kb, pat))
+
+
+@pytest.mark.gpu
+def test_match_matrix_kernel_past_int32_offsets(card):
+    """One window of 4096 rows against 600,000 KB rows: ``M * N`` passes
+    ``2**31``, so the rows past ~3579 sit at offsets only 64-bit indexing
+    reaches."""
+    bind, kb = _high_world(m=4096, windows=1, kb_rows=600_000)
+    bind, kb = _to(bind, card), kb.to(card)
+    pat = PATTERNS["bound_const_free"]
+    got = p_hj_ops.match_matrix(bind, kb, pat)
+    assert got.shape[1] * got.shape[2] > 2 ** 31
+    want = p_hj_ops.match_matrix_torch(bind, kb, pat)
+    assert torch.equal(got, want)
+    assert got[0, -200:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pat_name", ["bound_const_free", "repeated_free",
+                                      "bound_free_free"])
+def test_unfused_scan_join_on_the_card_equals_the_cpu(card, pat_name):
+    bind, kb = _high_world()
+    pat = PATTERNS[pat_name]
+    for out_cap in (7, 2000):
+        got = palg.kb_join_scan(_to(bind, card), kb.to(card), pat, out_cap,
+                                fuse_compaction=False)
+        _same(got, palg.kb_join_scan(bind, kb, pat, out_cap,
+                                     fuse_compaction=False))
+        _same(got, palg.kb_join_scan(bind, kb, pat, out_cap))
+
+
 def _hierarchy(n=300, seed=0):
     rng = np.random.default_rng(seed)
     adj = np.zeros((n, n), np.float32)
@@ -138,13 +199,9 @@ def test_closure_ops_on_the_card_match_the_cpu(card):
                        p_cl_ops.transitive_closure(adj))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
-@pytest.mark.parametrize("method", ["scan", "probe", "auto"])
-def test_session_on_the_card_equals_the_cpu(card, mode, method):
+def _session_world():
     from repro_torch.core import paper_queries as PQ
     from repro_torch.core.rdf import Vocab
-    from repro_torch.core.session import ExecutionConfig, Session
     from repro_torch.data.dbpedia import KBConfig, generate_kb
     from repro_torch.data.tweets import (
         TweetSchema, TweetStreamConfig, generate_tweets, stream_chunks)
@@ -160,10 +217,14 @@ def test_session_on_the_card_equals_the_cpu(card, mode, method):
     texts = dict(PQ.RQ_TEXTS)
     with open(os.path.join(QUERY_DIR, "artist_classes.rq")) as f:
         texts["artist_classes"] = f.read()
-    caps = dict(mode=mode, kb_method=method, window_capacity=96,
-                max_windows=4, bind_cap=1024, scan_cap=128, out_cap=1024,
-                intermediate_cap=512)
-    _cuda.reset_launches()
+    return vocab, kbd, chunks, texts
+
+
+def _gpu_equals_cpu(vocab, kbd, chunks, texts, **caps):
+    from repro_torch.core.session import ExecutionConfig, Session
+
+    caps = dict(dict(window_capacity=96, max_windows=4, bind_cap=1024,
+                     scan_cap=128, out_cap=1024, intermediate_cap=512), **caps)
     for q, text in texts.items():
         outs = {}
         for dev in ("cuda", "cpu"):
@@ -172,11 +233,40 @@ def test_session_on_the_card_equals_the_cpu(card, mode, method):
             outs[dev] = reg.run(chunks)
         (gpu_outs, gpu_ovf), (cpu_outs, cpu_ovf) = outs["cuda"], outs["cpu"]
         assert gpu_ovf == cpu_ovf, q
+        assert not any(cpu_ovf.values()), q
         for a, b in zip(gpu_outs, cpu_outs):
             _same(a, b)
         assert sum(int(o.valid.sum()) for o in cpu_outs) > 0, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
+@pytest.mark.parametrize("method", ["scan", "probe", "auto"])
+def test_session_on_the_card_equals_the_cpu(card, mode, method):
+    _cuda.reset_launches()
+    _gpu_equals_cpu(*_session_world(), mode=mode, kb_method=method)
     assert _cuda.LAUNCHES["closure_step"] > 0 and _cuda.LAUNCHES["descendants"] > 0
     if method == "scan":
         assert _cuda.LAUNCHES["join_compact"] > 0
     else:
         assert _cuda.LAUNCHES["probe_compact"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
+def test_incremental_session_on_the_card_equals_the_cpu(card, mode):
+    """96-triple windows sliding by 24, evaluated incrementally."""
+    _cuda.reset_launches()
+    _gpu_equals_cpu(*_session_world(), mode=mode, kb_method="auto",
+                    window_step=24, incremental=True, scan_cap=512)
+    assert _cuda.LAUNCHES["probe_compact"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
+def test_unfused_session_on_the_card_equals_the_cpu(card, mode):
+    _cuda.reset_launches()
+    _gpu_equals_cpu(*_session_world(), mode=mode, kb_method="scan",
+                    fuse_compaction=False)
+    assert _cuda.LAUNCHES["match_matrix"] > 0
+    assert _cuda.LAUNCHES["join_compact"] == 0

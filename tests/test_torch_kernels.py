@@ -258,6 +258,7 @@ def test_cpu_tensors_take_the_plain_versions_and_kernels_refuse_them():
     pat = PATTERNS["bound_const_free"]
     p_hj_ops.join_compact(port_bind, port_kb, pat, 32)
     p_hj_ops.probe_compact(port_bind, port_kb, pat, 32)
+    p_hj_ops.match_matrix(port_bind, port_kb, pat)
     p_cl_ops.closure_descendants(_hierarchy(n=40), 0, 40)
     assert _cuda.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
@@ -265,6 +266,10 @@ def test_cpu_tensors_take_the_plain_versions_and_kernels_refuse_them():
         p_hj_kernel.join_compact_cuda(
             port_bind.cols, port_bind.valid, words.s_ps, words.p_ps,
             words.o_ps, words.valid, pat, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        p_hj_kernel.match_matrix_cuda(
+            port_bind.cols, port_bind.valid, words.s_ps, words.p_ps,
+            words.o_ps, words.valid, pat)
     with pytest.raises(ValueError, match="CUDA"):
         p_cl_kernel.closure_step_cuda(torch.zeros((64, 64)))
 

@@ -68,13 +68,17 @@ class PortWorld:
         return interop.vocab_from_state(v._pred_to_id, v._term_to_id,
                                         v._next_pred, v._next_term)
 
-    def ref_run(self, q, mode, method):
-        key = (q, mode, method)
+    def ref_register(self, q, mode, method, **kw):
+        cfg = dict(CAPS, fuse_compaction=True)
+        cfg.update(kw)
+        sess = RSession(RConfig(mode=mode, kb_method=method, **cfg),
+                        vocab=copy.deepcopy(self.vocab), kb=self.kbd.kb)
+        return sess.register(self.texts[q])
+
+    def ref_run(self, q, mode, method, **kw):
+        key = (q, mode, method, tuple(sorted(kw.items())))
         if key not in self.ref:
-            sess = RSession(RConfig(mode=mode, kb_method=method,
-                                    fuse_compaction=True, **CAPS),
-                            vocab=copy.deepcopy(self.vocab), kb=self.kbd.kb)
-            reg = sess.register(self.texts[q])
+            reg = self.ref_register(q, mode, method, **kw)
             outs, overflow = reg.run(self.chunks)
             self.ref[key] = (reg, [[np.asarray(c) for c in o] for o in outs],
                              overflow, reg.overflow_totals())
@@ -82,7 +86,7 @@ class PortWorld:
 
     def port_register(self, q, mode, method, **kw):
         sess = Session(ExecutionConfig(mode=mode, kb_method=method,
-                                       device="cpu", **CAPS, **kw),
+                                       device="cpu", **dict(CAPS, **kw)),
                        vocab=self.port_vocab(),
                        kb=interop.kb_from_arrays(self.kb_arrays))
         return sess.register(self.texts[q])
@@ -104,27 +108,54 @@ def _bytes(col) -> bytes:
     return np.asarray(col).astype(np.uint32).tobytes()
 
 
-@pytest.mark.parametrize("q,mode,method", CASES)
-def test_session_output_equals_reference(pworld, q, mode, method):
-    _, ref_outs, ref_ovf, ref_totals = pworld.ref_run(q, mode, method)
-    reg = pworld.port_register(q, mode, method)
+def check_against_reference(pworld, q, mode, method, expect_output=True,
+                            **kw):
+    """Run ``q`` through the port's and the reference's ``Session`` under
+    the same config; the output streams must be the same ``np.uint32``
+    bytes, with the same overflow totals, and hold triples unless
+    ``expect_output`` is False.  Returns the port's registration and
+    outputs."""
+    _, ref_outs, ref_ovf, ref_totals = pworld.ref_run(q, mode, method, **kw)
+    reg = pworld.port_register(q, mode, method, **kw)
     outs, overflow = reg.run(pworld.port_chunks())
     assert len(outs) == len(ref_outs)
     for i, (ro, po) in enumerate(zip(ref_outs, outs)):
         for name, rc, pc in zip(po._fields, ro, po):
-            assert _bytes(rc) == _bytes(pc), (q, mode, method, i, name)
+            assert _bytes(rc) == _bytes(pc), (q, mode, method, kw, i, name)
     assert overflow == dict(ref_ovf)
     assert reg.overflow_totals() == ref_totals
-    assert sum(int(o.valid.sum()) for o in outs) > 0
+    assert (sum(int(o.valid.sum()) for o in outs) > 0) == expect_output
+    return reg, outs
+
+
+@pytest.mark.parametrize("q,mode,method", CASES)
+def test_session_output_equals_reference(pworld, q, mode, method):
+    check_against_reference(pworld, q, mode, method)
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "single_program"])
+def test_unfused_scan_session_equals_reference(pworld, mode):
+    """``fuse_compaction=False``: every scan join writes the candidate
+    matrix and compacts it; the bytes equal the reference's unfused run and
+    the port's fused one."""
+    reg, outs = check_against_reference(pworld, "q15", mode, "scan",
+                                        fuse_compaction=False)
+    steps = [s for op in reg.operators.values() for s in op.plan.steps
+             if isinstance(s, pengine.KBJoin)]
+    assert steps and not any(s.fuse_compaction for s in steps)
+    fused, _ = pworld.port_register("q15", mode, "scan").run(
+        pworld.port_chunks())
+    for a, b in zip(outs, fused):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _norm(x):
     """A plan (or part of one) as plain tuples, keeping the fields both
-    packages have (the reference's Pallas knobs have no counterpart)."""
+    packages have (the reference's other Pallas knobs have no
+    counterpart)."""
     if dataclasses.is_dataclass(x):
         names = [f.name for f in dataclasses.fields(x)
-                 if f.name not in ("use_pallas", "fuse_compaction", "bm",
-                                   "bn", "interpret")]
+                 if f.name not in ("use_pallas", "bm", "bn", "interpret")]
         return (type(x).__name__,) + tuple(
             (n, _norm(getattr(x, n))) for n in names)
     if isinstance(x, (tuple, list)):
@@ -177,8 +208,7 @@ def test_stream_generator_matches_run(pworld):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mode="pipelined"), dict(incremental=True), dict(window_step=16),
-    dict(window_from_query=True), dict(mesh=object()), dict(trace=True),
+    dict(mode="pipelined"), dict(mesh=object()), dict(trace=True),
     dict(faults=object()), dict(recovery=object()),
 ])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob):
@@ -212,4 +242,4 @@ def test_duplicate_registration_raises(pworld):
 
 def test_plan_steps_carry_only_ported_knobs():
     fields = {f.name for f in dataclasses.fields(pengine.KBJoin)}
-    assert fields == {"pat", "method", "k_max"}
+    assert fields == {"pat", "method", "k_max", "fuse_compaction"}
