@@ -13,8 +13,11 @@ Phases (each prints its lines; any failure exits non-zero):
    fused descendants step, each held byte for byte (tolerance 0: the
    outputs are integer ids and 0/1 matrices) against its plain PyTorch
    version on the same inputs, at the main path's shapes plus edge cases;
-   each timed with CUDA events beside its plain version, its bound and,
-   where one exists, one PyTorch library call computing the same function.
+   then flash attention and decode attention at phase 7's shapes and edge
+   cases, float32 within 1e-4 and bfloat16 within 2e-2 + 1e-2 relative.
+   Each kernel is timed with CUDA events beside its plain version, its
+   bound and, where one exists, one PyTorch library call computing the
+   same function.
 3. **The main path at full scale**: the paper's queries (Q15, Q16, CQuery1,
    artist_classes) registered through ``Session`` in ``monolithic`` and
    ``single_program`` mode under ``kb_method`` scan, probe and auto, over a
@@ -38,10 +41,22 @@ Phases (each prints its lines; any failure exits non-zero):
 6. **The unfused scan join**: the four queries in both modes under
    ``kb_method="scan", fuse_compaction=False`` (the match-matrix kernel),
    tumbling, full KB; byte for byte the fused run of phase 3.
+7. **LM generation**: Qwen2-1.5B at full width (28 layers, bf16, random
+   weights from a seeded generator on the card), ``generate`` of
+   ``LM_NEW`` greedy tokens after ``LM_BATCH`` prompts of ``LM_PROMPT``
+   token ids: the cached prefill through the flash-attention kernel, each
+   step through the decode-attention kernel (28 and 28 x 63 launches).
+   Prefill and decode throughput (median of 3 passes after a warm-up),
+   peak memory and the device's idle share over decode steps.  Gates:
+   teacher-forced logits of the kernel path within the plain attention
+   path by at most twice what bf16 itself moves them (plain bf16 against
+   an f32 copy of the weights, largest and mean difference), and the card
+   equal to the CPU on an f32 copy (1
+   prompt of 128 ids, 4 new tokens, logits within 2e-3; TF32 off).
 
-Phases 3, 5 and 6 each drive their path with the launch counters zeroed
-just before and read just after; each kernel of the path must have
-launched, and the JSON line's ``launches`` sums the three runs.
+Phases 3, 5, 6 and 7 each drive their path with the launch counters
+zeroed just before and read just after; each kernel of the path must have
+launched, and the JSON line's ``launches`` sums the four runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -49,6 +64,9 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import gc
 import json
 import math
@@ -56,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -96,6 +115,26 @@ SLIDE_GEOMETRY = {"q15": (1000, 250, 8), "q16": (1000, 250, 8),
                   "artist_classes": (256, 64, 33)}   # the query's own RANGE
 SLIDE_CONFIGS = (("auto", False), ("auto", True), ("scan", True))
 
+# phase 7: Qwen2-1.5B generation, cut from the repo's prefill_32k /
+# decode_32k shapes (32 x 32,768 prompt, 128 x 32,768 cache) to one card
+LM_ARCH = "qwen2-1.5b"
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_NEW = 64
+LM_MAX_LEN = 2112
+LM_REPEATS = 3
+LM_CPU_PROMPT = 128    # the GPU == CPU gate: 1 prompt, LM_CPU_NEW tokens
+LM_CPU_NEW = 4
+LM_CPU_TOL = 2e-3      # float32 logits, card against CPU (see phase_lm)
+LM_BF16_FACTOR = 2.0   # bf16 kernel path against plain, in units of bf16
+                       # noise (see phase_lm)
+BF16_PEAK_OPS_PER_S = 989e12      # dense bf16 on the tensor cores
+
+# attention kernels' tolerances: float32 sums in another order; a bf16
+# output is one rounding of an f32 value that the two sides may round on
+# either side of a boundary (2^-8 to 2^-7 of its magnitude)
+ATT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
+
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
 METHODS = ("scan", "probe", "auto")
@@ -105,7 +144,10 @@ KERNEL_SYMBOLS = {"join_compact": "scan_join_kernel",
                   "probe_compact": "probe_join_kernel",
                   "match_matrix": "match_matrix_kernel",
                   "closure_step": "bool_matmul_kernel",
-                  "descendants": "descendants_kernel"}
+                  "descendants": "descendants_kernel",
+                  "flash_attention": "flash_attention_kernel",
+                  # decode_attention_kernel + decode_combine_kernel
+                  "decode_attention": "decode_"}
 
 
 def log(msg: str) -> None:
@@ -242,8 +284,8 @@ class KernelRecord:
                 "bound_by": self.bound_by, "library_ms": self.library_ms}
 
 
-def _bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_CORE_OPS_PER_S * 1e3
+def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_CORE_OPS_PER_S):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -890,6 +932,374 @@ def phase_profile(vocab, kbd, chunks, smi):
             log("    %8.2f ms  %5d  %s" % (t / 1e3, n, key))
 
 
+
+# --------------------------------------------------------------------------
+# phase 2, continued: the attention kernels
+# --------------------------------------------------------------------------
+
+def _randn(shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _live_pairs(tq, tk, causal, window, q_offset) -> int:
+    """(query, key) pairs the masks keep: the work flash attention does."""
+    qpos = q_offset + np.arange(tq, dtype=np.int64)
+    hi = np.minimum(qpos, tk - 1) if causal else np.full(tq, tk - 1)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(tq, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_attention(smi):
+    """Flash and decode attention against their plain versions on the
+    card, at phase 7's shapes (timed there) and edge cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    recs = {
+        "flash_attention": KernelRecord(
+            "flash_attention", "src/repro_torch/kernels/csrc/attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:84"),
+        "decode_attention": KernelRecord(
+            "decode_attention", "src/repro_torch/kernels/csrc/attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:73"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def record(name, tag, got, want, dtype):
+        atol, rtol = ATT_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        excess = float(((got.float() - want.float()).abs()
+                        - rtol * want.float().abs()).max())
+        rec = recs[name]
+        rec.err = max(rec.err, err)
+        rec.cases += 1
+        log("  %-16s %-52s max_abs_err=%.3g (tol %g + %g rel)"
+            % (name, tag, err, atol, rtol))
+        if not math.isfinite(err) or excess > atol:
+            fail("%s disagrees with its plain version on %s" % (name, tag))
+
+    hq, hk, d = 12, 2, 128
+    b, tq, tk = LM_BATCH, LM_PROMPT, LM_MAX_LEN
+    # (tag, b, hq, hk, tq, tk, d, causal, window, q_offset)
+    flash_cases = [
+        ("path prefill", b, hq, hk, tq, tk, d, True, None, 0),
+        ("second prefill, q_offset 1800", 2, hq, hk, 300, tk, d, True, None,
+         1800),
+        ("ragged Tq 1000 Tk 1077 q_offset 77, group 6 D 64", 1, 6, 1, 1000,
+         1077, 64, True, None, 77),
+        ("window 128, group 3 D 32", 2, 6, 2, 700, 700, 32, True, 128, 0),
+        ("window 50 q_offset 500, group 1 D 16", 1, 4, 4, 100, 612, 16, True,
+         50, 500),
+        ("group 1 D 64", 2, 4, 4, 333, 333, 64, True, None, 0),
+        ("not causal, D 16", 1, 4, 2, 65, 129, 16, False, None, 0),
+        ("no live key (window 0)", 1, 2, 1, 70, 70, 16, True, 0, 0),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, cb, chq, chk, ctq, ctk, cd, causal, window, off in flash_cases:
+            q = _randn((cb, chq, ctq, cd), dtype, gen)
+            k = _randn((cb, chk, ctk, cd), dtype, gen)
+            v = _randn((cb, chk, ctk, cd), dtype, gen)
+            got = fa_ops.flash_attention(q, k, v, causal, window, off)
+            record("flash_attention", "%s %s" % (tag, str(dtype)[6:]), got,
+                   fa_ref.attention_ref(q, k, v, causal, window, off), dtype)
+
+    # the path's prefill shape, bf16: timed
+    q = _randn((b, hq, tq, d), torch.bfloat16, gen)
+    k = _randn((b, hk, tk, d), torch.bfloat16, gen)
+    v = _randn((b, hk, tk, d), torch.bfloat16, gen)
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+    log("  flash_attention  SDPA(is_causal, top-left) against the plain "
+        "version: max_abs_err=%.3g" % float(
+            (sdpa.float() - fa_ref.attention_ref(q, k, v).float()).abs().max()))
+    rec = recs["flash_attention"]
+    rec.ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v))
+    rec.launch_ms = launch_ms(lambda: fa_ops.flash_attention(q, k, v),
+                              rec.symbol)
+    rec.plain_ms = cuda_ms(lambda: fa_ref.attention_ref(q, k, v), iters=3)
+    rec.library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = b * hq * _live_pairs(tq, tk, True, None, 0)
+    rec.bound_ms, rec.bound_by = _bound(
+        2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * d * pairs,
+        BF16_PEAK_OPS_PER_S)
+    log("  flash_attention  path shape: %d live pairs, %.3g operations"
+        % (pairs, 4.0 * d * pairs))
+
+    # (tag, b, hq, hk, s, d, lengths)
+    length = LM_PROMPT + LM_NEW // 2
+    decode_cases = [
+        ("path step, length %d" % length, b, hq, hk, tk, d, [length] * b),
+        ("lengths 0, 1, 2079, 2112", 4, hq, hk, tk, d, [0, 1, 2079, 2112]),
+        ("group 1 D 64", 3, 2, 2, 1000, 64, [1000, 513, 64]),
+        ("group 3 D 16, S 77", 2, 6, 2, 77, 16, [77, 0]),
+        ("group 6 D 32, S 130", 2, 12, 2, 130, 32, [65, 130]),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, cb, chq, chk, cs, cd, lengths in decode_cases:
+            q = _randn((cb, chq, 1, cd), dtype, gen)
+            k = _randn((cb, chk, cs, cd), dtype, gen)
+            v = _randn((cb, chk, cs, cd), dtype, gen)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            got = da_ops.decode_attention(q, k, v, lens)
+            record("decode_attention", "%s %s" % (tag, str(dtype)[6:]), got,
+                   da_ref.decode_attention_ref(q, k, v, lens), dtype)
+            if bool((got[lens == 0] != 0).any()):
+                fail("decode_attention: a length-0 row is not 0")
+
+    q = _randn((b, hq, 1, d), torch.bfloat16, gen)
+    k = _randn((b, hk, tk, d), torch.bfloat16, gen)
+    v = _randn((b, hk, tk, d), torch.bfloat16, gen)
+    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    rec = recs["decode_attention"]
+    rec.ms = cuda_ms(lambda: da_ops.decode_attention(q, k, v, lens))
+    rec.launch_ms = launch_ms(lambda: da_ops.decode_attention(q, k, v, lens),
+                              rec.symbol)
+    rec.plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(q, k, v, lens))
+    rec.library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k[:, :, :length], v[:, :, :length], enable_gqa=True))
+    rec.bound_ms, rec.bound_by = _bound(
+        2 * (2 * b * hk * length * d + 2 * q.numel()) + 4 * b,
+        4.0 * d * b * hq * length, BF16_PEAK_OPS_PER_S)
+    sync()
+    return recs
+
+
+# --------------------------------------------------------------------------
+# phase 7: LM generation at full width
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """The same model code with the attention kernels' plain versions (the
+    path the kernels are held against)."""
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import attention as attn
+
+    with mock.patch.object(attn.fa_ops, "flash_attention",
+                           fa_ref.attention_ref), \
+            mock.patch.object(attn.da_ops, "decode_attention",
+                              da_ref.decode_attention_ref):
+        yield
+
+
+def as_f32(model, device):
+    """A float32 copy of ``model``'s weights on ``device``."""
+    from repro_torch.models import lm
+
+    def f32(t):
+        return None if t is None else t.detach().to(device, torch.float32)
+
+    return lm.LM(dataclasses.replace(model.cfg, dtype="float32"),
+                 f32(model.embed),
+                 [copy.deepcopy(blk).to(device, torch.float32)
+                  for blk in model.blocks],
+                 f32(model.final_norm), f32(model.lm_head))
+
+
+@torch.no_grad()
+def teacher_forced(model, prompt, ids, max_len):
+    """Logits ``[B, 1 + steps, Vp]`` (f32) of the prefill and of each step
+    fed ``ids[:, i]``: both sides of a comparison see the same ids."""
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    prefill, step = serve.make_serve_fns(model)
+    cache = lm.init_cache(model.cfg, prompt.shape[0], max_len, model.device)
+    out = [prefill(prompt, cache).float()]
+    for i in range(ids.shape[1] - 1):
+        out.append(step(ids[:, i:i + 1], cache).float())
+    return torch.stack(out, dim=1)
+
+
+def phase_lm(smi):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    # float32 products in full float32 for the f32 gates (the default; set
+    # so that no earlier setting leaks in)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    t0 = time.time()
+    model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log("phase 7: %s, %d layers, d_model %d, %d/%d heads of %d, d_ff %d, "
+        "vocab %d (padded %d), %s, %.3f B parameters (%.2f GB), made in "
+        "%.1f s; %d prompts of %d ids, %d new tokens, cache %d rows [%s]"
+        % (cfg.name, cfg.num_layers, cfg.d_model, cfg.num_heads,
+           cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.padded_vocab, cfg.dtype, n_params / 1e9,
+           n_params * 2 / 1e9, time.time() - t0, LM_BATCH, LM_PROMPT,
+           LM_NEW, LM_MAX_LEN, smi))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+    serve.generate(model, prompt[:, :64], 2, max_len=LM_MAX_LEN)   # warm-up
+
+    # the main path, through the entry point, counted
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ids = serve.generate(model, prompt, LM_NEW, max_len=LM_MAX_LEN)
+    sync()
+    gen_s = time.perf_counter() - t0
+    launches = path_launches("phase 7 (LM generation)",
+                             ("flash_attention", "decode_attention"), smi)
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * (LM_NEW - 1)}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail("%s launched %d times on the LM path, expected %d"
+                 % (k, launches[k], n))
+    log("  generate: %d x %d ids in %.3f s, peak %.2f GB, ids of sequence 0 "
+        "start %s [%s]" % (ids.shape[0], ids.shape[1], gen_s,
+                           torch.cuda.max_memory_allocated() / 1e9,
+                           ids[0, :8].tolist(), smi))
+    if ids.shape != (LM_BATCH, LM_NEW) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        fail("generate gave ids of shape %s outside [0, %d)"
+             % (tuple(ids.shape), cfg.vocab_size))
+
+    # throughput: prefill and the greedy steps, timed apart
+    prefill, step = serve.make_serve_fns(model)
+    pre_s, dec_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for rep in range(1 + LM_REPEATS):
+            cache = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
+            sync()
+            t0 = time.perf_counter()
+            tok = serve.greedy_token(prefill(prompt, cache))
+            sync()
+            t1 = time.perf_counter()
+            for _ in range(LM_NEW - 1):
+                tok = serve.greedy_token(step(tok[:, None], cache))
+            sync()
+            if rep:
+                pre_s.append(t1 - t0)
+                dec_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2], xs[0], xs[-1]
+
+    p_med, p_lo, p_hi = med([LM_BATCH * LM_PROMPT / t for t in pre_s])
+    d_med, d_lo, d_hi = med([LM_BATCH * (LM_NEW - 1) / t for t in dec_s])
+    s_med, s_lo, s_hi = med([t * 1e3 / (LM_NEW - 1) for t in dec_s])
+    log("  prefill: %.0f tokens/s median of %d passes (%.0f-%.0f), %.1f ms "
+        "a pass [%s]" % (p_med, LM_REPEATS, p_lo, p_hi,
+                         LM_BATCH * LM_PROMPT / p_med * 1e3, smi))
+    log("  decode: %.1f output tokens/s median of %d passes (%.1f-%.1f), "
+        "%.3f ms a step (%.3f-%.3f) [%s]" % (d_med, LM_REPEATS, d_lo, d_hi,
+                                            s_med, s_lo, s_hi, smi))
+    log("  peak device memory over the timed passes: %.2f GB" % peak)
+
+    # where the time goes: one prefill, then 8 decode steps, profiled
+    def profiled(label, fn):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = device_times(prof)
+        busy = sum(dev.values())
+        if busy <= 0:
+            log("  profile %s: no device time recorded (not measured)" % label)
+            return
+        ours = {k: sum(t for kname, t in dev.items() if KERNEL_SYMBOLS[k]
+                       in kname) for k in ("flash_attention",
+                                           "decode_attention")}
+        log("  profile %s: wall %.2f ms, device busy %.2f ms (idle share "
+            "%.3f), flash attention %.3f ms, decode attention %.3f ms [%s]"
+            % (label, wall_us / 1e3, busy / 1e3, max(0.0, 1 - busy / wall_us),
+               ours["flash_attention"] / 1e3, ours["decode_attention"] / 1e3,
+               smi))
+        for kname, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+            log("    %8.3f ms  %s" % (t / 1e3, kname[:110]))
+
+    cache = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
+    last = {}
+
+    def run_prefill():
+        last["tok"] = serve.greedy_token(prefill(prompt, cache))
+
+    def run_steps():
+        tok = last["tok"]
+        for _ in range(8):
+            tok = serve.greedy_token(step(tok[:, None], cache))
+
+    with torch.no_grad():
+        profiled("1 prefill", run_prefill)
+        profiled("8 decode steps", run_steps)
+
+    # gate 1: kernel path == plain path, teacher-forced.  bf16 rounding
+    # noise compounds over 28 layers, so the tolerance is measured in the
+    # same run: the kernels may move the logits by at most twice what bf16
+    # arithmetic itself does (plain bf16 against an f32 copy of the
+    # weights), in the largest and in the mean difference.  Compared over
+    # the real vocabulary: the padded rows hold -1e30 in each dtype
+    v = cfg.vocab_size
+    kern = teacher_forced(model, prompt, ids, LM_MAX_LEN)
+    if not torch.equal(kern.argmax(-1).int(), ids):
+        fail("teacher-forced kernel logits do not reproduce generate's ids")
+    with plain_attention():
+        plain = teacher_forced(model, prompt, ids, LM_MAX_LEN)
+    if not torch.equal(kern[..., v:], plain[..., v:]):
+        fail("the padded vocabulary rows differ between the paths")
+    kern, plain = kern[..., :v], plain[..., :v]
+    f32 = as_f32(model, "cuda")
+    with plain_attention():
+        noise = (plain - teacher_forced(f32, prompt, ids, LM_MAX_LEN)[
+            ..., :v]).abs()
+    diff = (kern - plain).abs()
+    got_max, got_mean = float(diff.max()), float(diff.mean())
+    floor_max, floor_mean = float(noise.max()), float(noise.mean())
+    log("  gate 1, kernel path against plain path (bf16, teacher-forced, "
+        "%d x %d x %d logits, std %.3f): max |diff| %.4g, mean %.4g; bf16 "
+        "against f32 (plain): max %.4g, mean %.4g; tolerance %gx those"
+        % (*kern.shape, float(plain.std()), got_max, got_mean, floor_max,
+           floor_mean, LM_BF16_FACTOR))
+    if not (got_max <= LM_BF16_FACTOR * floor_max
+            and got_mean <= LM_BF16_FACTOR * floor_mean):
+        fail("the kernel path moves the logits more than %gx what bf16 "
+             "itself does" % LM_BF16_FACTOR)
+    del kern, plain, diff, noise
+
+    # gate 2: the card == the CPU, float32, 1 prompt
+    cpu = as_f32(model, "cpu")
+    p1 = prompt[:1, :LM_CPU_PROMPT]
+    ids_gpu = serve.generate(f32, p1, LM_CPU_NEW)
+    t0 = time.time()
+    ids_cpu = serve.generate(cpu, p1.cpu(), LM_CPU_NEW, device="cpu")
+    got = teacher_forced(f32, p1, ids_gpu, LM_CPU_PROMPT + LM_CPU_NEW)
+    want = teacher_forced(cpu, p1.cpu(), ids_gpu.cpu(),
+                          LM_CPU_PROMPT + LM_CPU_NEW)
+    err = float((got.cpu() - want)[..., :v].abs().max())
+    log("  gate 2, card against CPU (f32, TF32 off, 1 x %d prompt, %d new "
+        "tokens): max |logit diff| %.3g (tol %g), ids %s / %s, CPU %.1f s"
+        % (LM_CPU_PROMPT, LM_CPU_NEW, err, LM_CPU_TOL, ids_gpu[0].tolist(),
+           ids_cpu[0].tolist(), time.time() - t0))
+    if not err <= LM_CPU_TOL:
+        fail("GPU != CPU on the f32 LM path: %g > %g" % (err, LM_CPU_TOL))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -918,12 +1328,14 @@ def main() -> int:
 
     vocab, kbd, rows, chunks = make_world()
 
-    log("phase 2: kernels against their plain versions (tolerance 0)")
+    log("phase 2: kernels against their plain versions (tolerance 0 for the "
+        "DSCEP kernels)")
     recs = phase_kernels(vocab, kbd)
+    recs.update(phase_attention(smi))
     for rec in recs.values():
-        log("  %-13s %d cases exact; wrapper %.4f ms, launches alone %s, "
+        log("  %-16s %d cases, max_abs_err %.3g; wrapper %.4f ms, launches alone %s, "
             "plain %.4f ms, library %s, bound %.5f ms (%s) [%s]" % (
-                rec.name, rec.cases, rec.ms,
+                rec.name, rec.cases, rec.err, rec.ms,
                 "%.4f ms" % rec.launch_ms if rec.launch_ms is not None
                 else "not measured", rec.plain_ms,
                 "%.4f ms" % rec.library_ms if rec.library_ms is not None
@@ -939,8 +1351,10 @@ def main() -> int:
     log("phase 5 done at %.1f s" % (time.time() - t_start))
     unfused_launches = phase_unfused(vocab, kbd, chunks, results, smi)
     log("phase 6 done at %.1f s" % (time.time() - t_start))
+    lm_launches = phase_lm(smi)
+    log("phase 7 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
-             for k in launches}
+             + lm_launches[k] for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

@@ -1,8 +1,9 @@
 """Carry state into the port from plain numpy arrays and dicts.
 
-The same vocabulary, KB and stream chunks can feed both the reference
-package and this port: extract them with ``np.asarray`` on one side and
-rebuild them here.  Nothing in this module takes the reference's objects.
+The same vocabulary, KB, stream chunks and LM parameters can feed both the
+reference package and this port: extract them with ``np.asarray`` on one
+side and rebuild them here.  Nothing in this module takes the reference's
+objects.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.kb import KnowledgeBase
 from .core.pattern import Bindings
 from .core.rdf import ID_DTYPE, PAD_ID, TripleBatch, Vocab
@@ -68,3 +70,40 @@ def bindings_from_arrays(cols, valid, overflow, device="cpu") -> Bindings:
         cols, valid, overflow = cols[None], valid[None], overflow.reshape(1)
     return Bindings(_ids(cols, device).to(ID_DTYPE), _mask(valid, device),
                     _mask(overflow, device))
+
+
+def _param(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+        device=device, dtype=dtype)
+
+
+def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
+    """An :class:`~repro_torch.models.lm.LM` from the reference's nested
+    parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
+    ``lm_head``, and ``blocks/sub0/{nm, nf, attn/*, mlp/*}`` stacked on a
+    leading layer axis, which is unstacked here.  The port keeps the
+    reference's weight layouts, so nothing is transposed; values are cast
+    to ``cfg.dtype``."""
+    from .models.attention import Attention
+    from .models.common import dtype_of
+    from .models.lm import LM, Block, check_supported
+    from .models.mlp import MLP
+
+    check_supported(cfg)
+    dtype = dtype_of(cfg.dtype)
+
+    def t(a):
+        return _param(a, dtype, device)
+
+    sub = params["blocks"]["sub0"]
+    at, ml = sub["attn"], sub["mlp"]
+    blocks = []
+    for i in range(cfg.num_layers):
+        bias = [t(at[n][i]) if n in at else None for n in ("bq", "bk", "bv")]
+        blocks.append(Block(
+            t(sub["nm"][i]),
+            Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")), *bias),
+            t(sub["nf"][i]),
+            MLP(*(t(ml[n][i]) for n in ("wi", "wg", "wo")))))
+    head = t(params["lm_head"]) if "lm_head" in params else None
+    return LM(cfg, t(params["embed"]), blocks, t(params["final_norm"]), head)

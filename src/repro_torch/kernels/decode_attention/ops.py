@@ -1,0 +1,19 @@
+"""Public decode-attention wrapper: the CUDA kernel for CUDA tensors, the
+plain PyTorch version for CPU tensors.  There is no fallback between the
+two: on a CUDA tensor the kernel launches or the call raises."""
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """GQA decode attention: ``q [B, Hq, 1, D]`` against the first
+    ``lengths[b]`` rows of ``k, v [B, Hk, S, D]`` -> ``[B, Hq, 1, D]``;
+    0 where a length is 0."""
+    if q.is_cuda:
+        return kernel.decode_attention_cuda(q, k, v,
+                                            lengths.to(torch.int32))
+    return ref.decode_attention_ref(q, k, v, lengths)

@@ -158,11 +158,9 @@ def test_count_windows_match_reference(cap, max_windows):
                                   got.window_valid.numpy())
 
 
-def test_sliding_windows_are_not_ported_yet():
-    """Sliding windows (``step < capacity``) equal the reference's.  The
-    name dates from before the port had slides, when they raised; it is
-    kept so that the test's history stays one line (more cases in
-    test_torch_window.py)."""
+def test_sliding_count_windows_match_reference():
+    """Sliding windows (``step < capacity``) equal the reference's (more
+    cases in test_torch_window.py)."""
     cols, ts, graph, valid = _stream(1)
     ref = rwin.count_windows_jit(rrdf.TripleBatch(
         *(jnp.asarray(c) for c in (*cols, ts, graph)), jnp.asarray(valid)),

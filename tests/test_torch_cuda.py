@@ -6,8 +6,18 @@ nor the JAX package, so it also runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 
-Outputs are integer ids and 0/1 matrices: every comparison is exact.
+The DSCEP kernels' outputs are integer ids and 0/1 matrices: those
+comparisons are exact.  The attention kernels compare floats: float32
+within 1e-4 absolute (sums in another order), bfloat16 within 2e-2
+absolute plus 1e-2 relative (one bf16 rounding of the output: 2^-8 to
+2^-7 of its magnitude, the two sides rounding the same f32 value on
+either side of a boundary).
 """
+import contextlib
+import copy
+import dataclasses
+from unittest import mock
+
 import os
 
 import numpy as np
@@ -23,6 +33,10 @@ from repro_torch.kernels.closure import kernel as p_cl_kernel
 from repro_torch.kernels.closure import ops as p_cl_ops
 from repro_torch.kernels.closure import ref as p_cl_ref
 from repro_torch.kernels.hash_join import ops as p_hj_ops
+from repro_torch.kernels.decode_attention import ops as p_da_ops
+from repro_torch.kernels.decode_attention import ref as p_da_ref
+from repro_torch.kernels.flash_attention import ops as p_fa_ops
+from repro_torch.kernels.flash_attention import ref as p_fa_ref
 
 BASE = 5000
 PATTERNS = {
@@ -270,3 +284,145 @@ def test_unfused_session_on_the_card_equals_the_cpu(card, mode):
                     fuse_compaction=False)
     assert _cuda.LAUNCHES["match_matrix"] > 0
     assert _cuda.LAUNCHES["join_compact"] == 0
+
+
+# --------------------------------------------------------------------------
+# attention kernels and LM generation
+# --------------------------------------------------------------------------
+
+ATT_TOL = {torch.float32: dict(rtol=0, atol=1e-4),
+           torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+
+# (b, hq, hk, tq, tk, d, causal, window, q_offset)
+FLASH_CASES = {
+    "path_prefill": (4, 12, 2, 2048, 2112, 128, True, None, 0),
+    "second_prefill_offset": (2, 12, 2, 300, 2112, 128, True, None, 1800),
+    "ragged_g6": (1, 6, 1, 1000, 1077, 64, True, None, 77),
+    "window_g3": (2, 6, 2, 700, 700, 32, True, 128, 0),
+    "window_offset_g1": (1, 4, 4, 100, 612, 16, True, 50, 500),
+    "g1_d64": (2, 4, 4, 333, 333, 64, True, None, 0),
+    "noncausal_d16": (1, 4, 2, 65, 129, 16, False, None, 0),
+    "no_live_key": (1, 2, 1, 70, 70, 16, True, 0, 0),
+}
+# (b, hq, hk, s, d, lengths)
+DECODE_CASES = {
+    "path_step": (4, 12, 2, 2112, 128, [2080] * 4),
+    "lengths_0_to_s": (4, 12, 2, 2112, 128, [0, 1, 2079, 2112]),
+    "g1_d64": (3, 2, 2, 1000, 64, [1000, 513, 64]),
+    "g3_d16": (2, 6, 2, 77, 16, [77, 0]),
+    "g6_d32": (2, 12, 2, 130, 32, [65, 130]),
+}
+
+
+def _qkv(shape_q, shape_kv, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    b, hq, hk, tq, tk, d, causal, window, off = FLASH_CASES[case]
+    q, k, v = (t.to(card) for t in _qkv((b, hq, tq, d), (b, hk, tk, d),
+                                         dtype, seed=tq))
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = p_fa_ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    want = p_fa_ref.attention_ref(q, k, v, causal, window, off)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
+    if case == "no_live_key":
+        assert torch.all(got == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_attention_kernel_matches_plain(card, case, dtype):
+    b, hq, hk, s, d, lengths = DECODE_CASES[case]
+    q, k, v = (t.to(card) for t in _qkv((b, hq, 1, d), (b, hk, s, d), dtype,
+                                         seed=s))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = _cuda.LAUNCHES["decode_attention"]
+    got = p_da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decode_attention"] == before + 1
+    want = p_da_ref.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
+    assert torch.all(got[lens == 0] == 0)
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The same model code with the attention kernels' plain versions."""
+    from repro_torch.models import attention as p_attn
+
+    with mock.patch.object(p_attn.fa_ops, "flash_attention",
+                           p_fa_ref.attention_ref), \
+            mock.patch.object(p_attn.da_ops, "decode_attention",
+                              p_da_ref.decode_attention_ref):
+        yield
+
+
+def _teacher_forced(model, prompt, ids, max_len):
+    """Logits of the prefill and of each step fed ``ids[:, i]``."""
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    prefill, step = p_serve.make_serve_fns(model)
+    cache = p_lm.init_cache(model.cfg, prompt.shape[0], max_len,
+                            model.device)
+    with torch.no_grad():
+        out = [prefill(prompt, cache)]
+        out += [step(ids[:, i:i + 1], cache) for i in range(ids.shape[1] - 1)]
+    return torch.stack(out, dim=1).float()
+
+
+def _as_f32(model):
+    m = copy.deepcopy(model).float()
+    m.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    return m
+
+
+@pytest.mark.gpu
+def test_two_layer_generation_kernels_match_plain(card):
+    """Qwen2-1.5B at full width, 2 layers: greedy generation through the
+    kernels against the plain attention path, teacher-forced.  float32:
+    equal ids, logits within 1e-3; bfloat16: the kernels move the logits
+    by at most twice what bf16 arithmetic itself does (the plain bf16 path
+    against the float32 one), in the largest and the mean difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    model = p_lm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 100))).to(card)
+    f32 = _as_f32(model)
+    _cuda.reset_launches()
+    ids32 = p_serve.generate(f32, prompt, 8, max_len=120)
+    assert _cuda.LAUNCHES["flash_attention"] == 2
+    assert _cuda.LAUNCHES["decode_attention"] == 2 * 7
+    with _plain_attention():
+        plain32 = p_serve.generate(f32, prompt, 8, max_len=120)
+        t_plain32 = _teacher_forced(f32, prompt, ids32, 120)
+    assert torch.equal(ids32, plain32)
+    torch.testing.assert_close(_teacher_forced(f32, prompt, ids32, 120),
+                               t_plain32, rtol=0, atol=1e-3)
+
+    ids = p_serve.generate(model, prompt, 8, max_len=120)
+    kern = _teacher_forced(model, prompt, ids, 120)
+    assert torch.equal(kern.argmax(-1).int(), ids)
+    with _plain_attention():
+        plain = _teacher_forced(model, prompt, ids, 120)
+        f32_logits = _teacher_forced(f32, prompt, ids, 120)
+    v = cfg.vocab_size      # the padded rows hold -1e30 in each dtype
+    assert torch.equal(kern[..., v:], plain[..., v:])
+    noise = (plain - f32_logits)[..., :v].abs()
+    diff = (kern - plain)[..., :v].abs()
+    assert float(diff.max()) <= 2 * float(noise.max())
+    assert float(diff.mean()) <= 2 * float(noise.mean())
