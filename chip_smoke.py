@@ -14,7 +14,12 @@ Phases (each prints its lines; any failure exits non-zero):
    outputs are integer ids and 0/1 matrices) against its plain PyTorch
    version on the same inputs, at the main path's shapes plus edge cases;
    then flash attention and decode attention at phase 7's shapes and edge
-   cases, float32 within 1e-4 and bfloat16 within 2e-2 + 1e-2 relative.
+   cases, float32 within 1e-4 and bfloat16 within 2e-2 + 1e-2 relative;
+   then the SSD chunked scan against its plain chunked version at phase
+   8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
+   initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
+   attention kernels, the final state within 2e-4 + 2e-4 relative, and
+   one small shape against the sequential oracle.
    Each kernel is timed with CUDA events beside its plain version, its
    bound and, where one exists, one PyTorch library call computing the
    same function.
@@ -53,10 +58,18 @@ Phases (each prints its lines; any failure exits non-zero):
    an f32 copy of the weights, largest and mean difference), and the card
    equal to the CPU on an f32 copy (1
    prompt of 128 ids, 4 new tokens, logits within 2e-3; TF32 off).
+8. **Mamba-2 generation**: mamba2-130m at full width (24 layers, bf16,
+   random weights from a seeded generator on the card), ``generate`` of
+   ``MAMBA_NEW`` greedy tokens after ``MAMBA_BATCH`` prompts of
+   ``MAMBA_PROMPT`` token ids (the cached prefill through the SSD kernel,
+   24 launches; the steps run the plain one-token recurrence), then
+   ``lm.forward`` on one prompt (24 more).  Throughput, peak memory and
+   idle share as phase 7; the same two gates, with the SSD kernel's plain
+   version as the plain path, and equal ids on the card and the CPU.
 
-Phases 3, 5, 6 and 7 each drive their path with the launch counters
+Phases 3, 5, 6, 7 and 8 each drive their path with the launch counters
 zeroed just before and read just after; each kernel of the path must have
-launched, and the JSON line's ``launches`` sums the four runs.
+launched, and the JSON line's ``launches`` sums the five runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -130,6 +143,20 @@ LM_BF16_FACTOR = 2.0   # bf16 kernel path against plain, in units of bf16
                        # noise (see phase_lm)
 BF16_PEAK_OPS_PER_S = 989e12      # dense bf16 on the tensor cores
 
+# phase 8: Mamba-2 generation, cut from the repo's prefill_32k shape (32 x
+# 32,768 prompt) to one card and a few seconds of script
+MAMBA_ARCH = "mamba2-130m"
+MAMBA_BATCH = 4
+MAMBA_PROMPT = 4096
+MAMBA_NEW = 64
+MAMBA_CPU_PROMPT = 128
+MAMBA_CPU_NEW = 4
+
+# the SSD kernel's float32 tolerance (absolute, relative): the reference's
+# own SSD tolerance (tests/test_kernels.py), the chunked cumsum summing in
+# another order; its bf16 outputs take ATT_TOL's, its f32 state this one
+SSD_F32_TOL = (2e-4, 2e-4)
+
 # attention kernels' tolerances: float32 sums in another order; a bf16
 # output is one rounding of an f32 value that the two sides may round on
 # either side of a boundary (2^-8 to 2^-7 of its magnitude)
@@ -147,7 +174,10 @@ KERNEL_SYMBOLS = {"join_compact": "scan_join_kernel",
                   "descendants": "descendants_kernel",
                   "flash_attention": "flash_attention_kernel",
                   # decode_attention_kernel + decode_combine_kernel
-                  "decode_attention": "decode_"}
+                  "decode_attention": "decode_",
+                  # ssd_chunk_state_kernel, ssd_state_scan_kernel,
+                  # ssd_output_kernel
+                  "ssd": "ssd_"}
 
 
 def log(msg: str) -> None:
@@ -1118,31 +1148,196 @@ def teacher_forced(model, prompt, ids, max_len):
     return torch.stack(out, dim=1)
 
 
-def phase_lm(smi):
-    from torch.profiler import ProfilerActivity, profile
+def med(xs):
+    """(median, smallest, largest)."""
+    xs = sorted(xs)
+    return xs[len(xs) // 2], xs[0], xs[-1]
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _cuda
+
+def time_generation(model, prompt, new, max_len, smi):
+    """Prefill and the greedy steps timed apart: LM_REPEATS passes after a
+    warm-up, tokens/s as the median with the slowest and fastest, and the
+    peak device memory over the timed passes."""
     from repro_torch.models import lm
     from repro_torch.serve import lm as serve
 
-    # float32 products in full float32 for the f32 gates (the default; set
-    # so that no earlier setting leaks in)
+    b, t = prompt.shape
+    prefill, step = serve.make_serve_fns(model)
+    pre_s, dec_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for rep in range(1 + LM_REPEATS):
+            cache = lm.init_cache(model.cfg, b, max_len)
+            sync()
+            t0 = time.perf_counter()
+            tok = serve.greedy_token(prefill(prompt, cache))
+            sync()
+            t1 = time.perf_counter()
+            for _ in range(new - 1):
+                tok = serve.greedy_token(step(tok[:, None], cache))
+            sync()
+            if rep:
+                pre_s.append(t1 - t0)
+                dec_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p_med, p_lo, p_hi = med([b * t / x for x in pre_s])
+    d_med, d_lo, d_hi = med([b * (new - 1) / x for x in dec_s])
+    s_med, s_lo, s_hi = med([x * 1e3 / (new - 1) for x in dec_s])
+    log("  prefill: %.0f tokens/s median of %d passes (%.0f-%.0f), %.1f ms "
+        "a pass [%s]" % (p_med, LM_REPEATS, p_lo, p_hi, b * t / p_med * 1e3,
+                         smi))
+    log("  decode: %.1f output tokens/s median of %d passes (%.1f-%.1f), "
+        "%.3f ms a step (%.3f-%.3f) [%s]" % (d_med, LM_REPEATS, d_lo, d_hi,
+                                            s_med, s_lo, s_hi, smi))
+    log("  peak device memory over the timed passes: %.2f GB" % peak)
+
+
+def profiled(label, fn, kernels, smi):
+    """One torch.profiler window over ``fn()``: wall, device busy time, the
+    device's idle share and the device time of ``kernels``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = device_times(prof)
+    busy = sum(dev.values())
+    if busy <= 0:
+        log("  profile %s: no device time recorded (not measured)" % label)
+        return
+    ours = {k: sum(t for kname, t in dev.items() if KERNEL_SYMBOLS[k] in kname)
+            for k in kernels}
+    log("  profile %s: wall %.2f ms, device busy %.2f ms (idle share %.3f), "
+        "%s [%s]" % (label, wall_us / 1e3, busy / 1e3,
+                     max(0.0, 1 - busy / wall_us),
+                     ", ".join("%s %.3f ms" % (k, v / 1e3)
+                               for k, v in ours.items()), smi))
+    for kname, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+        log("    %8.3f ms  %s" % (t / 1e3, kname[:110]))
+
+
+def profile_serving(model, prompt, max_len, kernels, smi):
+    """One prefill, then 8 decode steps, each under the profiler."""
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    prefill, step = serve.make_serve_fns(model)
+    cache = lm.init_cache(model.cfg, prompt.shape[0], max_len)
+    last = {}
+
+    def run_prefill():
+        last["tok"] = serve.greedy_token(prefill(prompt, cache))
+
+    def run_steps():
+        tok = last["tok"]
+        for _ in range(8):
+            tok = serve.greedy_token(step(tok[:, None], cache))
+
+    with torch.no_grad():
+        profiled("1 prefill", run_prefill, kernels, smi)
+        profiled("8 decode steps", run_steps, kernels, smi)
+
+
+def gate_plain(model, prompt, ids, max_len, plain_path):
+    """Gate 1: kernel path == plain path, teacher-forced.  bf16 rounding
+    noise compounds over the layers, so the tolerance is measured in the
+    same run: the kernels may move the logits by at most LM_BF16_FACTOR
+    times what bf16 arithmetic itself does (plain bf16 against an f32 copy
+    of the weights), in the largest and in the mean difference.  Compared
+    over the real vocabulary: the padded rows hold -1e30 in each dtype.
+    Returns the f32 copy on the card."""
+    v = model.cfg.vocab_size
+    kern = teacher_forced(model, prompt, ids, max_len)
+    if not torch.equal(kern.argmax(-1).int(), ids):
+        fail("teacher-forced kernel logits do not reproduce generate's ids")
+    with plain_path():
+        plain = teacher_forced(model, prompt, ids, max_len)
+    if not torch.equal(kern[..., v:], plain[..., v:]):
+        fail("the padded vocabulary rows differ between the paths")
+    kern, plain = kern[..., :v], plain[..., :v]
+    f32 = as_f32(model, "cuda")
+    with plain_path():
+        noise = (plain - teacher_forced(f32, prompt, ids, max_len)[
+            ..., :v]).abs()
+    diff = (kern - plain).abs()
+    got_max, got_mean = float(diff.max()), float(diff.mean())
+    floor_max, floor_mean = float(noise.max()), float(noise.mean())
+    log("  gate 1, kernel path against plain path (bf16, teacher-forced, "
+        "%d x %d x %d logits, std %.3f): max |diff| %.4g, mean %.4g; bf16 "
+        "against f32 (plain): max %.4g, mean %.4g; tolerance %gx those"
+        % (*kern.shape, float(plain.std()), got_max, got_mean, floor_max,
+           floor_mean, LM_BF16_FACTOR))
+    if not (got_max <= LM_BF16_FACTOR * floor_max
+            and got_mean <= LM_BF16_FACTOR * floor_mean):
+        fail("the kernel path moves the logits more than %gx what bf16 "
+             "itself does" % LM_BF16_FACTOR)
+    return f32
+
+
+def gate_cpu(model, f32, prompt, new):
+    """Gate 2: the card == the CPU on the float32 copy, one prompt: equal
+    ids and teacher-forced logits within LM_CPU_TOL."""
+    from repro_torch.serve import lm as serve
+
+    v = model.cfg.vocab_size
+    cpu = as_f32(model, "cpu")
+    t = prompt.shape[1]
+    ids_gpu = serve.generate(f32, prompt, new)
+    t0 = time.time()
+    ids_cpu = serve.generate(cpu, prompt.cpu(), new, device="cpu")
+    got = teacher_forced(f32, prompt, ids_gpu, t + new)
+    want = teacher_forced(cpu, prompt.cpu(), ids_gpu.cpu(), t + new)
+    err = float((got.cpu() - want)[..., :v].abs().max())
+    log("  gate 2, card against CPU (f32, TF32 off, 1 x %d prompt, %d new "
+        "tokens): max |logit diff| %.3g (tol %g), ids %s / %s, CPU %.1f s"
+        % (t, new, err, LM_CPU_TOL, ids_gpu[0].tolist(), ids_cpu[0].tolist(),
+           time.time() - t0))
+    if not err <= LM_CPU_TOL:
+        fail("GPU != CPU on the f32 LM path: %g > %g" % (err, LM_CPU_TOL))
+    if not torch.equal(ids_gpu.cpu(), ids_cpu):
+        fail("the card and the CPU generate other ids on the f32 LM path")
+
+
+def make_lm(arch):
+    """The architecture at full width, random weights from a seeded
+    generator on the card; float32 products in full float32 for the f32
+    gates (the default; set so that no earlier setting leaks in)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     t0 = time.time()
     model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                           device="cuda")
     sync()
     n_params = sum(p.numel() for p in model.parameters())
+    return cfg, model, n_params, time.time() - t0
+
+
+def check_ids(ids, shape, vocab):
+    if ids.shape != shape or not bool(((ids >= 0) & (ids < vocab)).all()):
+        fail("generate gave ids of shape %s outside [0, %d)"
+             % (tuple(ids.shape), vocab))
+
+
+def phase_lm(smi):
+    from repro_torch.kernels import _cuda
+    from repro_torch.serve import lm as serve
+
+    cfg, model, n_params, made_s = make_lm(LM_ARCH)
     log("phase 7: %s, %d layers, d_model %d, %d/%d heads of %d, d_ff %d, "
         "vocab %d (padded %d), %s, %.3f B parameters (%.2f GB), made in "
         "%.1f s; %d prompts of %d ids, %d new tokens, cache %d rows [%s]"
         % (cfg.name, cfg.num_layers, cfg.d_model, cfg.num_heads,
            cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
            cfg.padded_vocab, cfg.dtype, n_params / 1e9,
-           n_params * 2 / 1e9, time.time() - t0, LM_BATCH, LM_PROMPT,
+           n_params * 2 / 1e9, made_s, LM_BATCH, LM_PROMPT,
            LM_NEW, LM_MAX_LEN, smi))
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
@@ -1168,135 +1363,204 @@ def phase_lm(smi):
         "start %s [%s]" % (ids.shape[0], ids.shape[1], gen_s,
                            torch.cuda.max_memory_allocated() / 1e9,
                            ids[0, :8].tolist(), smi))
-    if ids.shape != (LM_BATCH, LM_NEW) or not bool(
-            ((ids >= 0) & (ids < cfg.vocab_size)).all()):
-        fail("generate gave ids of shape %s outside [0, %d)"
-             % (tuple(ids.shape), cfg.vocab_size))
+    check_ids(ids, (LM_BATCH, LM_NEW), cfg.vocab_size)
 
-    # throughput: prefill and the greedy steps, timed apart
-    prefill, step = serve.make_serve_fns(model)
-    pre_s, dec_s = [], []
+    time_generation(model, prompt, LM_NEW, LM_MAX_LEN, smi)
+    profile_serving(model, prompt, LM_MAX_LEN,
+                    ("flash_attention", "decode_attention"), smi)
+    f32 = gate_plain(model, prompt, ids, LM_MAX_LEN, plain_attention)
+    gate_cpu(model, f32, prompt[:1, :LM_CPU_PROMPT], LM_CPU_NEW)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 2, continued: the SSD kernel
+# --------------------------------------------------------------------------
+
+def _ssd_inputs(b, t, h, p, g, s, dtype, init, rng):
+    """The reference tests' distributions (dt in [0.01, 0.2], A in [-2,
+    -0.5], x, B, C normal), x, B and C slices of one [B, T, H*P + 2*G*S]
+    tensor on the card, as the model passes them."""
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    xbc = put(rng.standard_normal((b, t, h * p + 2 * g * s))).to(dtype)
+    x = xbc[..., :h * p].reshape(b, t, h, p)
+    Bm = xbc[..., h * p:h * p + g * s].reshape(b, t, g, s)
+    Cm = xbc[..., h * p + g * s:].reshape(b, t, g, s)
+    dt = put(rng.uniform(0.01, 0.2, (b, t, h)))
+    A = put(-rng.uniform(0.5, 2.0, (h,)))
+    s0 = put(rng.standard_normal((b, h, s, p))) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def _ssd_bound(b, t, h, p, g, s, chunk, dtype, init):
+    """Least time for the SSD function: x and y, B and C in their dtype, dt
+    and the states in f32, each once; 2 (L.L.S + L.L.P + 2 L.S.P)
+    operations a (batch, head, chunk), at the peak of the inputs' type."""
+    nl = -(-t // chunk)
+    ops = b * h * nl * 2.0 * chunk * (chunk * s + chunk * p + 2 * s * p)
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * t * h * p * esz + 2 * b * t * g * s * esz
+              + b * t * h * 4 + h * 4 + b * h * s * p * 4 * (2 if init else 1))
+    return _bound(nbytes, ops, BF16_PEAK_OPS_PER_S if dtype == torch.bfloat16
+                  else FP32_CORE_OPS_PER_S)
+
+
+def phase_ssd(smi):
+    """The SSD kernel against its plain chunked version on the card, at
+    phase 8's prefill shape (timed there) and edge cases, each case timed;
+    then once against the sequential oracle."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain version's
+    rec = KernelRecord("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+                       "src/repro/kernels/ssd/kernel.py:76")
+    rng = np.random.default_rng(0)
+
+    def record(tag, got, want, dtype):
+        (y, st), (wy, wst) = got, want
+        worst = 0.0
+        for a, w, (atol, rtol) in (
+                (y.float(), wy.float(), SSD_F32_TOL if dtype == torch.float32
+                 else ATT_TOL[dtype]), (st, wst, SSD_F32_TOL)):
+            d = (a - w).abs()
+            if a.shape != w.shape or not bool(torch.isfinite(d).all()) or \
+                    float((d - rtol * w.abs()).max()) > atol:
+                fail("ssd disagrees with its plain version on %s" % tag)
+            worst = max(worst, float(d.max()))
+        rec.err = max(rec.err, worst)
+        rec.cases += 1
+        return worst
+
+    d = MAMBA_PROMPT
+    # (tag, b, t, h, p, g, s, chunk, init)
+    cases = [
+        ("path prefill", MAMBA_BATCH, d, 24, 64, 1, 128, 128, False),
+        ("initial state, T 1000 (ragged tail)", 2, 1000, 24, 64, 1, 128, 128,
+         True),
+        ("T 96 (one chunk of 96)", 2, 96, 24, 64, 1, 128, 96, False),
+        ("T 96 chunk 128 (ragged tail)", 2, 96, 24, 64, 1, 128, 128, True),
+        ("T 40 (below a tile)", 2, 40, 24, 64, 1, 128, 40, False),
+        ("G 2 H 4 S 64", 2, 256, 4, 64, 2, 64, 128, True),
+        ("S 16 P 16 chunk 32", 1, 64, 2, 16, 1, 16, 32, False),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, b, t, h, p, g, s, chunk, init in cases:
+            x, dt, A, Bm, Cm, s0 = _ssd_inputs(b, t, h, p, g, s, dtype, init,
+                                               rng)
+
+            def kern():
+                return ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+
+            def plain():
+                return ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk, s0)
+
+            err = record(tag, kern(), plain(), dtype)
+            ms = cuda_ms(kern, iters=5)
+            alone = launch_ms(kern, rec.symbol, iters=5)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            bound, by = _ssd_bound(b, t, h, p, g, s, chunk, dtype, init)
+            log("  %-16s %-40s max_abs_err=%.3g; wrapper %.4f ms, launches "
+                "alone %s, plain %.4f ms, bound %.5f ms (%s)"
+                % ("ssd", "%s %s" % (tag, str(dtype)[6:]), err, ms,
+                   "%.4f ms" % alone if alone is not None else "not measured",
+                   plain_ms, bound, by))
+            if tag == "path prefill" and dtype == torch.bfloat16:
+                rec.ms, rec.launch_ms, rec.plain_ms = ms, alone, plain_ms
+                rec.bound_ms, rec.bound_by = bound, by
+
+    # ops.ssd (kernel, D skip) against the step-by-step oracle
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(2, 100, 4, 32, 2, 32, torch.float32,
+                                       True, rng)
+    D = torch.linspace(-1, 1, 4, device="cuda")
+    err = record("the sequential oracle",
+                 ssd_ops.ssd(x, dt, A, Bm, Cm, D, chunk=32, init_state=s0),
+                 ssd_ref.ssd_ref(x, dt, A, Bm, Cm, D, s0), torch.float32)
+    log("  %-16s %-40s max_abs_err=%.3g (tol %g + %g rel)"
+        % ("ssd", "ops.ssd vs ssd_ref, T 100 chunk 32 G 2", err,
+           *SSD_F32_TOL))
+    sync()
+    return {"ssd": rec}
+
+
+# --------------------------------------------------------------------------
+# phase 8: Mamba-2 generation at full width
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The same model code with the SSD kernel's plain version."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    with mock.patch.object(ssd_ops.kernel, "ssd_cuda", ssd_ref.ssd_chunked):
+        yield
+
+
+def phase_mamba(smi):
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    cfg, model, n_params, made_s = make_lm(MAMBA_ARCH)
+    mc = cfg.mamba
+    log("phase 8: %s, %d layers, d_model %d, %d heads of %d, d_state %d, "
+        "%d group(s), vocab %d (padded %d), %s, %.2f M parameters, made in "
+        "%.1f s; %d prompts of %d ids, %d new tokens [%s]"
+        % (cfg.name, cfg.num_layers, cfg.d_model, mc.nheads(cfg.d_model),
+           mc.headdim, mc.d_state, mc.ngroups, cfg.vocab_size,
+           cfg.padded_vocab, cfg.dtype, n_params / 1e6, made_s, MAMBA_BATCH,
+           MAMBA_PROMPT, MAMBA_NEW, smi))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(MAMBA_BATCH, MAMBA_PROMPT))).cuda()
+    max_len = MAMBA_PROMPT + MAMBA_NEW
+    serve.generate(model, prompt[:, :64], 2)                        # warm-up
+
+    # the main path, through the entry points, counted: generate (the
+    # prefill's 24 launches), then the cache-free forward (24 more)
+    sync()
     torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ids = serve.generate(model, prompt, MAMBA_NEW)
+    sync()
+    gen_s = time.perf_counter() - t0
+    after_generate = _cuda.LAUNCHES["ssd"]
+    t0 = time.perf_counter()
     with torch.no_grad():
-        for rep in range(1 + LM_REPEATS):
-            cache = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
-            sync()
-            t0 = time.perf_counter()
-            tok = serve.greedy_token(prefill(prompt, cache))
-            sync()
-            t1 = time.perf_counter()
-            for _ in range(LM_NEW - 1):
-                tok = serve.greedy_token(step(tok[:, None], cache))
-            sync()
-            if rep:
-                pre_s.append(t1 - t0)
-                dec_s.append(time.perf_counter() - t1)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+        logits = lm.forward(model, prompt[:1])
+    sync()
+    fwd_s = time.perf_counter() - t0
+    launches = path_launches("phase 8 (Mamba-2 generation and forward)",
+                             ("ssd",), smi)
+    if after_generate != cfg.num_layers or \
+            launches["ssd"] != 2 * cfg.num_layers:
+        fail("ssd launched %d times in generate and %d in all, expected %d "
+             "and %d" % (after_generate, launches["ssd"], cfg.num_layers,
+                         2 * cfg.num_layers))
+    if any(n for k, n in launches.items() if k != "ssd"):
+        fail("the Mamba-2 path launched another kernel: %s" % _short(launches))
+    log("  generate: %d x %d ids in %.3f s, peak %.2f GB, ids of sequence 0 "
+        "start %s [%s]" % (ids.shape[0], ids.shape[1], gen_s,
+                           torch.cuda.max_memory_allocated() / 1e9,
+                           ids[0, :8].tolist(), smi))
+    check_ids(ids, (MAMBA_BATCH, MAMBA_NEW), cfg.vocab_size)
+    real = logits[..., :cfg.vocab_size].float()
+    if logits.shape != (1, MAMBA_PROMPT, cfg.padded_vocab) or not bool(
+            torch.isfinite(real).all()):
+        fail("lm.forward gave logits of shape %s, or non-finite ones"
+             % (tuple(logits.shape),))
+    log("  forward: 1 x %d ids -> logits %s in %.3f s, std %.3f [%s]"
+        % (MAMBA_PROMPT, tuple(logits.shape), fwd_s, float(real.std()), smi))
+    del logits, real
 
-    def med(xs):
-        xs = sorted(xs)
-        return xs[len(xs) // 2], xs[0], xs[-1]
-
-    p_med, p_lo, p_hi = med([LM_BATCH * LM_PROMPT / t for t in pre_s])
-    d_med, d_lo, d_hi = med([LM_BATCH * (LM_NEW - 1) / t for t in dec_s])
-    s_med, s_lo, s_hi = med([t * 1e3 / (LM_NEW - 1) for t in dec_s])
-    log("  prefill: %.0f tokens/s median of %d passes (%.0f-%.0f), %.1f ms "
-        "a pass [%s]" % (p_med, LM_REPEATS, p_lo, p_hi,
-                         LM_BATCH * LM_PROMPT / p_med * 1e3, smi))
-    log("  decode: %.1f output tokens/s median of %d passes (%.1f-%.1f), "
-        "%.3f ms a step (%.3f-%.3f) [%s]" % (d_med, LM_REPEATS, d_lo, d_hi,
-                                            s_med, s_lo, s_hi, smi))
-    log("  peak device memory over the timed passes: %.2f GB" % peak)
-
-    # where the time goes: one prefill, then 8 decode steps, profiled
-    def profiled(label, fn):
-        sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev = device_times(prof)
-        busy = sum(dev.values())
-        if busy <= 0:
-            log("  profile %s: no device time recorded (not measured)" % label)
-            return
-        ours = {k: sum(t for kname, t in dev.items() if KERNEL_SYMBOLS[k]
-                       in kname) for k in ("flash_attention",
-                                           "decode_attention")}
-        log("  profile %s: wall %.2f ms, device busy %.2f ms (idle share "
-            "%.3f), flash attention %.3f ms, decode attention %.3f ms [%s]"
-            % (label, wall_us / 1e3, busy / 1e3, max(0.0, 1 - busy / wall_us),
-               ours["flash_attention"] / 1e3, ours["decode_attention"] / 1e3,
-               smi))
-        for kname, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
-            log("    %8.3f ms  %s" % (t / 1e3, kname[:110]))
-
-    cache = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN)
-    last = {}
-
-    def run_prefill():
-        last["tok"] = serve.greedy_token(prefill(prompt, cache))
-
-    def run_steps():
-        tok = last["tok"]
-        for _ in range(8):
-            tok = serve.greedy_token(step(tok[:, None], cache))
-
-    with torch.no_grad():
-        profiled("1 prefill", run_prefill)
-        profiled("8 decode steps", run_steps)
-
-    # gate 1: kernel path == plain path, teacher-forced.  bf16 rounding
-    # noise compounds over 28 layers, so the tolerance is measured in the
-    # same run: the kernels may move the logits by at most twice what bf16
-    # arithmetic itself does (plain bf16 against an f32 copy of the
-    # weights), in the largest and in the mean difference.  Compared over
-    # the real vocabulary: the padded rows hold -1e30 in each dtype
-    v = cfg.vocab_size
-    kern = teacher_forced(model, prompt, ids, LM_MAX_LEN)
-    if not torch.equal(kern.argmax(-1).int(), ids):
-        fail("teacher-forced kernel logits do not reproduce generate's ids")
-    with plain_attention():
-        plain = teacher_forced(model, prompt, ids, LM_MAX_LEN)
-    if not torch.equal(kern[..., v:], plain[..., v:]):
-        fail("the padded vocabulary rows differ between the paths")
-    kern, plain = kern[..., :v], plain[..., :v]
-    f32 = as_f32(model, "cuda")
-    with plain_attention():
-        noise = (plain - teacher_forced(f32, prompt, ids, LM_MAX_LEN)[
-            ..., :v]).abs()
-    diff = (kern - plain).abs()
-    got_max, got_mean = float(diff.max()), float(diff.mean())
-    floor_max, floor_mean = float(noise.max()), float(noise.mean())
-    log("  gate 1, kernel path against plain path (bf16, teacher-forced, "
-        "%d x %d x %d logits, std %.3f): max |diff| %.4g, mean %.4g; bf16 "
-        "against f32 (plain): max %.4g, mean %.4g; tolerance %gx those"
-        % (*kern.shape, float(plain.std()), got_max, got_mean, floor_max,
-           floor_mean, LM_BF16_FACTOR))
-    if not (got_max <= LM_BF16_FACTOR * floor_max
-            and got_mean <= LM_BF16_FACTOR * floor_mean):
-        fail("the kernel path moves the logits more than %gx what bf16 "
-             "itself does" % LM_BF16_FACTOR)
-    del kern, plain, diff, noise
-
-    # gate 2: the card == the CPU, float32, 1 prompt
-    cpu = as_f32(model, "cpu")
-    p1 = prompt[:1, :LM_CPU_PROMPT]
-    ids_gpu = serve.generate(f32, p1, LM_CPU_NEW)
-    t0 = time.time()
-    ids_cpu = serve.generate(cpu, p1.cpu(), LM_CPU_NEW, device="cpu")
-    got = teacher_forced(f32, p1, ids_gpu, LM_CPU_PROMPT + LM_CPU_NEW)
-    want = teacher_forced(cpu, p1.cpu(), ids_gpu.cpu(),
-                          LM_CPU_PROMPT + LM_CPU_NEW)
-    err = float((got.cpu() - want)[..., :v].abs().max())
-    log("  gate 2, card against CPU (f32, TF32 off, 1 x %d prompt, %d new "
-        "tokens): max |logit diff| %.3g (tol %g), ids %s / %s, CPU %.1f s"
-        % (LM_CPU_PROMPT, LM_CPU_NEW, err, LM_CPU_TOL, ids_gpu[0].tolist(),
-           ids_cpu[0].tolist(), time.time() - t0))
-    if not err <= LM_CPU_TOL:
-        fail("GPU != CPU on the f32 LM path: %g > %g" % (err, LM_CPU_TOL))
+    time_generation(model, prompt, MAMBA_NEW, max_len, smi)
+    profile_serving(model, prompt, max_len, ("ssd",), smi)
+    f32 = gate_plain(model, prompt, ids, max_len, plain_ssd)
+    gate_cpu(model, f32, prompt[:1, :MAMBA_CPU_PROMPT], MAMBA_CPU_NEW)
     return launches
 
 
@@ -1332,6 +1596,7 @@ def main() -> int:
         "DSCEP kernels)")
     recs = phase_kernels(vocab, kbd)
     recs.update(phase_attention(smi))
+    recs.update(phase_ssd(smi))
     for rec in recs.values():
         log("  %-16s %d cases, max_abs_err %.3g; wrapper %.4f ms, launches alone %s, "
             "plain %.4f ms, library %s, bound %.5f ms (%s) [%s]" % (
@@ -1353,8 +1618,10 @@ def main() -> int:
     log("phase 6 done at %.1f s" % (time.time() - t_start))
     lm_launches = phase_lm(smi)
     log("phase 7 done at %.1f s" % (time.time() - t_start))
+    mamba_launches = phase_mamba(smi)
+    log("phase 8 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
-             + lm_launches[k] for k in launches}
+             + lm_launches[k] + mamba_launches[k] for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

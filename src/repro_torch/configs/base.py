@@ -3,8 +3,9 @@
 One :class:`ModelConfig` describes a decoder LM: dense / MoE / SSM /
 hybrid stacks with GQA/MLA/SWA attention, M-RoPE, multi-codebook heads.
 The schema is the whole of the reference's, so a configuration compares
-field for field; the port runs the dense GQA subset of it (``models/``),
-and the rest raises ``NotImplementedError`` where it is used.
+field for field; the port runs dense GQA stacks and attention-free
+Mamba-2 (SSD) stacks of it (``models/``), and the rest raises
+``NotImplementedError`` where it is used.
 """
 from __future__ import annotations
 
@@ -176,8 +177,7 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # the reference's other architectures, each with the ROADMAP.md item that
 # ports what it needs
 NOT_PORTED = {
-    "mamba2-130m": "Mamba-2 forward and the SSD kernel",
-    "jamba-v0.1-52b": "Mamba-2 forward and the SSD kernel",
+    "jamba-v0.1-52b": "Other LM architectures",     # Mamba-1, MoE, hybrid
     "qwen2-vl-7b": "Other LM architectures",
     "deepseek-v2-236b": "Other LM architectures",
     "mixtral-8x22b": "Other LM architectures",
@@ -195,8 +195,12 @@ def register(name: str):
     return deco
 
 
+def _register_all() -> None:
+    from . import mamba2_130m, qwen2_1_5b  # noqa: F401  (register themselves)
+
+
 def get_config(name: str) -> ModelConfig:
-    from . import qwen2_1_5b  # noqa: F401  (registers itself)
+    _register_all()
 
     if name in NOT_PORTED:
         raise not_ported("architecture %r" % name, NOT_PORTED[name])
@@ -206,7 +210,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 def registered() -> Tuple[str, ...]:
-    from . import qwen2_1_5b  # noqa: F401
+    _register_all()
 
     return tuple(sorted(_REGISTRY))
 

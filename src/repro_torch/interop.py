@@ -80,25 +80,34 @@ def _param(a, dtype, device) -> torch.Tensor:
 def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     """An :class:`~repro_torch.models.lm.LM` from the reference's nested
     parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
-    ``lm_head``, and ``blocks/sub0/{nm, nf, attn/*, mlp/*}`` stacked on a
+    ``lm_head``, and ``blocks/sub0/{nm, nf, attn/*, mlp/*}`` (attention
+    stacks) or ``blocks/sub0/{nm, mamba/*}`` (Mamba-2 stacks), stacked on a
     leading layer axis, which is unstacked here.  The port keeps the
     reference's weight layouts, so nothing is transposed; values are cast
-    to ``cfg.dtype``."""
+    to ``cfg.dtype``, except Mamba's ``A_log``, ``D`` and ``dt_bias``, which
+    the reference keeps in float32."""
     from .models.attention import Attention
     from .models.common import dtype_of
     from .models.lm import LM, Block, check_supported
+    from .models.mamba import FLOAT32_LEAVES, LEAVES, Mamba
     from .models.mlp import MLP
 
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
 
-    def t(a):
-        return _param(a, dtype, device)
+    def t(a, dt=dtype):
+        return _param(a, dt, device)
 
     sub = params["blocks"]["sub0"]
-    at, ml = sub["attn"], sub["mlp"]
     blocks = []
     for i in range(cfg.num_layers):
+        if "mamba" in sub:
+            mm = sub["mamba"]
+            blocks.append(Block(t(sub["nm"][i]), Mamba(*(
+                t(mm[n][i], torch.float32 if n in FLOAT32_LEAVES else dtype)
+                for n in LEAVES))))
+            continue
+        at, ml = sub["attn"], sub["mlp"]
         bias = [t(at[n][i]) if n in at else None for n in ("bq", "bk", "bv")]
         blocks.append(Block(
             t(sub["nm"][i]),

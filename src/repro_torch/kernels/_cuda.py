@@ -26,14 +26,14 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hash_join", "closure", "attention")
+SOURCES = ("hash_join", "closure", "attention", "ssd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {
     "join_compact": 0, "probe_compact": 0, "match_matrix": 0,
     "closure_step": 0, "descendants": 0,
-    "flash_attention": 0, "decode_attention": 0,
+    "flash_attention": 0, "decode_attention": 0, "ssd": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -144,3 +144,4 @@ def require(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:
 P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint
+LL = ctypes.c_longlong

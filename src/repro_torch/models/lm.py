@@ -1,19 +1,23 @@
-"""LM assembly for dense GQA stacks: init, forward, KV cache, decode step.
+"""LM assembly for dense GQA stacks and Mamba-2 (SSD) stacks: init,
+forward, decode cache, decode step.
 
 The reference scans over stacked layer weights; here the stack is a
-Python loop over :class:`Block` modules (the port runs eagerly).  Weights
-keep the reference's layouts (``interop.lm_params_from_arrays`` carries
-the reference's parameters in).  MoE, Mamba, codebook heads, vision/audio
+Python loop over :class:`Block` modules (the port runs eagerly).  A block
+is a mixer (GQA attention or Mamba-2) and, where the layer pattern has
+one, a dense FFN.  Weights keep the reference's layouts
+(``interop.lm_params_from_arrays`` carries the reference's parameters
+in).  MoE, Mamba-1, hybrid patterns, codebook heads, vision/audio
 frontends, MLA and M-RoPE raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.
 
-The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len":
-int}``; :func:`decode_step` writes the new rows into it and advances
-``len`` in place.
+The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len": int}``
+for attention stacks and ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, S,
+P], "len": int}`` for Mamba-2 stacks; :func:`decode_step` writes the new
+state into it and advances ``len`` in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -25,19 +29,29 @@ from .attention import (
 from .common import (
     dtype_of, normal_param, ones_param, resolve_device, rms_norm,
 )
+from .mamba import (
+    Mamba, check_mamba, init_mamba, mamba2_forward, mamba_cache_shape,
+)
 from .mlp import MLP, init_mlp
 
 NEG_INF = -1e30
+ATTN_LAYER = LayerSpec("attn", "dense")
+MAMBA_LAYER = LayerSpec("mamba", None)
+
+
+def is_mamba(cfg: ModelConfig) -> bool:
+    return cfg.layer_pattern == (MAMBA_LAYER,)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's LM does not run yet."""
-    if cfg.layer_pattern != (LayerSpec("attn", "dense"),):
-        item = ("Mamba-2 forward and the SSD kernel"
-                if any(s.mixer == "mamba" for s in cfg.layer_pattern)
-                else "Other LM architectures")
+    """Raise for what the port's LM does not run yet (a Mamba layer with
+    no ``MambaConfig`` is a ``ValueError``)."""
+    if any(s.mixer == "mamba" for s in cfg.layer_pattern):
+        check_mamba(cfg)
+    if cfg.layer_pattern not in ((ATTN_LAYER,), (MAMBA_LAYER,)):
         raise not_ported("layer pattern %s (%s)" % (cfg.layer_pattern,
-                                                    cfg.name), item)
+                                                    cfg.name),
+                         "Other LM architectures")
     if cfg.moe is not None:
         raise not_ported("MoE (%s)" % cfg.name, "Other LM architectures")
     if cfg.num_codebooks or cfg.frontend is not None:
@@ -50,22 +64,30 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm -> attention -> residual -> norm -> MLP -> residual."""
+    """norm -> mixer (attention or Mamba-2) -> residual, then, where the
+    layer has an FFN, norm -> MLP -> residual.  The mixer is ``attn`` or
+    ``mamba``, as in the reference's parameter tree."""
 
-    def __init__(self, nm: torch.Tensor, attn: Attention, nf: torch.Tensor,
-                 mlp: MLP):
+    def __init__(self, nm: torch.Tensor, mixer: Union[Attention, Mamba],
+                 nf: Optional[torch.Tensor] = None, mlp: Optional[MLP] = None):
         super().__init__()
         self.nm = nn.Parameter(nm, requires_grad=False)
-        self.attn = attn
-        self.nf = nn.Parameter(nf, requires_grad=False)
+        self.kind = "attn" if isinstance(mixer, Attention) else "mamba"
+        setattr(self, self.kind, mixer)
+        if mlp is not None:
+            self.nf = nn.Parameter(nf, requires_grad=False)
         self.mlp = mlp
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None):
-        out, new_cache = gqa_forward(self.attn, cfg, rms_norm(h, self.nm),
-                                     positions, cache)
+        hn = rms_norm(h, self.nm)
+        if self.kind == "attn":
+            out, new_cache = gqa_forward(self.attn, cfg, hn, positions, cache)
+        else:
+            out, new_cache = mamba2_forward(self.mamba, cfg, hn, cache)
         h = h + out
-        h = h + self.mlp(rms_norm(h, self.nf))
+        if self.mlp is not None:
+            h = h + self.mlp(rms_norm(h, self.nf))
         return h, new_cache
 
 
@@ -94,17 +116,23 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device="cuda") -> LM:
     """Random weights with the reference's distributions: normal scaled by
     ``1/sqrt(fan_in)``, the embedding and untied head by 0.02, norms 1,
-    biases 0.  ``generator`` must live on ``device``."""
+    biases 0 (Mamba's own in ``mamba.init_mamba``).  ``generator`` must
+    live on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     d, vp = cfg.d_model, cfg.padded_vocab
     embed = normal_param((vp, d), generator, dev, dtype, scale=0.02)
-    blocks = [Block(ones_param((d,), dev, dtype),
-                    init_attention(cfg, generator, dev, dtype),
-                    ones_param((d,), dev, dtype),
-                    init_mlp(d, cfg.d_ff, generator, dev, dtype))
-              for _ in range(cfg.num_layers)]
+    if is_mamba(cfg):
+        blocks = [Block(ones_param((d,), dev, dtype),
+                        init_mamba(cfg, generator, dev, dtype))
+                  for _ in range(cfg.num_layers)]
+    else:
+        blocks = [Block(ones_param((d,), dev, dtype),
+                        init_attention(cfg, generator, dev, dtype),
+                        ones_param((d,), dev, dtype),
+                        init_mlp(d, cfg.d_ff, generator, dev, dtype))
+                  for _ in range(cfg.num_layers)]
     head = (None if cfg.tie_embeddings
             else normal_param((d, vp), generator, dev, dtype, scale=0.02))
     return LM(cfg, embed, blocks, ones_param((d,), dev, dtype), head)
@@ -141,28 +169,43 @@ def forward(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                per_seq: bool = False) -> Dict:
-    """Zeros ``[L, batch, Hk, max_len, D]`` for keys and values, length 0.
-    One length is shared by the batch (``per_seq`` raises)."""
+    """An empty cache, length 0: zeros ``[L, batch, Hk, max_len, D]`` for
+    keys and values, or, for Mamba-2 stacks (which ``max_len`` does not
+    size), each layer's conv tail and SSM state.  One length is shared by
+    the batch (``per_seq`` raises)."""
     check_supported(cfg)
-    one = gqa_cache_shape(cfg, batch, max_len, dtype_of(cfg.dtype),
-                          resolve_device(device), per_seq)
+    dev, dtype = resolve_device(device), dtype_of(cfg.dtype)
+    if per_seq:
+        raise not_ported("per-sequence cache lengths", "LM continuous batching")
     n = cfg.num_layers
+    if is_mamba(cfg):
+        one = mamba_cache_shape(cfg, batch, dtype, dev)
+        return {"conv": one["conv"][None].repeat(n, 1, 1, 1),
+                "ssm": one["ssm"][None].repeat(n, 1, 1, 1, 1), "len": 0}
+    one = gqa_cache_shape(cfg, batch, max_len, dtype, dev)
     return {"k": one["k"][None].repeat(n, 1, 1, 1, 1),
             "v": one["v"][None].repeat(n, 1, 1, 1, 1), "len": 0}
+
+
+def _layer_cache(cache: Dict, i: int) -> Dict:
+    """Layer ``i``'s view of the stacked cache."""
+    if "ssm" in cache:
+        return {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+    return {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
 
 
 def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,
                 last_only: bool = False) -> torch.Tensor:
     """New tokens ``[B, T]`` at positions ``cache["len"] + [0, T)`` ->
     logits ``[B, T, Vp]`` (``[B, Vp]`` of the last position with
-    ``last_only``).  Writes the T new key/value rows of every layer into
-    ``cache`` and advances ``cache["len"]`` by T, in place."""
+    ``last_only``).  Writes the T new key/value rows (or the new conv tail
+    and SSM state) of every layer into ``cache`` and advances
+    ``cache["len"]`` by T, in place."""
     h = torch.nn.functional.embedding(tokens, model.embed)
     start = cache["len"]
     positions = _positions(h.shape[0], h.shape[1], start, h.device)
     for i, blk in enumerate(model.blocks):
-        h, _ = blk(model.cfg, h, positions,
-                   {"k": cache["k"][i], "v": cache["v"][i], "len": start})
+        h, _ = blk(model.cfg, h, positions, _layer_cache(cache, i))
     cache["len"] = start + h.shape[1]
     if last_only:
         h = h[:, -1:]

@@ -1,10 +1,12 @@
 """LM serving: cached prefill, one-token decode steps, batched generation.
 
-``prefill`` consumes the whole prompt into an empty KV cache (flash
-attention over the cache, ``q_offset`` = the cache length) and projects
+``prefill`` consumes the whole prompt into an empty cache and projects
 only the last position through the head; ``step`` feeds one token per
-sequence (decode attention over the cache).  Both update the cache in
-place and return logits ``[B, Vp]``.
+sequence.  Both update the cache in place and return logits ``[B, Vp]``.
+For attention stacks the prefill runs flash attention over the KV cache
+(``q_offset`` = the cache length) and a step decode attention; for
+Mamba-2 stacks the prefill runs the SSD kernel from the cached state and
+a step the one-token recurrence.
 
 :func:`generate` runs on the card unless ``device="cpu"`` is passed, and
 raises when it is asked for the card and none is visible.  The reference's
@@ -52,7 +54,9 @@ def generate(model: lm.LM, prompt, max_new: int,
              generator: Optional[torch.Generator] = None,
              device="cuda") -> torch.Tensor:
     """Batched generation (greedy by default): ``prompt [B, T]`` token ids
-    -> ``[B, max_new]`` int32 on ``device``, where ``model`` must live."""
+    -> ``[B, max_new]`` int32 on ``device``, where ``model`` must live.
+    ``max_len`` (default: prompt + new tokens) sizes the KV cache; Mamba-2
+    caches do not grow with it, but it is held to the same bound."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError("the model lives on %s, generate was asked for %s"

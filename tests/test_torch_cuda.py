@@ -11,7 +11,10 @@ comparisons are exact.  The attention kernels compare floats: float32
 within 1e-4 absolute (sums in another order), bfloat16 within 2e-2
 absolute plus 1e-2 relative (one bf16 rounding of the output: 2^-8 to
 2^-7 of its magnitude, the two sides rounding the same f32 value on
-either side of a boundary).
+either side of a boundary).  The SSD kernel's float32 outputs and final
+state are held within 2e-4 absolute and relative (the reference's own SSD
+tolerance: the chunked cumsum sums in another order), its bfloat16
+outputs as the attention kernels'.
 """
 import contextlib
 import copy
@@ -37,6 +40,9 @@ from repro_torch.kernels.decode_attention import ops as p_da_ops
 from repro_torch.kernels.decode_attention import ref as p_da_ref
 from repro_torch.kernels.flash_attention import ops as p_fa_ops
 from repro_torch.kernels.flash_attention import ref as p_fa_ref
+from repro_torch.kernels.ssd import kernel as p_ssd_kernel
+from repro_torch.kernels.ssd import ops as p_ssd_ops
+from repro_torch.kernels.ssd import ref as p_ssd_ref
 
 BASE = 5000
 PATTERNS = {
@@ -422,6 +428,143 @@ def test_two_layer_generation_kernels_match_plain(card):
         f32_logits = _teacher_forced(f32, prompt, ids, 120)
     v = cfg.vocab_size      # the padded rows hold -1e30 in each dtype
     assert torch.equal(kern[..., v:], plain[..., v:])
+    noise = (plain - f32_logits)[..., :v].abs()
+    diff = (kern - plain)[..., :v].abs()
+    assert float(diff.max()) <= 2 * float(noise.max())
+    assert float(diff.mean()) <= 2 * float(noise.mean())
+
+
+# --------------------------------------------------------------------------
+# the SSD kernel and Mamba-2 generation
+# --------------------------------------------------------------------------
+
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+           torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+STATE_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# (b, t, h, p, g, s, chunk, init_state)
+SSD_CASES = {
+    "full_width_t256_init": (2, 256, 24, 64, 1, 128, 128, True),
+    "t96_one_chunk": (2, 96, 24, 64, 1, 128, 96, False),
+    "t96_chunk128_ragged": (2, 96, 24, 64, 1, 128, 128, True),
+    "t200_second_chunk_ragged": (1, 200, 8, 64, 1, 128, 128, True),
+    "t40_below_tile": (2, 40, 8, 64, 1, 128, 40, False),
+    "t40_chunk16_ragged": (2, 40, 8, 64, 1, 128, 16, True),
+    "g2_h4": (2, 128, 4, 64, 2, 64, 64, True),
+    "s16_p16": (1, 64, 2, 16, 1, 16, 32, False),
+    "s32_p32_g2": (2, 128, 4, 32, 2, 32, 64, True),
+}
+
+
+def _ssd_inputs(b, t, h, p, g, s, dtype, seed, init, device):
+    """The reference tests' distributions (dt in [0.01, 0.2], A in [-2,
+    -0.5], x, B, C normal), with x, B and C slices of one [B, T, H*P +
+    2*G*S] tensor on ``device``, as the model passes them (strided views:
+    moving a view between devices would make it contiguous)."""
+    rng = np.random.default_rng(seed)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    xbc = put(rng.standard_normal((b, t, h * p + 2 * g * s))).to(dtype)
+    x = xbc[..., :h * p].reshape(b, t, h, p)
+    Bm = xbc[..., h * p:h * p + g * s].reshape(b, t, g, s)
+    Cm = xbc[..., h * p + g * s:].reshape(b, t, g, s)
+    dt = put(rng.uniform(0.01, 0.2, (b, t, h)))
+    A = put(-rng.uniform(0.5, 2.0, (h,)))
+    s0 = put(rng.standard_normal((b, h, s, p))) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_kernel_matches_plain(card, case, dtype):
+    b, t, h, p, g, s, chunk, init = SSD_CASES[case]
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(b, t, h, p, g, s, dtype, seed=t + h,
+                                       init=init, device=card)
+    assert not x.is_contiguous()
+    before = _cuda.LAUNCHES["ssd"]
+    y, state = p_ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ssd"] == before + 1
+    want_y, want_state = p_ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk, s0)
+    assert y.dtype == dtype and y.shape == (b, t, h, p)
+    assert state.dtype == torch.float32 and state.shape == (b, h, s, p)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(state, want_state, **STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_matches_the_sequential_oracle(card):
+    """ops.ssd (kernel, D skip) against the step-by-step ssd_ref, float32,
+    from a nonzero state, at a chunk that leaves a ragged tail."""
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(2, 100, 4, 32, 2, 32, torch.float32,
+                                       seed=7, init=True, device=card)
+    D = torch.linspace(-1, 1, 4, device=card)
+    y, state = p_ssd_ops.ssd(x, dt, A, Bm, Cm, D, chunk=32, init_state=s0)
+    want_y, want_state = p_ssd_ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
+    torch.testing.assert_close(y, want_y, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(state, want_state, **STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_does_not_take(card):
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 16, 2, 16, 1, 16, torch.float32,
+                                      seed=0, init=False, device=card)
+    with pytest.raises(ValueError, match="chunk"):
+        p_ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, 256)
+    with pytest.raises(ValueError, match="d_state"):
+        p_ssd_kernel.ssd_cuda(x[..., :8], dt, A, Bm, Cm, 16)
+    with pytest.raises(TypeError):
+        p_ssd_kernel.ssd_cuda(x, dt.double(), A, Bm, Cm, 16)
+
+
+@contextlib.contextmanager
+def _plain_ssd():
+    """The same model code with the SSD kernel's plain version."""
+    with mock.patch.object(p_ssd_ops.kernel, "ssd_cuda",
+                           p_ssd_ref.ssd_chunked):
+        yield
+
+
+@pytest.mark.gpu
+def test_two_layer_mamba_generation_kernel_matches_plain(card):
+    """Mamba2-130M at full width, 2 layers: forward and greedy generation
+    through the SSD kernel against its plain version.  float32: equal ids,
+    logits within 1e-3; bfloat16: the kernel moves the teacher-forced
+    logits by at most twice what bf16 arithmetic itself does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), num_layers=2)
+    model = p_lm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 200))).to(card)
+    f32 = _as_f32(model)
+    _cuda.reset_launches()
+    ids32 = p_serve.generate(f32, prompt, 8)
+    with torch.no_grad():
+        fwd = p_lm.forward(f32, prompt)
+    assert _cuda.LAUNCHES["ssd"] == 2 + 2
+    with _plain_ssd():
+        plain32 = p_serve.generate(f32, prompt, 8)
+        t_plain32 = _teacher_forced(f32, prompt, ids32, 208)
+        with torch.no_grad():
+            plain_fwd = p_lm.forward(f32, prompt)
+    assert torch.equal(ids32, plain32)
+    torch.testing.assert_close(_teacher_forced(f32, prompt, ids32, 208),
+                               t_plain32, rtol=0, atol=1e-3)
+    torch.testing.assert_close(fwd, plain_fwd, rtol=0, atol=1e-3)
+
+    ids = p_serve.generate(model, prompt, 8)
+    kern = _teacher_forced(model, prompt, ids, 208)
+    assert torch.equal(kern.argmax(-1).int(), ids)
+    with _plain_ssd():
+        plain = _teacher_forced(model, prompt, ids, 208)
+        f32_logits = _teacher_forced(f32, prompt, ids, 208)
+    v = cfg.vocab_size
     noise = (plain - f32_logits)[..., :v].abs()
     diff = (kern - plain)[..., :v].abs()
     assert float(diff.max()) <= 2 * float(noise.max())

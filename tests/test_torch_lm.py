@@ -121,7 +121,7 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
-    assert registered() == ("qwen2-1.5b",)
+    assert registered() == ("mamba2-130m", "qwen2-1.5b")
     full = get_config("qwen2-1.5b")
     assert full.padded_vocab == 152064
     assert round(full.param_counts()["total"] / 1e9, 2) == 1.54
@@ -130,7 +130,8 @@ def test_config_equals_reference():
 @pytest.mark.parametrize("arch", sorted(p_base.NOT_PORTED))
 def test_other_archs_name_their_roadmap_item(arch):
     assert arch in r_base.registered()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1: %s" % p_base.NOT_PORTED[arch]):
         get_config(arch)
 
 
@@ -143,10 +144,14 @@ def test_unported_model_features_raise(cfg):
     moe = dataclasses.replace(cfg, moe=p_base.MoEConfig(4, 2, 64))
     with pytest.raises(NotImplementedError, match="Other LM architectures"):
         p_lm.init_model(moe, device="cpu")
+    # a Mamba pattern: Mamba-1 is not ported; no MambaConfig is an error
     mamba = dataclasses.replace(
-        cfg, layer_pattern=(p_base.LayerSpec("mamba", None),))
-    with pytest.raises(NotImplementedError, match="SSD kernel"):
+        cfg, layer_pattern=(p_base.LayerSpec("mamba", None),),
+        mamba=p_base.MambaConfig(version=1, d_state=16, expand=2))
+    with pytest.raises(NotImplementedError, match="Other LM architectures"):
         p_lm.init_model(mamba, device="cpu")
+    with pytest.raises(ValueError, match="no MambaConfig"):
+        p_lm.init_model(dataclasses.replace(mamba, mamba=None), device="cpu")
 
 
 def test_entry_points_default_to_the_card(cfg, model):
@@ -365,6 +370,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    for new in (("kernels", "ssd", "ops.py"), ("kernels", "ssd", "kernel.py"),
+                ("kernels", "ssd", "ref.py"), ("models", "mamba.py"),
+                ("configs", "mamba2_130m.py")):
+        assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
