@@ -6,15 +6,22 @@
 Phases (each prints its lines; any failure exits non-zero):
 
 1. **Build** every CUDA source under ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (one process per source, all started together) and print the
-   card's name and power limit.
+   ``nvcc`` (one process per source, all started together), print the
+   card's name and power limit, each kernel's registers and spills, and
+   the count of ``HGMMA`` (``wgmma``) instructions in the bf16 flash
+   kernel's SASS (``cuobjdump -sass``; none fails the run).
 2. **Kernels against their plain versions, on the card**: the scan join,
    the probe join, the match matrix, the closure squaring step and the
    fused descendants step, each held byte for byte (tolerance 0: the
    outputs are integer ids and 0/1 matrices) against its plain PyTorch
-   version on the same inputs, at the main path's shapes plus edge cases;
-   then flash attention and decode attention at phase 7's shapes and edge
-   cases, float32 within 1e-4 and bfloat16 within 2e-2 + 1e-2 relative;
+   version on the same inputs, at the main path's shapes plus edge cases
+   (the closure step also at n = 64, 128, 512, 1024, densities 0.01, 0.2
+   and 1); then flash attention and decode attention at phase 7's shapes
+   and edge cases (flash also at the tensor-core kernel's tile edges: Tq
+   127/128/129, ragged Tk and ``q_offset``, a window narrower than a KV
+   tile, D 16 to 128, groups 1, 3, 6), float32 within 1e-4 and bfloat16
+   within 2e-2 + 1e-2 relative; a bf16 call must reach only the ``wgmma``
+   kernel and an f32 call only the SIMT kernel, each timed;
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
@@ -97,6 +104,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_CORE_OPS_PER_S = 67e12       # float32 outside the tensor cores
+INT8_PEAK_OPS_PER_S = 1979e12     # dense int8 on the tensor cores
 
 # the world (the paper's KB and stream at deployment size): ~0.86 M KB
 # triples, close to the most distinct terms the 20-bit term band admits,
@@ -170,9 +178,12 @@ METHODS = ("scan", "probe", "auto")
 KERNEL_SYMBOLS = {"join_compact": "scan_join_kernel",
                   "probe_compact": "probe_join_kernel",
                   "match_matrix": "match_matrix_kernel",
-                  "closure_step": "bool_matmul_kernel",
+                  # closure_step_pack_kernel + closure_step_kernel
+                  "closure_step": "closure_step",
                   "descendants": "descendants_kernel",
-                  "flash_attention": "flash_attention_kernel",
+                  # flash_attention_wgmma_kernel (bf16) and
+                  # flash_attention_kernel (f32)
+                  "flash_attention": "flash_attention",
                   # decode_attention_kernel + decode_combine_kernel
                   "decode_attention": "decode_",
                   # ssd_chunk_state_kernel, ssd_state_scan_kernel,
@@ -244,6 +255,38 @@ def launch_ms(fn, symbol: str, iters: int = 10):
         sync()
     us = sum(t for k, t in device_times(prof).items() if symbol in k)
     return us / 1e3 / iters if us > 0 else None
+
+
+def kernel_names(fn) -> set:
+    """The device kernels one ``fn()`` launches (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return set(device_times(prof))
+
+
+def hgmma_count(path: str) -> dict:
+    """``HGMMA`` instructions by function in a built library's SASS."""
+    from repro_torch.kernels import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail("cuobjdump failed: %s" % res.stderr.strip())
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def max_abs_err(a, b) -> float:
@@ -591,7 +634,19 @@ def phase_kernels(vocab, kbd):
           lambda: cl_ref.closure_step_ref(reach),
           lambda: torch.clamp_max(torch.matmul(reach, reach), 1.0))
     rec = recs["closure_step"]
-    rec.bound_ms, rec.bound_by = _bound(2 * n * n * 4, 2.0 * n ** 3)
+    # the best rate for a 0/1 product on this card is the int8 tensor-core
+    # peak; the float32 cores' bound is logged beside it
+    rec.bound_ms, rec.bound_by = _bound(2 * n * n * 4, 2.0 * n ** 3,
+                                        INT8_PEAK_OPS_PER_S)
+    log("  closure_step  n=%d bound %.5f ms (%s, int8 tensor-core peak); at "
+        "the float32 cores' peak %.5f ms (%s)" % (
+            (n, rec.bound_ms, rec.bound_by)
+            + _bound(2 * n * n * 4, 2.0 * n ** 3)))
+    for cn in (64, 128, 512, 1024):
+        for dens in (0.01, 0.2, 1.0):
+            cr = (torch.rand((cn, cn), device="cuda") < dens).float()
+            check("closure_step", "random n=%d density %g" % (cn, dens),
+                  (cl_ops.closure_step(cr),), (cl_ref.closure_step_ref(cr),))
 
     root = idx[sch.musical_artist]
     rootcol = r[:, root].contiguous()
@@ -1028,6 +1083,19 @@ def phase_attention(smi):
         ("group 1 D 64", 2, 4, 4, 333, 333, 64, True, None, 0),
         ("not causal, D 16", 1, 4, 2, 65, 129, 16, False, None, 0),
         ("no live key (window 0)", 1, 2, 1, 70, 70, 16, True, 0, 0),
+        # the tensor-core kernel's edges: 128-row query and KV tiles
+        ("Tq 127, group 6 D 128", 1, 6, 1, 127, 127, 128, True, None, 0),
+        ("Tq 128 Tk 200 q_offset 72, group 3 D 64", 2, 6, 2, 128, 200, 64,
+         True, None, 72),
+        ("Tq 129, group 1 D 32", 1, 2, 2, 129, 129, 32, True, None, 0),
+        ("Tq 129 Tk 333 q_offset 204 window 40, group 3 D 128", 1, 3, 1, 129,
+         333, 128, True, 40, 204),
+        ("Tq 300 Tk 1000 q_offset 700 window 100, group 6 D 16", 1, 6, 1,
+         300, 1000, 16, True, 100, 700),
+        ("not causal Tq 129 Tk 65, group 1 D 128", 1, 2, 2, 129, 65, 128,
+         False, None, 0),
+        ("not causal window 30 Tq 127 Tk 191 q_offset 64, group 6 D 64", 1,
+         6, 1, 127, 191, 64, False, 30, 64),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for tag, cb, chq, chk, ctq, ctk, cd, causal, window, off in flash_cases:
@@ -1054,6 +1122,25 @@ def phase_attention(smi):
     rec.plain_ms = cuda_ms(lambda: fa_ref.attention_ref(q, k, v), iters=3)
     rec.library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
+    # a bf16 tensor reaches only the tensor-core kernel, an f32 one only the
+    # SIMT kernel
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for dtype, args, own, other in (
+            ("bf16", (q, k, v), "flash_attention_wgmma_kernel",
+             "flash_attention_kernel"),
+            ("f32", (qf, kf, vf), "flash_attention_kernel",
+             "flash_attention_wgmma_kernel")):
+        names = kernel_names(lambda: fa_ops.flash_attention(*args))
+        if not any(own in n for n in names) or any(other in n
+                                                   for n in names):
+            fail("flash_attention %s reached %s" % (dtype, sorted(names)))
+    f32_ms = launch_ms(lambda: fa_ops.flash_attention(qf, kf, vf),
+                       rec.symbol, iters=3)
+    log("  flash_attention  f32 SIMT kernel at the path shape: launches "
+        "alone %.4f ms, wrapper %.4f ms [%s]" % (
+            f32_ms, cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf),
+                            iters=3), smi))
+    del qf, kf, vf
     pairs = b * hq * _live_pairs(tq, tk, True, None, 0)
     rec.bound_ms, rec.bound_by = _bound(
         2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * d * pairs,
@@ -1587,8 +1674,15 @@ def main() -> int:
         len(paths), time.time() - t0, ", ".join(str(v) for v in paths.values())))
     for name, text in _cuda.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "wgmma")):
                 log("  ptxas %s: %s" % (name, line.strip()))
+    hgmma = {fn: c for fn, c in hgmma_count(str(paths["attention"])).items()
+             if "flash_attention_wgmma_kernel" in fn}
+    for fn, c in sorted(hgmma.items()):
+        log("  sass attention: %d HGMMA in %s" % (c, fn))
+    if len(hgmma) != 4 or not all(hgmma.values()):
+        fail("the bf16 flash kernel's SASS holds no HGMMA: %s" % hgmma)
 
     vocab, kbd, rows, chunks = make_world()
 

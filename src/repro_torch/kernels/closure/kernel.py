@@ -1,7 +1,8 @@
 """CUDA wrappers for the closure kernels (``kernels/csrc/closure.cu``).
 
 * :func:`closure_step_cuda` — ``min(R @ R, 1)`` for a square float32 0/1
-  matrix whose side is a multiple of 64.
+  matrix whose side is a multiple of 64, as a bit-packed boolean product
+  (two launches: pack the rows and columns into bits, then AND/OR them).
 * :func:`descendants_cuda` — the fused last squaring for one root column:
   ``ids[:min(count, out_cap)]`` are the ascending rows i with
   ``min(reach @ rootcol, 1)[i] > 0.5``.
@@ -24,7 +25,7 @@ _READY = set()
 def _lib():
     lib = _cuda.library("closure")
     if "sig" not in _READY:
-        lib.closure_step_launch.argtypes = [P, P, I, P]
+        lib.closure_step_launch.argtypes = [P, P, P, I, P]
         lib.closure_step_launch.restype = I
         lib.descendants_launch.argtypes = [P, P, I, P, P, I, P]
         lib.descendants_launch.restype = I
@@ -39,9 +40,11 @@ def closure_step_cuda(reach: torch.Tensor) -> torch.Tensor:
         raise ValueError("reach must be square with a side that is a "
                          "multiple of 64, got %s" % (tuple(reach.shape),))
     out = torch.empty_like(reach)
+    bits = torch.empty((2 * n * (n // 32),), dtype=torch.int32,
+                       device=reach.device)      # row bits, then column bits
     _cuda.check(_lib().closure_step_launch(
-        reach.data_ptr(), out.data_ptr(), n, _cuda.stream_of(reach)),
-        "closure_step")
+        reach.data_ptr(), bits.data_ptr(), out.data_ptr(), n,
+        _cuda.stream_of(reach)), "closure_step")
     _cuda.count_launch("closure_step")
     return out
 

@@ -1,5 +1,6 @@
 // Attention kernels for Hopper (sm_90a): the GQA flash-attention forward
-// (prefill) and GQA decode attention (one query token against a KV cache).
+// (prefill; bf16 on the tensor cores, float32 on the CUDA cores) and GQA
+// decode attention (one query token against a KV cache).
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/flash_attention/kernel.py  flash_attention_pallas
@@ -14,29 +15,60 @@
 // Layouts are the reference's: q [B, Hq, Tq, D], k and v [B, Hk, Tk, D],
 // out [B, Hq, Tq, D], contiguous, in float32 or bfloat16.  Query head h
 // reads KV head h / (Hq / Hk): K and V are never repeated in memory.  All
-// softmax arithmetic is float32, in base 2: q is scaled by log2(e)/sqrt(D)
-// once, and exp2 takes the place of exp (the same function).  P stays
-// float32 in P.V (the reference does not round it either).
+// softmax arithmetic is float32, in base 2 (exp2 of scores times
+// log2(e)/sqrt(D) is the same function as exp).
 //
-// flash_attention_kernel.  Bound at the prefill's shapes (B=4, Hq=12,
-// Tq=2048 over a 2112-row cache, D=128): 4·D operations per live
-// (query, key) pair, 5.2e10 per layer, against ~59 MB of q, k, v and out:
-// operations bound it.  The TPU walked KV blocks along a sequential grid
-// axis with the statistics in VMEM; here one block of 256 threads owns one
-// (batch, query head, 64-row query tile) and loops over 64-row KV tiles
-// itself, its statistics in registers.  Each thread holds a 4 x 4 block of
-// the score tile and the same 4 rows of the output (4 x D/16 floats), so
-// row max and row sum reduce over the 16 lanes of a half-warp with
-// shuffles.  Tiles past the causal edge, before the window or past Tk are
-// never loaded: the prefill attends over the whole cache (Tk = max_len),
-// and the rows past the prompt cost nothing.  Masked entries are selected
-// out (not left to exp underflow); a row with no live key writes zeros.
-// Q, K/V and P tiles are float32 in shared memory (row stride D + 4 floats:
-// 16-byte aligned, and eight threads reading eight rows' float4s hit 32
-// distinct banks); K and V take turns in one buffer, which keeps two
-// blocks on an SM at D = 128.  The products run on the CUDA cores in
-// float32; tensor cores (mma / wgmma on bf16 tiles) are later work.
-// Query tiles are issued latest first, since they have the most KV tiles.
+// Flash attention.  Bound at the prefill's shapes (B=4, Hq=12, Tq=2048
+// over a 2112-row cache, D=128): 4·D operations per live (query, key)
+// pair, 5.2e10 per layer, against ~59 MB of q, k, v and out: operations
+// bound it, at the bf16 tensor-core peak (989e12/s: 0.052 ms).  The TPU
+// walked KV blocks along a sequential grid axis with the statistics in
+// VMEM; here a block owns one (batch, query head, query tile) and loops
+// over the live KV tiles itself, its statistics in registers.  Tiles past
+// the causal edge, before the window or past Tk are never loaded (the
+// prefill attends over the whole cache, Tk = max_len, and the rows past
+// the prompt cost nothing); query tiles are issued latest first, since
+// they have the most KV tiles.  Masked entries are selected out (not left
+// to exp2 underflow); a row with no live key writes zeros.  The wrapper
+// picks the kernel by dtype (not a knob): bf16 takes the tensor cores,
+// float32 the CUDA cores.
+//
+// flash_attention_wgmma_kernel (bf16).  A block of three warpgroups owns 128
+// query rows of one (batch, head): two consumer warpgroups of 64 rows each
+// (wgmma's M) and one producer warpgroup that copies Q once and then the live
+// K and V tiles (128 rows) into a two-stage ring in shared memory with
+// cp.async 16-byte copies.  The producers write every tile straight into the
+// 128-byte-swizzled layout that wgmma's shared-memory descriptors read
+// (64-column blocks, row r's 16-byte chunk c at c ^ r % 8; zero-filled past
+// Tq, Tk and, for D < 64, past D).  mbarriers hand the stages over, K and V
+// separately: a consumer multiplies Q K^T as soon as K has landed, while V is
+// still in flight, and a stage's K is refilled as soon as both warpgroups
+// have their scores; the two warpgroups wait on the copies, never on each
+// other.  S = Q K^T is wgmma m64n128k16 from shared memory (K read K-major as
+// it lies), f32 in registers; the online softmax runs on the accumulator
+// fragment (each row's max and sum reduced over the 4 lanes that hold it),
+// applies the scale to the f32 scores, not to q, which would round q a second
+// time, masks only in the tiles that hold an edge, and skips rescaling O when
+// no row max moved.  O += P V is wgmma with P converted to bf16 in registers
+// as the A operand (the accumulator fragment of S is P V's A fragment) and V
+// read from shared memory as an MN-major B.  P is rounded to bf16 there, as
+// SDPA and FlashAttention-2/3 do; the row sums are taken on the f32 P.  The
+// grid runs every head's latest query tile first, so the longest blocks start
+// first.  Overlapping a warpgroup's softmax with its own P V product
+// (FlashAttention-3) needs more than the 168 registers a thread that three
+// warpgroups leave; with setmaxnreg it ran slower on an H100.
+//
+// flash_attention_kernel (float32).  TF32 wgmma would keep ~3 decimal digits,
+// above the float32 tolerance (1e-4) that the card-against-CPU gate of the LM
+// relies on, so float32 stays on the CUDA cores: one block of 256 threads
+// owns a 64-row query tile and loops over 64-row KV tiles; each thread holds
+// a 4 x 4 block of the score tile and the same 4 rows of the output (4 x D/16
+// floats), row max and row sum reduced over the 16 lanes of a half-warp with
+// shuffles.  Q is scaled by log2(e)/sqrt(D) once, in float32.  Q, K/V and P
+// tiles are float32 in shared memory (row stride D + 4 floats: 16-byte
+// aligned, and eight threads reading eight rows' float4s hit 32 distinct
+// banks); K and V take turns in one buffer, which keeps two blocks on an SM
+// at D = 128.  P stays float32 in P.V.
 //
 // decode_attention_kernel + decode_combine_kernel.  Bound: reading the K
 // and V rows below lengths[b] once (8.5 MB per layer at B=4, Hk=2, D=128,
@@ -52,6 +84,7 @@
 // Splits that start at or past lengths[b] return at once.
 
 #include <cuda_bf16.h>
+#include <math_constants.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,6 +95,7 @@ constexpr int kTile = 64;            // query and KV tile rows
 constexpr int kFlashThreads = 256;
 constexpr int kDecThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBadShape = -1;
 
 // 16-byte loads of T, converted to float
 template <typename T> struct Vec;
@@ -138,12 +172,14 @@ template <int D> struct FlashSmem {
   static constexpr int bytes = floats * 4;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlashThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hk, int Tq, int Tk, int causal, int has_window,
-                       int window, int q_offset, float qscale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int Hq, int Hk, int Tq, int Tk, int causal,
+                       int has_window, int window, int q_offset,
+                       float qscale) {
   constexpr int LD = FlashSmem<D>::LD, LP = FlashSmem<D>::LP;
   constexpr int NC = D / 16;                     // output columns a thread
   extern __shared__ __align__(16) float smem[];
@@ -156,10 +192,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (nq - 1 - (int)blockIdx.x) * kTile;
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hk);
-  const T* qb = q + (size_t)(b * Hq + hq) * Tq * D;
-  const T* kb = k + (size_t)(b * Hk + hk) * Tk * D;
-  const T* vb = v + (size_t)(b * Hk + hk) * Tk * D;
-  T* ob = o + (size_t)(b * Hq + hq) * Tq * D;
+  const float* qb = q + (size_t)(b * Hq + hq) * Tq * D;
+  const float* kb = k + (size_t)(b * Hk + hk) * Tk * D;
+  const float* vb = v + (size_t)(b * Hk + hk) * Tk * D;
+  float* ob = o + (size_t)(b * Hq + hq) * Tq * D;
 
   // output column of the thread's n-th accumulator
   auto col = [&](int n) {
@@ -176,7 +212,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lo > 0) kt_begin = (int)min(lo / kTile, (long long)kt_end);
   }
 
-  load_rows<T, D, LD>(Qs, qb, q0, kTile, Tq, qscale, tid, kFlashThreads);
+  load_rows<float, D, LD>(Qs, qb, q0, kTile, Tq, qscale, tid, kFlashThreads);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -190,7 +226,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                     // KVs and Ps free, Qs visible
-    load_rows<T, D, LD>(KVs, kb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
+    load_rows<float, D, LD>(KVs, kb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
     __syncthreads();
 
     float s[4][4];
@@ -247,7 +283,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();                     // K no longer read
-    load_rows<T, D, LD>(KVs, vb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
+    load_rows<float, D, LD>(KVs, vb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
     __syncthreads();                     // V and P visible
 
 #pragma unroll 2
@@ -288,6 +324,440 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NC; ++n)
       store(ob + (size_t)row * D + col(n), acc[i][n] / lsafe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash attention, bfloat16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;           // query rows a block: 2 warpgroups x 64
+constexpr int kWgBN = 128;           // KV tile rows
+constexpr int kWgConsumers = 256;    // two warpgroups of 64 query rows
+constexpr int kWgProducers = 128;    // one warpgroup of loaders
+constexpr int kWgThreads = kWgConsumers + kWgProducers;
+
+// Shared memory of the bf16 kernel.  Every tile is stored as DP/64 column
+// blocks of 64 bf16 (128 bytes a row) in the layout wgmma's 128-byte
+// swizzle reads: row r at r * 128 bytes, its 16-byte chunk c at
+// (c ^ r % 8) * 16.  Head dims below 64 are zero-padded to 64 columns.
+template <int D> struct WgSmem {
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int Q = (DP / 64) * kWgBM * 128;     // bytes of Q
+  static constexpr int KV = (DP / 64) * kWgBN * 128;    // one K or V tile
+  static constexpr int bars = Q + 4 * KV;               // 8 mbarriers
+  static constexpr int bytes = bars + 64 + 1024;        // + 1024 alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, bypassing L1; bytes < 16 zero-fills the rest
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// make this thread's generic-proxy shared writes visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still running
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma issue / wait
+template <int N> __device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading byte offset (MN-major: the next 64-column block), stride
+// byte offset 1024 (the next 8 rows), layout type 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+// spin until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// D (+)= A[smem] * B[smem]^T, m64n128k16, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A[registers] * B[smem], m64n64k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A[registers] * B[smem], m64n128k16, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// rows [row0, row0 + ROWS) of a row-major [*, D] bf16 matrix into dst in the
+// swizzled layout of WgSmem (column block c / 8 at c / 8 * ROWS * 128
+// bytes); rows at or past `limit` and the padding columns are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_sw128(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                int row0, int limit, int tid) {
+  constexpr int CPR = WgSmem<D>::DP / 8;           // 16-byte chunks a row
+#pragma unroll 8
+  for (int it = 0; it < ROWS * CPR / kWgProducers; ++it) {
+    const int i = tid + it * kWgProducers;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = row0 + r < limit && c * 8 < D;
+    const __nv_bfloat16* s = ok ? src + (size_t)(row0 + r) * D + c * 8 : src;
+    cp_async16(dst + (c >> 3) * ROWS * 128 + r * 128 +
+                   (((c & 7) ^ (r & 7)) << 4),
+               s, ok ? 16 : 0);
+  }
+}
+
+// online softmax in base 2 on a [64, N] f32 score fragment in the wgmma
+// accumulator layout: each row's max and sum over the 4 lanes that hold it,
+// the scale applied to the f32 scores, masked entries (EDGE tiles only)
+// selected out; P goes to bf16 pairs, p[4 kk .. 4 kk + 3] the A fragment of
+// P V's k-step kk (keys 16 kk .. 16 kk + 15)
+template <bool EDGE, int N>
+__device__ __forceinline__ void online_softmax(float* s, uint32_t* p,
+                                               float* m, float* l,
+                                               float* alpha, float scale,
+                                               int k0, int tig, const int* lo,
+                                               const int* hi) {
+  if constexpr (EDGE) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
+        if (kpos <= lo[e >> 1] || kpos > hi[e >> 1])
+          s[4 * j + e] = -CUDART_INF_F;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m[h], mx * scale);
+    alpha[h] = fast_exp2(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x0 = s[4 * j + 2 * h], x1 = s[4 * j + 2 * h + 1];
+      float p0 = fast_exp2(fmaf(x0, scale, -m[h]));
+      float p1 = fast_exp2(fmaf(x1, scale, -m[h]));
+      if constexpr (EDGE) {
+        p0 = x0 == -CUDART_INF_F ? 0.f : p0;
+        p1 = x1 == -CUDART_INF_F ? 0.f : p1;
+      }
+      l[h] += p0 + p1;
+      p[2 * j + h] = pack_bf16(p0, p1);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             __nv_bfloat16* __restrict__ o, int Hq, int Hk,
+                             int Tq, int Tk, int causal, int has_window,
+                             int window, int q_offset, float scale) {
+  using S = WgSmem<D>;
+  constexpr int DP = S::DP;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  const uint32_t sQ = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + S::Q;                 // 2 stages of K
+  const uint32_t sV = sK + 2 * S::KV;            // 2 stages of V
+  // fullk/fullv[st]: the stage's K / V landed (an arrival per producer
+  // warp); emptyk/emptyv[st]: every consumer thread is done with it
+  const uint32_t fullk = sQ + S::bars, fullv = fullk + 16;
+  const uint32_t emptyk = fullv + 16, emptyv = emptyk + 16;
+
+  const int tid = threadIdx.x;
+  const int nq = (Tq + kWgBM - 1) / kWgBM;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kWgBM;    // latest tiles first
+  const int hq = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hk = hq / (Hq / Hk);
+  const __nv_bfloat16* kb = k + (size_t)(b * Hk + hk) * Tk * D;
+  const __nv_bfloat16* vb = v + (size_t)(b * Hk + hk) * Tk * D;
+
+  const int qpos_first = q_offset + q0;
+  const int qpos_last = q_offset + min(q0 + kWgBM, Tq) - 1;
+  int kt_begin = 0, kt_end = (Tk + kWgBN - 1) / kWgBN;
+  if (causal) kt_end = min(kt_end, qpos_last / kWgBN + 1);
+  if (has_window) {
+    const long long lo = (long long)qpos_first - window + 1;  // first live key
+    if (lo > 0) kt_begin = (int)min(lo / kWgBN, (long long)kt_end);
+  }
+  const int ntiles = kt_end - kt_begin;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(fullk + 8 * i, kWgProducers / 32);
+      mbar_init(fullv + 8 * i, kWgProducers / 32);
+      mbar_init(emptyk + 8 * i, kWgConsumers);
+      mbar_init(emptyv + 8 * i, kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {
+    // producer warpgroup: Q with the first K, then every live K and V tile
+    // into its stage once the consumers released the stage; K_j is
+    // announced when it lands, V_j once K_{j+1} is in flight
+    const int ptid = tid - kWgConsumers;
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it & 1, round = it >> 1;
+      const int k0 = (kt_begin + it) * kWgBN;
+      if (round > 0) mbar_wait(emptyk + 8 * st, (round - 1) & 1);
+      if (it == 0)
+        load_tile_sw128<D, kWgBM>(
+            sQ, q + (size_t)(b * Hq + hq) * Tq * D, q0, Tq, ptid);
+      load_tile_sw128<D, kWgBN>(sK + st * S::KV, kb, k0, Tk, ptid);
+      cp_async_commit();
+      if (it > 0) {
+        cp_async_wait<1>();            // V of the previous tile landed
+        fence_proxy_async();
+        __syncwarp();
+        if (ptid % 32 == 0) mbar_arrive(fullv + 8 * (st ^ 1));
+      }
+      if (round > 0) mbar_wait(emptyv + 8 * st, (round - 1) & 1);
+      load_tile_sw128<D, kWgBN>(sV + st * S::KV, vb, k0, Tk, ptid);
+      cp_async_commit();
+      cp_async_wait<1>();              // this tile's K (and Q) landed
+      fence_proxy_async();
+      __syncwarp();
+      if (ptid % 32 == 0) mbar_arrive(fullk + 8 * st);
+    }
+    if (ntiles > 0) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncwarp();
+      if (ptid % 32 == 0) mbar_arrive(fullv + 8 * ((ntiles - 1) & 1));
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: 64 query rows.  The thread's two rows (wgmma
+  // accumulator layout: warp w of the warpgroup holds rows 16w..16w+15,
+  // lane rows gid and gid + 8, columns 8j + 2 tig, +1); live keys
+  // lo < kpos <= hi
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int row_local = wg * 64 + warp * 16 + gid;
+  int hi[2], lo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = qpos_first + row_local + 8 * h;
+    hi[h] = causal ? min(Tk - 1, qpos) : Tk - 1;
+    lo[h] = has_window ? (int)max((long long)qpos - window, -1LL) : -1;
+  }
+  const uint32_t qw = sQ + wg * 64 * 128;        // this warpgroup's Q rows
+
+  float oacc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t p[kWgBN / 4];               // P in bf16 pairs: A fragments of P V
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1, round = it >> 1;
+    const int k0 = (kt_begin + it) * kWgBN;
+    const uint32_t ks = sK + st * S::KV, vs = sV + st * S::KV;
+
+    // S = Q K^T, [64 rows, kWgBN keys] in f32 registers
+    float s[kWgBN / 2];
+    mbar_wait(fullk + 8 * st, round & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n128(s,
+                    sw128_desc(qw + (kk / 4) * kWgBM * 128 + (kk % 4) * 32, 16),
+                    sw128_desc(ks + (kk / 4) * kWgBN * 128 + (kk % 4) * 32, 16),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence<kWgBN / 2>(s);
+    mbar_arrive(emptyk + 8 * st);
+
+    // only tiles on the causal edge, the window's edge or past Tk mask
+    if (k0 + kWgBN > Tk || (causal && k0 + kWgBN - 1 > qpos_first) ||
+        (has_window && (long long)k0 <= (long long)qpos_last - window))
+      online_softmax<true, kWgBN>(s, p, m, l, alpha, scale, k0, tig, lo, hi);
+    else
+      online_softmax<false, kWgBN>(s, p, m, l, alpha, scale, k0, tig, lo, hi);
+    // O *= alpha, skipped when no row max of the warp moved
+    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    }
+
+    // O += P V, V [kWgBN keys, DP] the MN-major B operand
+    mbar_wait(fullv + 8 * st, round & 1);
+    reg_fence<DP / 2>(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBN / 16; ++kk) {
+      const uint64_t dv = sw128_desc(vs + kk * 16 * 128, kWgBN * 128);
+      if constexpr (DP == 64) wgmma_rs_n64(oacc, &p[4 * kk], dv);
+      else wgmma_rs_n128(oacc, &p[4 * kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence<DP / 2>(oacc);
+    mbar_arrive(emptyv + 8 * st);
+  }
+
+  __nv_bfloat16* ob = o + (size_t)(b * Hq + hq) * Tq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(kFull, lt, 1);
+    lt += __shfl_xor_sync(kFull, lt, 2);
+    const int row = q0 + row_local + 8 * h;
+    if (row >= Tq) continue;
+    const float lsafe = lt == 0.f ? 1.f : lt;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * h] / lsafe,
+                                  oacc[4 * j + 2 * h + 1] / lsafe);
+    }
   }
 }
 
@@ -427,19 +897,40 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_ml,
   store(o + row * D + d, l > 0.f ? a / l : 0.f);
 }
 
-template <typename T, int D>
-int flash_launch(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hk, int Tq, int Tk, int causal, int has_window,
-                 int window, int q_offset, float qscale, cudaStream_t stream) {
+template <int D>
+int flash_f32_launch(const void* q, const void* k, const void* v, void* o,
+                     int B, int Hq, int Hk, int Tq, int Tk, int causal,
+                     int has_window, int window, int q_offset, float qscale,
+                     cudaStream_t stream) {
   const int bytes = FlashSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + kTile - 1) / kTile, Hq, B);
-  flash_attention_kernel<T, D><<<grid, kFlashThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hk, Tq, Tk, causal,
-      has_window, window, q_offset, qscale);
+  flash_attention_kernel<D><<<grid, kFlashThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hk,
+      Tq, Tk, causal, has_window, window, q_offset, qscale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                       int B, int Hq, int Hk, int Tq, int Tk, int causal,
+                       int has_window, int window, int q_offset, float scale,
+                       cudaStream_t stream) {
+  const int bytes = WgSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (Tq + kWgBM - 1) / kWgBM;
+  if (nq > 65535) return kBadShape;
+  const dim3 grid(Hq * B, nq);       // all heads' latest query tiles first
+  flash_attention_wgmma_kernel<D><<<grid, kWgThreads, bytes, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hk, Tq, Tk, causal,
+      has_window, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -464,8 +955,6 @@ int decode_launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-constexpr int kBadShape = -1;
-
 }  // namespace
 
 extern "C" {
@@ -479,19 +968,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* stream) {
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define FLASH(T, DD)                                                       \
-  return flash_launch<T, DD>(q, k, v, o, B, Hq, Hk, Tq, Tk, causal,        \
-                             has_window, window, q_offset, qscale, s)
-#define FLASH_D(T)            \
+#define FLASH(L, DD)                                                       \
+  return L<DD>(q, k, v, o, B, Hq, Hk, Tq, Tk, causal, has_window, window,  \
+               q_offset, qscale, s)
+#define FLASH_D(L)            \
   switch (D) {                \
-    case 16: FLASH(T, 16);    \
-    case 32: FLASH(T, 32);    \
-    case 64: FLASH(T, 64);    \
-    case 128: FLASH(T, 128);  \
+    case 16: FLASH(L, 16);    \
+    case 32: FLASH(L, 32);    \
+    case 64: FLASH(L, 64);    \
+    case 128: FLASH(L, 128);  \
     default: return kBadShape; \
   }
-  if (dtype == 0) FLASH_D(float)
-  FLASH_D(__nv_bfloat16)
+  if (dtype == 0) FLASH_D(flash_f32_launch)
+  FLASH_D(flash_wgmma_launch)
 #undef FLASH_D
 #undef FLASH
 }

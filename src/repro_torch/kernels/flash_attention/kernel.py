@@ -3,8 +3,10 @@
 Replaces ``src/repro/kernels/flash_attention/kernel.py``'s
 ``flash_attention_pallas``.  At the prefill's shapes the kernel is bound by
 operations (4·D per live query-key pair); one block per (batch, query head,
-64-row query tile) loops over the live KV tiles only, with the online
-softmax statistics in registers (see the source's header).
+query tile) loops over the live KV tiles only, with the online softmax
+statistics in registers (see the source's header).  The dtype picks the
+kernel: bfloat16 runs on the tensor cores (``wgmma``, P rounded to bf16
+before P·V), float32 on the CUDA cores.
 
 The wrapper checks its arguments, allocates the output, launches on
 PyTorch's current stream and counts one launch.  Nothing is built or

@@ -209,6 +209,18 @@ def test_closure_kernels_match_plain(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.01, 0.2, 1.0])
+@pytest.mark.parametrize("n", [64, 128, 512, 1024])
+def test_closure_step_kernel_matches_plain_bytes(card, n, density):
+    rng = np.random.default_rng(n)
+    reach = torch.from_numpy((rng.random((n, n)) < density).astype(np.float32))
+    before = _cuda.LAUNCHES["closure_step"]
+    got = p_cl_kernel.closure_step_cuda(reach.to(card))
+    assert _cuda.LAUNCHES["closure_step"] == before + 1
+    assert torch.equal(got.cpu(), p_cl_ref.closure_step_ref(reach))
+
+
+@pytest.mark.gpu
 def test_closure_ops_on_the_card_match_the_cpu(card):
     adj = _hierarchy(n=150, seed=1)
     for root, cap in ((0, 150), (3, 20)):
@@ -309,6 +321,16 @@ FLASH_CASES = {
     "g1_d64": (2, 4, 4, 333, 333, 64, True, None, 0),
     "noncausal_d16": (1, 4, 2, 65, 129, 16, False, None, 0),
     "no_live_key": (1, 2, 1, 70, 70, 16, True, 0, 0),
+    # the bf16 tensor-core kernel's edges: 128-row query and KV tiles
+    "tq127_g6_d128": (1, 6, 1, 127, 127, 128, True, None, 0),
+    "tq128_tk200_offset72_g3_d64": (2, 6, 2, 128, 200, 64, True, None, 72),
+    "tq129_g1_d32": (1, 2, 2, 129, 129, 32, True, None, 0),
+    "tq129_window40_offset204_g3_d128": (1, 3, 1, 129, 333, 128, True, 40,
+                                         204),
+    "window100_offset700_g6_d16": (1, 6, 1, 300, 1000, 16, True, 100, 700),
+    "noncausal_tq129_tk65_g1_d128": (1, 2, 2, 129, 65, 128, False, None, 0),
+    "noncausal_window30_offset64_g6_d64": (1, 6, 1, 127, 191, 64, False, 30,
+                                           64),
 }
 # (b, hq, hk, s, d, lengths)
 DECODE_CASES = {
