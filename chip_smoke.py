@@ -15,7 +15,12 @@ Phases (each prints its lines; any failure exits non-zero):
    fused descendants step, each held byte for byte (tolerance 0: the
    outputs are integer ids and 0/1 matrices) against its plain PyTorch
    version on the same inputs, at the main path's shapes plus edge cases
-   (the closure step also at n = 64, 128, 512, 1024, densities 0.01, 0.2
+   (the scan join also at its tile and row-group edges: KB sizes 4095,
+   4096 and 4097, a row's matches across a tile with out_cap cutting
+   inside one, a CONST predicate in no KB row, cross products with no
+   BOUND slot past out_cap, scattered validity, W = 1, live rows filling
+   no whole row group; its count and scatter launches timed apart; the
+   closure step also at n = 64, 128, 512, 1024, densities 0.01, 0.2
    and 1); then flash attention and decode attention at phase 7's shapes
    and edge cases (flash also at the tensor-core kernel's tile edges: Tq
    127/128/129, ragged Tk and ``q_offset``, a window narrower than a KV
@@ -104,6 +109,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_CORE_OPS_PER_S = 67e12       # float32 outside the tensor cores
+INT32_CORE_OPS_PER_S = 16.7e12    # 132 SMs x 64 INT32 lanes x 1.98 GHz
 INT8_PEAK_OPS_PER_S = 1979e12     # dense int8 on the tensor cores
 
 # the world (the paper's KB and stream at deployment size): ~0.86 M KB
@@ -175,7 +181,7 @@ MODES = ("monolithic", "single_program")
 METHODS = ("scan", "probe", "auto")
 
 # the __global__ function each kernel wrapper launches (profiler names)
-KERNEL_SYMBOLS = {"join_compact": "scan_join_kernel",
+KERNEL_SYMBOLS = {"join_compact": "scan_join",   # count + scatter kernels
                   "probe_compact": "probe_join_kernel",
                   "match_matrix": "match_matrix_kernel",
                   # closure_step_pack_kernel + closure_step_kernel
@@ -240,10 +246,11 @@ def device_times(prof) -> dict:
     return dev
 
 
-def launch_ms(fn, symbol: str, iters: int = 10):
+def launch_ms(fn, symbol: str, iters: int = 10, by_kernel=None):
     """Mean device milliseconds per ``fn()`` of the kernels whose name holds
     ``symbol`` (``torch.profiler``): the launches alone, without what the
-    wrapper does around them.  None when the profiler saw no such kernel."""
+    wrapper does around them.  None when the profiler saw no such kernel.
+    ``by_kernel``, a dict, receives the same per kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -253,8 +260,11 @@ def launch_ms(fn, symbol: str, iters: int = 10):
         for _ in range(iters):
             fn()
         sync()
-    us = sum(t for k, t in device_times(prof).items() if symbol in k)
-    return us / 1e3 / iters if us > 0 else None
+    ours = {k: t / 1e3 / iters for k, t in device_times(prof).items()
+            if symbol in k}
+    if by_kernel is not None:
+        by_kernel.update(ours)
+    return sum(ours.values()) if ours else None
 
 
 def kernel_names(fn) -> set:
@@ -391,6 +401,132 @@ def _collide(t1: int) -> int:
     return ((hi1 + 1) << 20) | low2
 
 
+def _scan_join_ops(bind, kb, pat) -> float:
+    """The operations a scan must do on these inputs: the KB-only checks
+    (validity, CONST slots, repeated variables) once per KB row, then one
+    compare a BOUND slot for every live binding row and every KB row that
+    passed them."""
+    from repro_torch.core.pattern import SlotMode
+
+    slots = (pat.s, pat.p, pat.o)
+    kcols = (kb.s_ps, kb.p_ps, kb.o_ps)
+    kmask, checks = kb.valid, 1
+    for i, sl in enumerate(slots):
+        if sl.mode == SlotMode.CONST:
+            kmask, checks = kmask & (kcols[i] == int(sl.const)), checks + 1
+    for i in range(3):
+        for j in range(i + 1, 3):
+            if (slots[i].mode != SlotMode.CONST
+                    and slots[j].mode != SlotMode.CONST
+                    and slots[i].var == slots[j].var):
+                kmask, checks = kmask & (kcols[i] == kcols[j]), checks + 1
+    bound = sum(sl.mode == SlotMode.BOUND for sl in slots)
+    return (float(bound) * int(bind.valid.sum()) * int(kmask.sum())
+            + float(checks) * kb.capacity)
+
+
+def _scattered(bind, live, rng):
+    """``bind`` with ``live`` valid rows a window at random positions, the
+    valid rows' ids drawn from its front rows (which were valid)."""
+    w, m, _ = bind.cols.shape
+    cols = bind.cols.clone()
+    valid = torch.zeros_like(bind.valid)
+    for i in range(w):
+        pos = torch.from_numpy(rng.choice(m, live, replace=False)).cuda()
+        front = int(bind.valid[i].sum())
+        src = torch.from_numpy(rng.integers(0, front, live)).cuda()
+        cols[i, pos] = bind.cols[i, src]
+        valid[i, pos] = True
+    return bind._replace(cols=cols, valid=valid)
+
+
+def phase_scan_edges(vocab, kbd, bind, check, rng):
+    """The scan join's tile and row-group edges, each byte for byte against
+    its plain twin: KB sizes at the 4096-row register tile -1/0/+1, one
+    binding row whose matches cross a tile boundary with out_cap cutting
+    inside the later tile, a CONST predicate no KB row has, patterns with no
+    BOUND slot (cross products past out_cap), validity scattered over the
+    row groups, one window, and live rows filling no whole 1024-row group."""
+    from repro_torch.core.kb import kb_from_triples
+    from repro_torch.core.pattern import Bindings, CompiledPattern, Slot
+    from repro_torch.kernels.hash_join import ops as hj_ops
+
+    tile = 4096
+    sch, kb = kbd.schema, kbd.kb
+    pat_type = CompiledPattern(Slot.bound(0), Slot.const_(sch.rdf_type),
+                               Slot.free(1))
+
+    def both(tag, b, k, pat, cap):
+        check("join_compact", tag, hj_ops.join_compact(b, k, pat, cap),
+              hj_ops.join_compact_torch(b, k, pat, cap))
+
+    typed = kbd.rows[kbd.rows[:, 1] == sch.rdf_type]
+    other = kbd.rows[kbd.rows[:, 1] != sch.rdf_type]
+    for n in (tile - 1, tile, tile + 1):
+        rows = np.concatenate([typed[rng.choice(len(typed), n // 3, False)],
+                               other[rng.choice(len(other), n - n // 3,
+                                                False)]])
+        k = kb_from_triples(rows, capacity=n, device="cuda")
+        b = _bindings(3, 1000, 3, 377, rows[:n // 3, 0].astype(np.int64), rng)
+        both("N=%d (tile %+d), W=3 M=1000" % (n, n - tile), b, k, pat_type,
+             4096)
+
+    # a filler subject whose (p, s) run crosses a tile boundary by >= 100
+    # rows on each side; its window's first row is another filler subject
+    filler_p = vocab.pred("filler:pred")
+    s_ps, p_ps = kb.s_ps.cpu().numpy(), kb.p_ps.cpu().numpy()
+    fidx = np.flatnonzero(p_ps == filler_p)     # one run a subject
+    fs = s_ps[fidx]
+    starts = np.flatnonzero(np.r_[True, fs[1:] != fs[:-1]])
+    ends = np.r_[starts[1:], len(fs)] - 1
+    lo, hi = fidx[starts], fidx[ends]
+    edge = (lo // tile + 1) * tile
+    crossing = np.flatnonzero((lo + 100 <= edge) & (hi >= edge + 100))
+    if not len(crossing):
+        fail("no filler subject's run crosses a KB tile boundary")
+    j = int(crossing[0])
+    subj, lo, edge = int(fs[starts[j]]), int(lo[j]), int(edge[j])
+    jf = (j + 1) % len(starts)
+    first, n_first = int(fs[starts[jf]]), int(ends[jf] - starts[jf] + 1)
+    cols = np.zeros((2, 64, 4), np.int64)
+    valid = np.zeros((2, 64), bool)
+    cols[0, :3, 0] = (first, subj, first)
+    cols[1, 7, 0] = subj
+    valid[0, :3] = valid[1, 7] = True
+    b_cross = Bindings(torch.from_numpy(cols).cuda(),
+                       torch.from_numpy(valid).cuda(),
+                       torch.zeros((2,), dtype=torch.bool, device="cuda"))
+    pat_fill = CompiledPattern(Slot.bound(0), Slot.const_(filler_p),
+                               Slot.free(1))
+    cut = n_first + (edge - lo) + 100     # the cut lands 100 rows past edge
+    for cap in (cut, 4096):
+        both("a row's matches cross KB row %d, out_cap=%d" % (edge, cap),
+             b_cross, kb, pat_fill, cap)
+
+    absent = int(kb.p_ps.max()) + 1
+    both("CONST predicate %d in no KB row" % absent, bind, kb,
+         CompiledPattern(Slot.bound(0), Slot.const_(absent), Slot.free(1)),
+         4096)
+    first3 = torch.arange(bind.valid.shape[1], device="cuda") < 3
+    few = bind._replace(cols=bind.cols[:2], valid=bind.valid[:2] & first3,
+                        overflow=bind.overflow[:2])
+    both("?a rdf:type ?c (no BOUND slot), 3 live rows, out_cap 4096", few,
+         kb, CompiledPattern(Slot.free(1), Slot.const_(sch.rdf_type),
+                             Slot.free(2)), 4096)
+    both("?a ?b ?c (no BOUND slot), 3 live rows, out_cap 4096", few, kb,
+         CompiledPattern(Slot.free(1), Slot.free(2), Slot.free(3)), 4096)
+    scattered = _scattered(bind, LIVE_ROWS, rng)
+    both("W=8 M=4096, %d live rows a window at random positions"
+         % LIVE_ROWS, scattered, kb, pat_type, 4096)
+    one = bind._replace(cols=bind.cols[:1], valid=bind.valid[:1],
+                        overflow=bind.overflow[:1])
+    both("W=1 M=4096", one, kb, pat_type, 4096)
+    ragged = _scattered(_bindings(3, 1500, 4, 1100, kbd.artist_ids.astype(
+        np.int64), rng), 1100, rng)
+    both("W=3 M=1500 (groups span windows), 1100 live rows at random",
+         ragged, kb, pat_type, 4096)
+
+
 def phase_kernels(vocab, kbd):
     from repro_torch.core.kb import kb_from_triples, probe_view
     from repro_torch.core.pattern import CompiledPattern, Slot
@@ -425,10 +561,10 @@ def phase_kernels(vocab, kbd):
             "src/repro/kernels/closure/kernel.py:70"),
     }
 
-    def timed(name, fn, plain, library=None, plain_iters=10):
+    def timed(name, fn, plain, library=None, plain_iters=10, by_kernel=None):
         rec = recs[name]
         rec.ms = cuda_ms(fn)
-        rec.launch_ms = launch_ms(fn, rec.symbol)
+        rec.launch_ms = launch_ms(fn, rec.symbol, by_kernel=by_kernel)
         rec.plain_ms = cuda_ms(plain, iters=plain_iters)
         if library is not None:
             rec.library_ms = cuda_ms(library)
@@ -455,15 +591,24 @@ def phase_kernels(vocab, kbd):
     got = hj_ops.join_compact(bind, kb, pat_type, out_cap)
     check("join_compact", "W=%d M=%d N=%d (main-path shape)" % (w, m, n_kb),
           got, hj_ops.join_compact_torch(bind, kb, pat_type, out_cap))
+    split = {}
     timed("join_compact",
           lambda: hj_ops.join_compact(bind, kb, pat_type, out_cap),
           lambda: hj_ops.join_compact_torch(bind, kb, pat_type, out_cap),
-          plain_iters=3)
+          plain_iters=3, by_kernel=split)
     rec = recs["join_compact"]
+    for k, t in sorted(split.items()):
+        log("  join_compact  launches alone: %.4f ms %s" % (t, k[:80]))
     live_rows = int(bind.valid.sum())
     nbytes = (w * m * (nv * 4 + 1) + n_kb * 13
               + w * out_cap * nv * 4 + w * m * 4)
-    rec.bound_ms, rec.bound_by = _bound(nbytes, 3.0 * live_rows * n_kb)
+    rec.bound_ms, rec.bound_by = _bound(
+        nbytes, _scan_join_ops(bind, kb, pat_type), INT32_CORE_OPS_PER_S)
+    log("  join_compact  bound %.5f ms (%s; BOUND compares of the KB rows "
+        "passing the KB-only checks, at the INT32 lanes' rate); the earlier "
+        "formula (3 x live rows x N at the float32 cores' peak) %.5f ms (%s)"
+        % ((rec.bound_ms, rec.bound_by)
+           + _bound(nbytes, 3.0 * live_rows * n_kb)))
 
     # -- probe join at the same shape (fan-out of rdf:type by subject: 1)
     got = hj_ops.probe_compact(bind, kb, pat_type, out_cap, 8)
@@ -511,6 +656,8 @@ def phase_kernels(vocab, kbd):
     check("join_compact", "W=3 M=1000 N=5003, variable predicate",
           hj_ops.join_compact(b_small, kb_small, pat_any, 700),
           hj_ops.join_compact_torch(b_small, kb_small, pat_any, 700))
+
+    phase_scan_edges(vocab, kbd, bind, check, rng)
 
     # fan-out past k_max: filler subjects each hold ~N/997 objects
     filler_p = vocab.pred("filler:pred")

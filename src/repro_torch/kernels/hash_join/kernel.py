@@ -22,6 +22,7 @@ from ...core.rdf import from_u32_bits, to_u32_bits
 
 _SIG_PATTERN = [I, U, I, I, U, I, I, U, I]
 _READY = set()
+_SCAN_ROWS = {}     # the scan join's KB rows a tile, binding rows a group
 
 
 def _lib():
@@ -29,8 +30,10 @@ def _lib():
     if "sig" not in _READY:
         lib.scan_join_launch.argtypes = (
             [I, P, P, I, I, I, P, P, P, P, I] + _SIG_PATTERN
-            + [I, I, I, P, P, P, I, P])
+            + [I, I, I, P, P, P, P, I, P])
         lib.scan_join_launch.restype = I
+        _SCAN_ROWS["tile"] = lib.scan_join_tile_rows()
+        _SCAN_ROWS["group"] = lib.scan_join_group_rows()
         lib.probe_join_launch.argtypes = (
             [I, P, P, I, I, I, P, P, P, P, I] + _SIG_PATTERN
             + [I, I, P, P, P, P, P, I, P])
@@ -84,7 +87,8 @@ def join_compact_cuda(
     nv] int64, counts [W, M] int64)``; ``rows[w, k]`` is the k-th match of
     window w's virtual row-major ``[M, N]`` candidate matrix, extended with
     the pattern's FREE variables, zero past ``min(sum(counts[w]),
-    out_cap)``."""
+    out_cap)``.  The grid is sized from the shapes (no host sync): KB tiles
+    by groups of binding rows, ``W * M`` at most 65535 groups."""
     c32, bv = _bind_words(cols, bvalid)
     _require_kb(ks, kp, ko)
     _cuda.require(kvalid, torch.bool, 1, "KB valid")
@@ -94,20 +98,29 @@ def join_compact_cuda(
     n = ks.shape[0]
     pargs, eq = pattern_args(pat)
     lib = _lib()
+    tile, group = _SCAN_ROWS["tile"], _SCAN_ROWS["group"]
+    if w * m > 65535 * group:
+        raise ValueError("scan join takes W * M <= %d binding rows, got %d"
+                         % (65535 * group, w * m))
     stream = _cuda.stream_of(c32)
-    counts = torch.zeros((w, m), dtype=torch.int32, device=c32.device)
-    out = torch.zeros((w, out_cap, nv), dtype=torch.int32, device=c32.device)
+    dev = c32.device
+    counts = torch.zeros((w, m), dtype=torch.int32, device=dev)
+    out = torch.zeros((w, out_cap, nv), dtype=torch.int32, device=dev)
+    # per (KB tile, binding row) match counts; the count pass writes every
+    # entry the scatter pass reads, so no fill
+    part = torch.empty((-(-n // tile), w * m), dtype=torch.int32, device=dev)
     _cuda.check(lib.scan_join_launch(
         0, c32.data_ptr(), bv.data_ptr(), w, m, nv, ks.data_ptr(),
         kp.data_ptr(), ko.data_ptr(), kvalid.data_ptr(), n, *pargs, *eq,
-        counts.data_ptr(), None, None, out_cap, stream), "scan_join count")
+        part.data_ptr(), counts.data_ptr(), None, None, out_cap, stream),
+        "scan_join count")
     counts64 = counts.to(torch.int64)
     offsets = (torch.cumsum(counts64, dim=1) - counts64).contiguous()
     _cuda.check(lib.scan_join_launch(
         1, c32.data_ptr(), bv.data_ptr(), w, m, nv, ks.data_ptr(),
         kp.data_ptr(), ko.data_ptr(), kvalid.data_ptr(), n, *pargs, *eq,
-        None, offsets.data_ptr(), out.data_ptr(), out_cap, stream),
-        "scan_join scatter")
+        part.data_ptr(), None, offsets.data_ptr(), out.data_ptr(), out_cap,
+        stream), "scan_join scatter")
     _cuda.count_launch("join_compact")
     return from_u32_bits(out), counts64
 

@@ -53,10 +53,14 @@ PATTERNS = {
     "bound_const_bound": CompiledPattern(Slot.bound(0), Slot.const_(3), Slot.bound(2)),
     "repeated_free": CompiledPattern(Slot.free(1), Slot.const_(2), Slot.free(1)),
     "repeated_bound": CompiledPattern(Slot.bound(0), Slot.free(1), Slot.bound(0)),
+    # a predicate no KB row has, and ?a ?b ?c (no BOUND slot: a cross product)
+    "absent_const": CompiledPattern(Slot.bound(0), Slot.const_(9), Slot.free(1)),
+    "all_free": CompiledPattern(Slot.free(0), Slot.free(1), Slot.free(2)),
 }
 PROBE_PATTERNS = [k for k in PATTERNS if k not in ("bound_free_free",
                                                     "repeated_free",
-                                                    "repeated_bound")]
+                                                    "repeated_bound",
+                                                    "all_free")]
 HIGH = np.array([4096, 4097, (1 << 31) - 1, 1 << 31, (1 << 31) + 1,
                  0xFFFFFFFE], np.uint64)
 QUERY_DIR = os.path.join(os.path.dirname(__file__), "..", "examples", "queries")
@@ -142,6 +146,90 @@ def test_empty_bindings_on_the_card(card):
                 p_hj_ops.probe_compact(empty, kb.to(card), pat, 64)):
         assert not got.valid.any() and not got.overflow.any()
         assert not got.cols.any()
+
+
+SCAN_TILE = 4096     # KB rows a block of the scan join holds in registers
+
+
+def _tile_kb(n, seed=2, spread=60):
+    """A KB of exactly ``n`` rows over the small id range of ``_world``."""
+    rng = np.random.default_rng(seed)
+    rows = np.stack([rng.integers(BASE, BASE + spread, n),
+                     rng.integers(1, 4, n),
+                     rng.integers(BASE, BASE + spread, n)], axis=1)
+    return pkb.kb_from_triples(rows, capacity=n)
+
+
+def _span_world():
+    """Subject X's 3000 ``p = 2`` rows sit at 3000..5999 of the (p, s) view,
+    across the first tile boundary; a window's second live row is X."""
+    x = BASE + 100
+    rows = [(BASE + i % 50, 2, 20000 + i) for i in range(3000)]
+    rows += [(x, 2, 30000 + i) for i in range(3000)]
+    rows += [(BASE + 200 + i % 7, 3, 40000 + i) for i in range(1000)]
+    kb = pkb.kb_from_triples(np.asarray(rows, np.uint32))
+    cols = np.full((2, 64, 3), BASE + 1, np.uint32)
+    valid = np.zeros((2, 64), bool)
+    cols[0, 1, 0] = x
+    cols[1, 5, 0] = x
+    valid[0, :3] = True
+    valid[1, 5] = True
+    return interop.bindings_from_arrays(cols, valid, np.zeros(2, bool)), kb
+
+
+def _scan_edge(case):
+    """(bindings, KB, pattern, out_caps) of one scan-join edge case."""
+    pat = PATTERNS["bound_const_free"]
+    if case.startswith("kb_tile"):
+        n = SCAN_TILE + {"kb_tile_minus_1": -1, "kb_tile": 0,
+                         "kb_tile_plus_1": 1}[case]
+        return _world()[0], _tile_kb(n), pat, (7, 2000, 50000)
+    if case == "span_tile_cut":
+        bind, kb = _span_world()
+        return bind, kb, pat, (1500, 3059, 3061, 7000)
+    if case == "absent_const":
+        return _world()[0], _world()[1], PATTERNS["absent_const"], (7, 2000)
+    if case == "no_bound_overflow":
+        return (*_world(), CompiledPattern(Slot.free(1), Slot.const_(2),
+                                           Slot.free(2)), (7, 2000))
+    if case == "scattered_valid":
+        bind, kb = _world(m=4096, windows=2)
+        rng = np.random.default_rng(5)
+        valid = torch.from_numpy(rng.random((2, 4096)) < 0.1)
+        return bind._replace(valid=valid), kb, pat, (7, 2000, 50000)
+    if case == "one_window":
+        return (*_world(windows=1), pat, (7, 2000, 50000))
+    if case == "ragged_groups":      # 4500 rows: groups of 1024 span windows
+        bind, kb = _world(m=1500, windows=3)
+        rng = np.random.default_rng(6)
+        valid = torch.zeros((3, 1500), dtype=torch.bool)
+        for w in range(3):
+            valid[w, rng.choice(1500, 1100, replace=False)] = True
+        return bind._replace(valid=valid), kb, pat, (7, 5000, 50000)
+    raise KeyError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "kb_tile_minus_1", "kb_tile", "kb_tile_plus_1", "span_tile_cut",
+    "absent_const", "no_bound_overflow", "scattered_valid", "one_window",
+    "ragged_groups"])
+def test_scan_join_kernel_edge_cases(card, case):
+    """KB sizes at the register tile's edges, matches across a tile with
+    out_cap cutting inside one, no match at all, a cross product past
+    out_cap, validity scattered over the row groups, one window, and live
+    rows that fill no whole row group: byte for byte the plain twin."""
+    bind, kb, pat, caps = _scan_edge(case)
+    for out_cap in caps:
+        got = p_hj_ops.join_compact(_to(bind, card), kb.to(card), pat, out_cap)
+        want = p_hj_ops.join_compact_torch(bind, kb, pat, out_cap)
+        _same(got, want)
+        if case == "no_bound_overflow":
+            assert want.overflow.all()
+        if case == "absent_const":
+            assert not want.valid.any()
+        if case == "span_tile_cut" and out_cap == 1500:
+            assert want.overflow[0] and int(want.valid[0].sum()) == 1500
 
 
 @pytest.mark.gpu

@@ -42,9 +42,13 @@ PATTERNS = {
     "const_const_free": CompiledPattern(Slot.const_(BASE + 3), Slot.const_(1), Slot.free(1)),
     "bound_const_bound": CompiledPattern(Slot.bound(0), Slot.const_(3), Slot.bound(2)),
     "repeated_free": CompiledPattern(Slot.free(1), Slot.const_(2), Slot.free(1)),
+    # a predicate no KB row has, and ?a ?b ?c (no BOUND slot: a cross product)
+    "absent_const": CompiledPattern(Slot.bound(0), Slot.const_(9), Slot.free(1)),
+    "all_free": CompiledPattern(Slot.free(0), Slot.free(1), Slot.free(2)),
 }
 PROBE_PATTERNS = [k for k in PATTERNS if k not in ("bound_free_free",
-                                                    "repeated_free")]
+                                                    "repeated_free",
+                                                    "all_free")]
 
 
 def u32(x):
