@@ -8,8 +8,9 @@ Phases (each prints its lines; any failure exits non-zero):
 1. **Build** every CUDA source under ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all started together), print the
    card's name and power limit, each kernel's registers and spills, and
-   the count of ``HGMMA`` (``wgmma``) instructions in the bf16 flash
-   kernel's SASS (``cuobjdump -sass``; none fails the run).
+   the count of ``HGMMA`` (``wgmma``) instructions in the SASS of the bf16
+   flash kernel and of the bf16 SSD passes that multiply (``cuobjdump
+   -sass``; none in any instantiation fails the run).
 2. **Kernels against their plain versions, on the card**: the scan join,
    the probe join, the match matrix, the closure squaring step and the
    fused descendants step, each held byte for byte (tolerance 0: the
@@ -26,12 +27,14 @@ Phases (each prints its lines; any failure exits non-zero):
    127/128/129, ragged Tk and ``q_offset``, a window narrower than a KV
    tile, D 16 to 128, groups 1, 3, 6), float32 within 1e-4 and bfloat16
    within 2e-2 + 1e-2 relative; a bf16 call must reach only the ``wgmma``
-   kernel and an f32 call only the SIMT kernel, each timed;
+   kernel and an f32 call only the SIMT kernel, each timed; one decode
+   call must put exactly one ``decode_`` kernel on the profiler;
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
    attention kernels, the final state within 2e-4 + 2e-4 relative, and
-   one small shape against the sequential oracle.
+   one small shape against the sequential oracle; the path case's time is
+   also given by kernel (the three passes).
    Each kernel is timed with CUDA events beside its plain version, its
    bound and, where one exists, one PyTorch library call computing the
    same function.
@@ -190,11 +193,18 @@ KERNEL_SYMBOLS = {"join_compact": "scan_join",   # count + scatter kernels
                   # flash_attention_wgmma_kernel (bf16) and
                   # flash_attention_kernel (f32)
                   "flash_attention": "flash_attention",
-                  # decode_attention_kernel + decode_combine_kernel
+                  # decode_attention_mma_kernel (bf16) or
+                  # decode_attention_kernel (f32): one launch a call
                   "decode_attention": "decode_",
-                  # ssd_chunk_state_kernel, ssd_state_scan_kernel,
-                  # ssd_output_kernel
+                  # bf16: ssd_chunk_state_wgmma_kernel, ssd_state_scan_kernel,
+                  # ssd_output_wgmma_kernel; f32: ssd_chunk_state_kernel,
+                  # ssd_state_scan_kernel, ssd_output_kernel
                   "ssd": "ssd_"}
+
+# the bf16 kernels whose every instantiation must hold HGMMA, by source
+TENSOR_CORE_KERNELS = {
+    "attention": ("flash_attention_wgmma_kernel",),
+    "ssd": ("ssd_chunk_state_wgmma_kernel", "ssd_output_wgmma_kernel")}
 
 
 def log(msg: str) -> None:
@@ -1303,6 +1313,14 @@ def phase_attention(smi):
         ("group 1 D 64", 3, 2, 2, 1000, 64, [1000, 513, 64]),
         ("group 3 D 16, S 77", 2, 6, 2, 77, 16, [77, 0]),
         ("group 6 D 32, S 130", 2, 12, 2, 130, 32, [65, 130]),
+        # the one-launch kernel's edges (8 splits a (batch, KV head) here):
+        # 128 and 1152 end a split, 129 and 1153 put one row in the next
+        ("split edges 128, 129, 1152, 1153", 4, hq, hk, tk, d,
+         [128, 129, 1152, 1153]),
+        ("all splits dead but the first", 4, hq, hk, tk, d, [1, 1, 64, 2]),
+        ("group 8 D 128", 2, 16, 2, 1000, 128, [1000, 517]),
+        ("group 12 (two head groups) D 64", 2, 24, 2, 300, 64, [300, 171]),
+        ("B 1 S 32768", 1, hq, hk, 32768, d, [32768]),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for tag, cb, chq, chk, cs, cd, lengths in decode_cases:
@@ -1321,12 +1339,27 @@ def phase_attention(smi):
     v = _randn((b, hk, tk, d), torch.bfloat16, gen)
     lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
     rec = recs["decode_attention"]
-    rec.ms = cuda_ms(lambda: da_ops.decode_attention(q, k, v, lens))
+    names = [n for n in kernel_names(
+        lambda: da_ops.decode_attention(q, k, v, lens)) if "decode_" in n]
+    if len(names) != 1:
+        fail("one decode_attention call put %d decode_ kernels on the "
+             "profiler: %s" % (len(names), names))
+    log("  decode_attention one call, one kernel: %s" % names[0][:80])
+    # both calls are host-bound at this shape (a few us of kernel): the
+    # wrapper and SDPA take turns, 3 rounds of 20 calls, medians
+    wrap, lib = [], []
+    for _ in range(3):
+        wrap.append(cuda_ms(lambda: da_ops.decode_attention(q, k, v, lens),
+                            iters=20))
+        lib.append(cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k[:, :, :length], v[:, :, :length], enable_gqa=True),
+            iters=20))
+    rec.ms, rec.library_ms = med(wrap)[0], med(lib)[0]
+    log("  decode_attention wrapper %s ms, SDPA %s ms, in turns [%s]"
+        % ([round(x, 4) for x in wrap], [round(x, 4) for x in lib], smi))
     rec.launch_ms = launch_ms(lambda: da_ops.decode_attention(q, k, v, lens),
                               rec.symbol)
     rec.plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(q, k, v, lens))
-    rec.library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k[:, :, :length], v[:, :, :length], enable_gqa=True))
     rec.bound_ms, rec.bound_by = _bound(
         2 * (2 * b * hk * length * d + 2 * q.numel()) + 4 * b,
         4.0 * d * b * hq * length, BF16_PEAK_OPS_PER_S)
@@ -1630,10 +1663,12 @@ def _ssd_inputs(b, t, h, p, g, s, dtype, init, rng):
 
 def _ssd_bound(b, t, h, p, g, s, chunk, dtype, init):
     """Least time for the SSD function: x and y, B and C in their dtype, dt
-    and the states in f32, each once; 2 (L.L.S + L.L.P + 2 L.S.P)
-    operations a (batch, head, chunk), at the peak of the inputs' type."""
+    and the states in f32, each once; operations at the peak of the
+    inputs' type: C B^T (2 L.L.S) once a (batch, group, chunk), shared by
+    the group's heads, and 2 (L.L.P + 2 L.S.P) a (batch, head, chunk)."""
     nl = -(-t // chunk)
-    ops = b * h * nl * 2.0 * chunk * (chunk * s + chunk * p + 2 * s * p)
+    ops = (b * g * nl * 2.0 * chunk * chunk * s
+           + b * h * nl * 2.0 * chunk * (chunk * p + 2 * s * p))
     esz = torch.finfo(dtype).bits // 8
     nbytes = (2 * b * t * h * p * esz + 2 * b * t * g * s * esz
               + b * t * h * 4 + h * 4 + b * h * s * p * 4 * (2 if init else 1))
@@ -1694,7 +1729,8 @@ def phase_ssd(smi):
 
             err = record(tag, kern(), plain(), dtype)
             ms = cuda_ms(kern, iters=5)
-            alone = launch_ms(kern, rec.symbol, iters=5)
+            passes = {}
+            alone = launch_ms(kern, rec.symbol, iters=5, by_kernel=passes)
             plain_ms = cuda_ms(plain, iters=3, warmup=1)
             bound, by = _ssd_bound(b, t, h, p, g, s, chunk, dtype, init)
             log("  %-16s %-40s max_abs_err=%.3g; wrapper %.4f ms, launches "
@@ -1702,6 +1738,10 @@ def phase_ssd(smi):
                 % ("ssd", "%s %s" % (tag, str(dtype)[6:]), err, ms,
                    "%.4f ms" % alone if alone is not None else "not measured",
                    plain_ms, bound, by))
+            if tag == "path prefill":
+                for kname, kms in sorted(passes.items(), key=lambda kv: -kv[1]):
+                    log("  %-16s   %s pass %.4f ms  %s" % (
+                        "ssd", str(dtype)[6:], kms, kname[:90]))
             if tag == "path prefill" and dtype == torch.bfloat16:
                 rec.ms, rec.launch_ms, rec.plain_ms = ms, alone, plain_ms
                 rec.bound_ms, rec.bound_by = bound, by
@@ -1824,12 +1864,15 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error",
                                        "wgmma")):
                 log("  ptxas %s: %s" % (name, line.strip()))
-    hgmma = {fn: c for fn, c in hgmma_count(str(paths["attention"])).items()
-             if "flash_attention_wgmma_kernel" in fn}
-    for fn, c in sorted(hgmma.items()):
-        log("  sass attention: %d HGMMA in %s" % (c, fn))
-    if len(hgmma) != 4 or not all(hgmma.values()):
-        fail("the bf16 flash kernel's SASS holds no HGMMA: %s" % hgmma)
+    for src, kernels in TENSOR_CORE_KERNELS.items():
+        counts = hgmma_count(str(paths[src]))
+        for kern in kernels:
+            hgmma = {fn: c for fn, c in counts.items() if kern in fn}
+            for fn, c in sorted(hgmma.items()):
+                log("  sass %s: %d HGMMA in %s" % (src, c, fn))
+            if len(hgmma) != 4 or not all(hgmma.values()):
+                fail("%s's SASS does not hold HGMMA in each of its 4 "
+                     "instantiations: %s" % (kern, hgmma))
 
     vocab, kbd, rows, chunks = make_world()
 

@@ -68,7 +68,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, keyed by its source, the shared headers (every
+    ``csrc/*.cuh``) and the flags."""
     src = (CSRC / (name + ".cu")).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / ("%s-%s.so" % (name, digest))
 
@@ -125,7 +129,10 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on ``t``'s device, read raw:
+    ``torch.cuda.current_stream`` builds a Stream object and switches the
+    current device twice a call.  CUDA builds only (as every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:

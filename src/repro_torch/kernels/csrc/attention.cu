@@ -1,6 +1,8 @@
 // Attention kernels for Hopper (sm_90a): the GQA flash-attention forward
 // (prefill; bf16 on the tensor cores, float32 on the CUDA cores) and GQA
-// decode attention (one query token against a KV cache).
+// decode attention (one query token against a KV cache, one launch whose
+// splits merge in a thread-block cluster).  The cp.async, mbarrier and
+// wgmma helpers are in hopper.cuh.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/flash_attention/kernel.py  flash_attention_pallas
@@ -70,30 +72,50 @@
 // banks); K and V take turns in one buffer, which keeps two blocks on an SM
 // at D = 128.  P stays float32 in P.V.
 //
-// decode_attention_kernel + decode_combine_kernel.  Bound: reading the K
-// and V rows below lengths[b] once (8.5 MB per layer at B=4, Hk=2, D=128,
-// length 2080: 2.5 us at 3.35 TB/s); the arithmetic is ~1 operation per
-// byte.  One block per (batch, KV head, split of the cache) serves all
-// Hq/Hk query heads of that KV head, so each cache row is read once.  A
-// single block per (batch, KV head) would put 8 blocks on 132 SMs at
-// B=4, so the wrapper cuts the cache into splits (about two blocks per
-// SM); each block stages 64-row K/V tiles in shared memory, keeps per-head
-// running max / sum / accumulator over its split, and writes them as a
-// partial.  The combine kernel merges a row's partials (splits with no
-// live key carry l = 0 and are left out; a row with none writes zeros).
-// Splits that start at or past lengths[b] return at once.
+// Decode attention: one launch.  Bound: reading the K and V rows below
+// lengths[b] once (8.5 MB per layer at B=4, Hk=2, D=128, length 2080: 2.5
+// us at 3.35 TB/s); the arithmetic is ~1 operation per byte.  A block serves
+// up to 8 query heads of one KV head, so each cache row is read once per 8
+// heads (GQA groups above 8 take more blocks).  One block per (batch, KV
+// head) would put 8 blocks on 132 SMs at B=4, so the live rows are cut into
+// nsplit splits of whole 64-row tiles (the wrapper picks nsplit: about two
+// blocks per SM, at most a cluster of 8), and the nsplit blocks of a (batch,
+// KV head) form one thread-block cluster.  Each block streams its split's K
+// and V tiles, in their dtype, through a ring of 3-6 stages in shared
+// memory with 16-byte cp.async copies, so the next tiles are in flight while
+// one is consumed; each warp keeps its own running max, sum and accumulator
+// per head, with no barrier but the ring's one a tile.  At the end the
+// warps merge through shared memory and the cluster's blocks through
+// distributed shared memory (decode_merge): after cluster.sync() each block
+// merges a share of the (head, column) outputs from every block's (max,
+// sum, accumulator) and writes it in the input dtype.  No float32 partial
+// goes to device memory and nothing is allocated per call.  Every block
+// reaches both cluster barriers, dead splits (at or past lengths[b])
+// included; a row with no live key writes zeros.  The function's
+// shared-memory and cluster attributes are set once per device.  The dtype
+// picks the kernel:
+//   decode_attention_mma_kernel (bf16): Q K^T and P V on the tensor cores
+//     (mma.sync m16n8k16: at most 8 heads fill the 16-row M; wgmma's 64-row
+//     M does not fit), P rounded to bf16 as in flash attention;
+//   decode_attention_kernel (float32): on the CUDA cores, a lane owning a
+//     16-byte chunk of a cache row (D/4 lanes a row), the query rows' chunks
+//     in float32 registers, a row's scores summed over its lanes by
+//     shuffles.  On an H100 the first design ran bf16 this way too: 4.4 us a
+//     64-row tile at 8 warps, issue-bound on the shuffles and FMAs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <math_constants.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;            // query and KV tile rows
 constexpr int kFlashThreads = 256;
-constexpr int kDecThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBadShape = -1;
 
@@ -104,19 +126,6 @@ template <> struct Vec<float> {
   __device__ static void load(const float* p, float* out) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
   }
 };
 
@@ -348,173 +357,6 @@ template <int D> struct WgSmem {
   static constexpr int bars = Q + 4 * KV;               // 8 mbarriers
   static constexpr int bytes = bars + 64 + 1024;        // + 1024 alignment
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, bypassing L1; bytes < 16 zero-fills the rest
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// make this thread's generic-proxy shared writes visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are still running
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads and writes across the
-// asynchronous wgmma issue / wait
-template <int N> __device__ __forceinline__ void reg_fence(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor for the 128-byte swizzle: start
-// address, leading byte offset (MN-major: the next 64-column block), stride
-// byte offset 1024 (the next 8 rows), layout type 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\n"
-               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               :: "r"(bar) : "memory");
-}
-// spin until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// D (+)= A[smem] * B[smem]^T, m64n128k16, both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D += A[registers] * B[smem], m64n64k16, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D += A[registers] * B[smem], m64n128k16, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // rows [row0, row0 + ROWS) of a row-major [*, D] bf16 matrix into dst in the
 // swizzled layout of WgSmem (column block c / 8 at c / 8 * ROWS * 128
@@ -762,139 +604,304 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// decode attention (one query row per sequence)
+// decode attention (one query row per sequence): one launch, the splits of
+// a (batch, KV head) merged through a thread-block cluster's shared memory
 // ---------------------------------------------------------------------------
 
-template <int D> struct DecodeSmem {
-  static constexpr int LD = D + 4;
-  static int floats(int G) {
-    return 2 * G * D + 2 * kTile * LD + G * kTile + 3 * G;
-  }
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecHeads = 8;           // query heads a block holds
+constexpr int kDecMaxSplit = 8;        // cluster size (the portable most)
+constexpr int kDecRingBytes = 196608;  // most shared memory the ring takes
+
+// A lane owns one 16-byte chunk of a cache row (N elements); LPR lanes hold
+// a row, a warp RPW rows at once, and the block's GROUPS row groups take
+// RPG rows each of a TILE-row tile.  NS ring stages of one K and one V tile,
+// in the input dtype.
+template <int D> struct Dec {
+  static constexpr int N = 4;                     // floats a 16-byte chunk
+  static constexpr int LPR = D / N;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int GROUPS = kDecWarps * RPW;
+  static constexpr int TILE = GROUPS > 64 ? GROUPS : 64;
+  static constexpr int RPG = TILE / GROUPS;
+  static constexpr int ROW = D * 4;
+  static constexpr int STAGE = 2 * TILE * ROW;
+  static constexpr int NS = kDecRingBytes / STAGE < 4 ? kDecRingBytes / STAGE
+                                                      : 4;
+  static constexpr int RING = NS * STAGE;
+  // after the loop the ring holds the warps' (m, l, acc) per head
+  static constexpr int WARPS = kDecWarps * kDecHeads * (D + 2) * 4;
+  static constexpr int SCRATCH = RING > WARPS ? RING : WARPS;
+  // the block's merged (m, l, acc) per head, read by the whole cluster
+  static constexpr int PART = kDecHeads * (D + 2) * 4;
+  static constexpr int bytes = SCRATCH + PART;
+  static_assert(LPR >= 1 && LPR <= 32 && NS >= 2, "decode tile shape");
 };
 
-// partials: ml [B, Hq, nsplit, 2] (running max, sum), acc [B, Hq, nsplit, D]
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ part_ml,
-                        float* __restrict__ part_acc, int Hq, int Hk, int S,
-                        int nsplit, int chunk, float qscale) {
-  constexpr int LD = DecodeSmem<D>::LD;
+// The end of both decode kernels.  Each of the block's NT / 32 warps has
+// left its state per head in shared memory: max wm[w][h], sum wl[w][h],
+// accumulator wacc[w][h][D] (kDecHeads slots a warp).  The block merges them
+// into part = (max[8], sum[8], acc[8][D]); then, after a cluster barrier,
+// each block merges a share of the (head, column) outputs from every
+// block's part through distributed shared memory and writes out[h][d].
+// Every block of the cluster, dead splits too, reaches both barriers: the
+// first publishes the parts, the second keeps each block's shared memory
+// alive until the others have read it.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void decode_merge(const float* wm, const float* wl,
+                                             const float* wacc, float* part,
+                                             T* __restrict__ out, int ng) {
+  constexpr int NW = NT / 32, H8 = kDecHeads;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  float* pm = part;                    // [head]: the block's max
+  float* pl = pm + H8;                 // [head]: its sum
+  float* pacc = pl + H8;               // [head][D]: its accumulator
+  for (int e = tid; e < ng * D; e += NT) {
+    const int h = e / D, d = e % D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, wm[w * H8 + h]);
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float sc = exp2f(wm[w * H8 + h] - mx);
+      a = fmaf(wacc[(w * H8 + h) * D + d], sc, a);
+      ls = fmaf(wl[w * H8 + h], sc, ls);
+    }
+    pacc[h * D + d] = a;
+    if (d == 0) {
+      pm[h] = mx;
+      pl[h] = ls;
+    }
+  }
+  cluster.sync();
+  for (int e = split * NT + tid; e < ng * D; e += nsplit * NT) {
+    const int h = e / D, d = e % D;
+    // every block's three values first, all loads in flight together
+    float rm[kDecMaxSplit], rl[kDecMaxSplit], ra[kDecMaxSplit];
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplit; ++r) {
+      if (r < nsplit) {
+        const float* rp = cluster.map_shared_rank(part, r);
+        rm[r] = rp[h];
+        rl[r] = rp[H8 + h];
+        ra[r] = rp[2 * H8 + h * D + d];
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplit; ++r)
+      if (r < nsplit) mx = fmaxf(mx, rm[r]);
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplit; ++r) {
+      if (r < nsplit) {
+        const float sc = exp2f(rm[r] - mx);
+        ls = fmaf(rl[r], sc, ls);
+        a = fmaf(ra[r], sc, a);
+      }
+    }
+    store(out + h * D + d, ls > 0.f ? a / ls : 0.f);
+  }
+  cluster.sync();
+}
+
+// grid (nsplit, Hk * hgroups, B), cluster (nsplit, 1, 1): block `split` of
+// the cluster reads its share of the first lengths[b] cache rows of KV head
+// hk for up to kDecHeads query heads; the cluster's blocks then merge their
+// softmax states through distributed shared memory and write out[b, h].
+template <int D>
+__global__ void __launch_bounds__(kDecThreads, 1)
+decode_attention_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const int* __restrict__ lengths, float* __restrict__ o,
+                        int Hq, int Hk, int S, int hgroups, float qscale) {
+  using C = Dec<D>;
+  constexpr int N = C::N, H8 = kDecHeads;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  const uint32_t ring = smem_u32(dec_smem);
+  float* part = reinterpret_cast<float*>(dec_smem + C::SCRATCH);
+
+  const int nsplit = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int hk = blockIdx.y / hgroups, hg = blockIdx.y % hgroups;
+  const int b = blockIdx.z;
   const int G = Hq / Hk;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                    // [G][D], scaled
-  float* Acc = Qs + G * D;             // [G][D]
-  float* Ks = Acc + G * D;             // [kTile][LD]
-  float* Vs = Ks + kTile * LD;         // [kTile][LD]
-  float* Ss = Vs + kTile * LD;         // [G][kTile]
-  float* Ms = Ss + G * kTile;          // [G]
-  float* Ls = Ms + G;                  // [G]
-  float* Al = Ls + G;                  // [G]
-
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int h0 = hk * G + hg * H8;                 // the block's first head
+  const int ng = min(H8, G - hg * H8);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = warp * C::RPW + lane / C::LPR, sub = lane % C::LPR;
+
+  // the split: a share of whole tiles of the live rows
   const int len = min(max(lengths[b], 0), S);
-  const int k0 = split * chunk, k1 = min(k0 + chunk, len);
-  const size_t row0 = (size_t)b * Hq + (size_t)hk * G;   // first q row
-  const size_t part0 = row0 * nsplit + split;            // its partial
+  const int tiles = (len + C::TILE - 1) / C::TILE;
+  const int per = (tiles + nsplit - 1) / nsplit;
+  const int k0 = split * per * C::TILE;
+  const int k1 = min(k0 + per * C::TILE, len);
+  const int ntiles = k0 < k1 ? (k1 - k0 + C::TILE - 1) / C::TILE : 0;
+  const float* kb = k + ((size_t)b * Hk + hk) * S * D;
+  const float* vb = v + ((size_t)b * Hk + hk) * S * D;
 
-  if (k0 >= k1) {                      // dead split: no live key
-    for (int h = tid; h < G; h += kDecThreads) {
-      part_ml[(part0 + (size_t)h * nsplit) * 2] = kNegInf;
-      part_ml[(part0 + (size_t)h * nsplit) * 2 + 1] = 0.f;
+  // the live rows of tile i of K and V into ring stage i % NS
+  auto load_tile = [&](int i) {
+    constexpr int CPR = C::ROW / 16;
+    const int r0 = k0 + i * C::TILE, nk = min(C::TILE, k1 - r0);
+    const uint32_t st = ring + (i % C::NS) * C::STAGE;
+    for (int c = tid; c < nk * CPR; c += kDecThreads) {
+      const size_t off = (size_t)(r0 + c / CPR) * D + (c % CPR) * N;
+      cp_async16(st + c * 16, kb + off, 16);
+      cp_async16(st + C::TILE * C::ROW + c * 16, vb + off, 16);
     }
-    return;
+  };
+  for (int i = 0; i < C::NS - 1; ++i) {
+    if (i < ntiles) load_tile(i);
+    cp_async_commit();
   }
 
-  load_rows<T, D, D>(Qs, q + row0 * D, 0, G, G, qscale, tid, kDecThreads);
-  for (int e = tid; e < G * D; e += kDecThreads) Acc[e] = 0.f;
-  for (int h = tid; h < G; h += kDecThreads) {
-    Ms[h] = kNegInf;
-    Ls[h] = 0.f;
-  }
-  const T* kb = k + ((size_t)b * Hk + hk) * S * D;
-  const T* vb = v + ((size_t)b * Hk + hk) * S * D;
-
-  for (int t0 = k0; t0 < k1; t0 += kTile) {
-    const int nk = min(kTile, k1 - t0);
-    __syncthreads();
-    load_rows<T, D, LD>(Ks, kb, t0, nk, k1, 1.f, tid, kDecThreads);
-    load_rows<T, D, LD>(Vs, vb, t0, nk, k1, 1.f, tid, kDecThreads);
-    __syncthreads();
-    for (int p = tid; p < G * kTile; p += kDecThreads) {
-      const int h = p / kTile, j = p % kTile;
-      if (j >= nk) continue;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4)
-        s = dot4(*reinterpret_cast<const float4*>(Qs + h * D + d),
-                 *reinterpret_cast<const float4*>(Ks + j * LD + d), s);
-      Ss[h * kTile + j] = s;
+  // this lane's slice of the heads' query rows, float, scaled
+  float qr[H8][N];
+#pragma unroll
+  for (int h = 0; h < H8; ++h) {
+    if (h < ng) {
+      Vec<float>::load(q + ((size_t)b * Hq + h0 + h) * D + sub * N, qr[h]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) qr[h][e] = 0.f;
     }
-    __syncthreads();
-    for (int h = warp; h < G; h += kDecThreads / 32) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) qr[h][e] *= qscale;
+  }
+
+  // the row group's running max, sum and accumulator slice per head
+  float m[H8], l[H8], acc[H8][N];
+#pragma unroll
+  for (int h = 0; h < H8; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[h][e] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<C::NS - 2>();        // tile it landed (this thread's part)
+    __syncthreads();                   // ... everyone's; stage it-1 is free
+    if (it + C::NS - 1 < ntiles) load_tile(it + C::NS - 1);
+    cp_async_commit();
+    const uint8_t* ks = dec_smem + (it % C::NS) * C::STAGE;
+    const uint8_t* vs = ks + C::TILE * C::ROW;
+    const int nk = min(C::TILE, k1 - (k0 + it * C::TILE));
+
+    float s[C::RPG][H8];
+#pragma unroll
+    for (int i = 0; i < C::RPG; ++i) {
+      float kf[N];
+      Vec<float>::load(reinterpret_cast<const float*>(
+                       ks + (grp + i * C::GROUPS) * C::ROW + sub * 16), kf);
+#pragma unroll
+      for (int h = 0; h < H8; ++h) {
+        float a = 0.f;
+        if (h < ng) {
+#pragma unroll
+          for (int e = 0; e < N; ++e) a = fmaf(qr[h][e], kf[e], a);
+        }
+        s[i][h] = a;
+      }
+    }
+#pragma unroll
+    for (int off = C::LPR / 2; off; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < C::RPG; ++i)
+#pragma unroll
+        for (int h = 0; h < H8; ++h)
+          if (h < ng) s[i][h] += __shfl_xor_sync(kFull, s[i][h], off);
+
+#pragma unroll
+    for (int h = 0; h < H8; ++h) {
+      if (h >= ng) continue;
       float mx = kNegInf;
-      for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, Ss[h * kTile + j]);
-      for (int off = 16; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(Ms[h], mx);
-      float sum = 0.f;
-      for (int j = lane; j < nk; j += 32) {
-        const float p = exp2f(Ss[h * kTile + j] - m_new);
-        Ss[h * kTile + j] = p;
-        sum += p;
+#pragma unroll
+      for (int i = 0; i < C::RPG; ++i)
+        if (grp + i * C::GROUPS < nk) mx = fmaxf(mx, s[i][h]);
+      const float m_new = fmaxf(m[h], mx);
+      if (m_new > m[h]) {              // rescale only when the max moved
+        const float alpha = fast_exp2(m[h] - m_new);
+        l[h] *= alpha;
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[h][e] *= alpha;
+        m[h] = m_new;
       }
-      for (int off = 16; off; off >>= 1)
-        sum += __shfl_xor_sync(kFull, sum, off);
-      if (lane == 0) {
-        const float alpha = exp2f(Ms[h] - m_new);
-        Al[h] = alpha;
-        Ls[h] = Ls[h] * alpha + sum;
-        Ms[h] = m_new;
+#pragma unroll
+      for (int i = 0; i < C::RPG; ++i) {
+        const float p =
+            grp + i * C::GROUPS < nk ? fast_exp2(s[i][h] - m_new) : 0.f;
+        s[i][h] = p;
+        l[h] += p;
       }
     }
-    __syncthreads();
-    for (int e = tid; e < G * D; e += kDecThreads) {
-      const int h = e / D, d = e % D;
-      float a = Acc[e] * Al[h];
-      const float* p = Ss + h * kTile;
-      for (int j = 0; j < nk; ++j) a = fmaf(p[j], Vs[j * LD + d], a);
-      Acc[e] = a;
+#pragma unroll
+    for (int i = 0; i < C::RPG; ++i) {
+      const int r = grp + i * C::GROUPS;
+      if (r >= nk) continue;           // stale shared memory: never read
+      float vf[N];
+      Vec<float>::load(
+          reinterpret_cast<const float*>(vs + r * C::ROW + sub * 16), vf);
+#pragma unroll
+      for (int h = 0; h < H8; ++h) {
+        if (h >= ng) continue;
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[h][e] = fmaf(s[i][h], vf[e], acc[h][e]);
+      }
+    }
+  }
+
+  // merge the warp's row groups (lanes sub, sub + LPR, ...): states
+  // (m1, l1, a1) and (m2, l2, a2) merge to M = max, l1 e^(m1-M) + l2 e^(m2-M)
+#pragma unroll
+  for (int off = C::LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int h = 0; h < H8; ++h) {
+      if (h >= ng) continue;
+      const float mo = __shfl_xor_sync(kFull, m[h], off);
+      const float mn = fmaxf(m[h], mo);
+      const float sa = exp2f(m[h] - mn), sb = exp2f(mo - mn);
+      l[h] = l[h] * sa + __shfl_xor_sync(kFull, l[h], off) * sb;
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        acc[h][e] = acc[h][e] * sa + __shfl_xor_sync(kFull, acc[h][e], off) * sb;
+      m[h] = mn;
+    }
+  }
+
+  // then the block's warps, through the ring's shared memory
+  cp_async_wait<0>();
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(dec_smem);     // [warp][head]
+  float* wl = wm + kDecWarps * H8;                    // [warp][head]
+  float* wacc = wl + kDecWarps * H8;                  // [warp][head][D]
+  if (lane < C::LPR) {
+#pragma unroll
+    for (int h = 0; h < H8; ++h) {
+      if (h >= ng) continue;
+      if (sub == 0) {
+        wm[warp * H8 + h] = m[h];
+        wl[warp * H8 + h] = l[h];
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        wacc[(warp * H8 + h) * D + sub * N + e] = acc[h][e];
     }
   }
   __syncthreads();
-  for (int e = tid; e < G * D; e += kDecThreads) {
-    const int h = e / D, d = e % D;
-    part_acc[(part0 + (size_t)h * nsplit) * D + d] = Acc[e];
-  }
-  for (int h = tid; h < G; h += kDecThreads) {
-    part_ml[(part0 + (size_t)h * nsplit) * 2] = Ms[h];
-    part_ml[(part0 + (size_t)h * nsplit) * 2 + 1] = Ls[h];
-  }
-}
-
-// one block per query row (b, hq), one thread per output column
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_ml,
-                                      const float* __restrict__ part_acc,
-                                      T* __restrict__ o, int nsplit, int D) {
-  const size_t row = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = part_ml + row * nsplit * 2;
-  float mx = kNegInf;
-  for (int s = 0; s < nsplit; ++s)
-    if (ml[2 * s + 1] > 0.f) mx = fmaxf(mx, ml[2 * s]);
-  float l = 0.f, a = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    if (ml[2 * s + 1] > 0.f) {
-      const float w = exp2f(ml[2 * s] - mx);
-      l = fmaf(ml[2 * s + 1], w, l);
-      a = fmaf(part_acc[(row * nsplit + s) * D + d], w, a);
-    }
-  }
-  store(o + row * D + d, l > 0.f ? a / l : 0.f);
+  decode_merge<float, D, kDecThreads>(wm, wl, wacc, part,
+                                  o + ((size_t)b * Hq + h0) * D, ng);
 }
 
 template <int D>
@@ -934,24 +941,248 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// bfloat16: the same split, ring and merges, with both products on the
+// tensor cores (mma.sync m16n8k16: the block's <= 8 query heads as the
+// 16-row M, padded with zeros; wgmma's 64-row M would be 7/8 padding).  A
+// block of 4 warps: warp w takes cache rows [16 w, 16 w + 16) of each
+// 64-row tile.  S = Q K^T with Q's fragments in registers (bf16 as given;
+// the scale goes on the float32 scores) and K read by ldmatrix; the online
+// softmax runs on S's fragment (head gid, rows 2 tig and 2 tig + 1 of each
+// 8-row half) with each row max over the 4 lanes of a head; P, rounded to
+// bf16, is the A fragment of O += P V as it lies, V read by ldmatrix.trans.
+// The ring keeps K and V in bf16, chunk c of row r at c ^ swz(r) so that
+// ldmatrix's eight rows hit eight bank groups; rows past the split are
+// zero-filled (a zero V row times p = 0 stays 0).
+constexpr int kDecMmaThreads = 128;
+
+template <int D> struct DecMma {
+  static constexpr int TILE = 64;
+  static constexpr int ROW = D * 2;                 // bytes a row
+  static constexpr int CPR = ROW / 16;              // 16-byte chunks a row
+  static constexpr int STAGE = 2 * TILE * ROW;
+  static constexpr int NS = kDecRingBytes / STAGE < 6 ? kDecRingBytes / STAGE
+                                                      : 6;
+  static constexpr int RING = NS * STAGE;
+  static constexpr int WARPS = (kDecMmaThreads / 32) * kDecHeads * (D + 2) * 4;
+  static constexpr int SCRATCH = RING > WARPS ? RING : WARPS;
+  static constexpr int PART = kDecHeads * (D + 2) * 4;
+  static constexpr int bytes = SCRATCH + PART;
+  // the swizzled byte offset of chunk c of row r
+  __device__ static uint32_t at(int r, int c) {
+    const int sw = CPR >= 8 ? (r & 7) : CPR == 4 ? ((r >> 1) & 3)
+                                                 : ((r >> 2) & 1);
+    return r * ROW + ((c ^ sw) << 4);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDecMmaThreads, 1)
+decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const int* __restrict__ lengths,
+                            __nv_bfloat16* __restrict__ o, int Hq, int Hk,
+                            int S, int hgroups, float qscale) {
+  using C = DecMma<D>;
+  constexpr int KS = D / 16, H8 = kDecHeads, TILE = C::TILE;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  const uint32_t ring = smem_u32(dec_smem);
+  float* part = reinterpret_cast<float*>(dec_smem + C::SCRATCH);
+
+  const int nsplit = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int hk = blockIdx.y / hgroups, hg = blockIdx.y % hgroups;
+  const int b = blockIdx.z;
+  const int G = Hq / Hk;
+  const int h0 = hk * G + hg * H8;
+  const int ng = min(H8, G - hg * H8);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+
+  const int len = min(max(lengths[b], 0), S);
+  const int tiles = (len + TILE - 1) / TILE;
+  const int per = (tiles + nsplit - 1) / nsplit;
+  const int k0 = split * per * TILE;
+  const int k1 = min(k0 + per * TILE, len);
+  const int ntiles = k0 < k1 ? (k1 - k0 + TILE - 1) / TILE : 0;
+  const __nv_bfloat16* kb = k + ((size_t)b * Hk + hk) * S * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * Hk + hk) * S * D;
+
+  // tile i of K and V into ring stage i % NS; rows past the split zeros
+  auto load_tile = [&](int i) {
+    const int r0 = k0 + i * TILE, nk = min(TILE, k1 - r0);
+    const uint32_t st = ring + (i % C::NS) * C::STAGE;
+    for (int c = tid; c < TILE * C::CPR; c += kDecMmaThreads) {
+      const int r = c / C::CPR, cc = c % C::CPR;
+      const bool ok = r < nk;
+      const size_t off = ok ? (size_t)(r0 + r) * D + cc * 8 : 0;
+      cp_async16(st + C::at(r, cc), kb + off, ok ? 16 : 0);
+      cp_async16(st + TILE * C::ROW + C::at(r, cc), vb + off, ok ? 16 : 0);
+    }
+  };
+  for (int i = 0; i < C::NS - 1; ++i) {
+    if (i < ntiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // Q's A fragments: head gid (rows gid + 8 are zero), k-step kk
+  uint32_t qa[KS][2];
+  const __nv_bfloat16* qrow = q + ((size_t)b * Hq + h0 + gid) * D;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    qa[kk][0] = gid < ng ? *reinterpret_cast<const uint32_t*>(
+                               qrow + 16 * kk + 2 * tig) : 0u;
+    qa[kk][1] = gid < ng ? *reinterpret_cast<const uint32_t*>(
+                               qrow + 16 * kk + 8 + 2 * tig) : 0u;
+  }
+
+  // head gid's running max and (this lane's part of the) sum; O's
+  // fragment: oacc[j][0..1] = O[gid][8 j + 2 tig, + 1]
+  float m_run = kNegInf, l_run = 0.f;
+  float oacc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+
+  const int mrow = lane >> 3, rrow = lane & 7;     // ldmatrix lane roles
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<C::NS - 2>();
+    __syncthreads();
+    if (it + C::NS - 1 < ntiles) load_tile(it + C::NS - 1);
+    cp_async_commit();
+    const uint32_t ks = ring + (it % C::NS) * C::STAGE;
+    const uint32_t vs = ks + TILE * C::ROW;
+    const int nk = min(TILE, k1 - (k0 + it * TILE));
+
+    // S = Q K^T over the warp's 16 rows: two n-tiles of 8 rows
+    float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, ks + C::at(16 * warp + (mrow >> 1) * 8 + rrow,
+                                 2 * kk + (mrow & 1)));
+      mma_16816(sacc[0], qa[kk][0], 0u, qa[kk][1], 0u, kf[0], kf[1]);
+      mma_16816(sacc[1], qa[kk][0], 0u, qa[kk][1], 0u, kf[2], kf[3]);
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sacc[nt][e] *= qscale;
+        if (16 * warp + 8 * nt + 2 * tig + e < nk)
+          mx = fmaxf(mx, sacc[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    if (m_new > m_run) {               // rescale only when the max moved
+      const float alpha = fast_exp2(m_run - m_new);
+      l_run *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        oacc[j][0] *= alpha;
+        oacc[j][1] *= alpha;
+      }
+      m_run = m_new;
+    }
+    float p[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[nt][e] = 16 * warp + 8 * nt + 2 * tig + e < nk
+                       ? fast_exp2(sacc[nt][e] - m_new) : 0.f;
+        l_run += p[nt][e];
+      }
+    const uint32_t pa0 = pack_bf16(p[0][0], p[0][1]);
+    const uint32_t pa2 = pack_bf16(p[1][0], p[1][1]);
+
+    // O += P V: 16 columns of D a step
+#pragma unroll
+    for (int c2 = 0; c2 < KS; ++c2) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, vs + C::at(16 * warp + (mrow & 1) * 8 + rrow,
+                                       2 * c2 + (mrow >> 1)));
+      mma_16816(oacc[2 * c2], pa0, 0u, pa2, 0u, vf[0], vf[1]);
+      mma_16816(oacc[2 * c2 + 1], pa0, 0u, pa2, 0u, vf[2], vf[3]);
+    }
+  }
+
+  // the warp's state per head into shared memory, then the merges
+  l_run += __shfl_xor_sync(kFull, l_run, 1);
+  l_run += __shfl_xor_sync(kFull, l_run, 2);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(dec_smem);
+  float* wl = wm + (kDecMmaThreads / 32) * H8;
+  float* wacc = wl + (kDecMmaThreads / 32) * H8;
+  if (gid < ng) {
+    if (tig == 0) {
+      wm[warp * H8 + gid] = m_run;
+      wl[warp * H8 + gid] = l_run;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      wacc[(warp * H8 + gid) * D + 8 * j + 2 * tig] = oacc[j][0];
+      wacc[(warp * H8 + gid) * D + 8 * j + 2 * tig + 1] = oacc[j][1];
+    }
+  }
+  __syncthreads();
+  decode_merge<__nv_bfloat16, D, kDecMmaThreads>(
+      wm, wl, wacc, part, o + ((size_t)b * Hq + h0) * D, ng);
+}
+
+// the kernel of a dtype: bf16 on the tensor cores, float32 on the CUDA cores
+template <typename T, int D> struct DecodeKernel {
+  static constexpr int threads = kDecThreads, bytes = Dec<D>::bytes;
+  static auto fn() { return decode_attention_kernel<D>; }
+};
+template <int D> struct DecodeKernel<__nv_bfloat16, D> {
+  static constexpr int threads = kDecMmaThreads, bytes = DecMma<D>::bytes;
+  static auto fn() { return decode_attention_mma_kernel<D>; }
+};
+
 template <typename T, int D>
 int decode_launch(const void* q, const void* k, const void* v,
-                  const void* lengths, void* part_ml, void* part_acc, void* o,
-                  int B, int Hq, int Hk, int S, int nsplit, int chunk,
-                  float qscale, cudaStream_t stream) {
-  const int bytes = DecodeSmem<D>::floats(Hq / Hk) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                  const void* lengths, void* o, int B, int Hq, int Hk, int S,
+                  int nsplit, float qscale, cudaStream_t stream) {
+  using K = DecodeKernel<T, D>;
+  const int hgroups = (Hq / Hk + kDecHeads - 1) / kDecHeads;
+  if (nsplit < 1 || nsplit > kDecMaxSplit || B > 65535 ||
+      (long long)Hk * hgroups > 65535)
+    return kBadShape;
+  // the function's attributes, once per device
+  static unsigned ready = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nsplit, Hk, B);
-  decode_attention_kernel<T, D><<<grid, kDecThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)lengths,
-      (float*)part_ml, (float*)part_acc, Hq, Hk, S, nsplit, chunk, qscale);
-  err = cudaGetLastError();
+  if (dev >= 32 || !(ready >> dev & 1u)) {
+    err = cudaFuncSetAttribute(K::fn(),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               K::bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 32) ready |= 1u << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, Hk * hgroups, B);
+  cfg.blockDim = dim3(K::threads);
+  cfg.dynamicSmemBytes = K::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, K::fn(), (const T*)q, (const T*)k,
+                           (const T*)v, (const int*)lengths, (T*)o, Hq, Hk,
+                           S, hgroups, qscale);
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<T><<<B * Hq, D, 0, stream>>>(
-      (const float*)part_ml, (const float*)part_acc, (T*)o, nsplit, D);
   return (int)cudaGetLastError();
 }
 
@@ -985,18 +1216,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 #undef FLASH
 }
 
-// out[b, h] = attention of q[b, h] over the first lengths[b] cache rows;
-// part_ml [B*Hq*nsplit*2] and part_acc [B*Hq*nsplit*D] float32 scratch.
+// out[b, h] = attention of q[b, h] over the first lengths[b] cache rows, in
+// one launch: nsplit (1..8) blocks of a cluster per (batch, KV head, group
+// of 8 query heads).  dtype 0: float32, 1: bfloat16.
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* lengths, void* part_ml,
-                            void* part_acc, void* o, int B, int Hq, int Hk,
-                            int S, int D, int dtype, int nsplit, int chunk,
+                            const void* lengths, void* o, int B, int Hq,
+                            int Hk, int S, int D, int dtype, int nsplit,
                             float qscale, void* stream) {
   if (B == 0 || Hq == 0) return 0;
+  if (Hk < 1 || Hq % Hk) return kBadShape;
   cudaStream_t s = (cudaStream_t)stream;
-#define DEC(T, DD)                                                          \
-  return decode_launch<T, DD>(q, k, v, lengths, part_ml, part_acc, o, B,    \
-                              Hq, Hk, S, nsplit, chunk, qscale, s)
+#define DEC(T, DD)                                                        \
+  return decode_launch<T, DD>(q, k, v, lengths, o, B, Hq, Hk, S, nsplit,  \
+                              qscale, s)
 #define DEC_D(T)             \
   switch (D) {               \
     case 16: DEC(T, 16);     \

@@ -2,19 +2,21 @@
 
 Replaces ``src/repro/kernels/decode_attention/kernel.py``'s
 ``decode_attention_pallas``.  The kernel is bound by reading the live K
-and V rows once; one block per (batch, KV head, split of the cache) serves
-all the KV head's query heads, and a second kernel merges the splits'
-partial softmax statistics (see the source's header).
+and V rows once.  It is one launch: the live rows of a (batch, KV head) are
+cut into ``nsplit`` splits, one block each, and the splits form a
+thread-block cluster that merges their softmax states in shared memory
+(see the source's header).
 
-The wrapper checks its arguments, picks the split (about two blocks per
-SM), allocates the output and the float32 partials, launches both kernels
-on PyTorch's current stream and counts one launch.  Nothing is built or
-loaded at import time.
+The wrapper checks its arguments, picks ``nsplit`` (about two blocks per
+SM, from the SM count cached per device), allocates the output and nothing
+else, launches on PyTorch's current stream and counts one launch.  Nothing
+is built or loaded at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict
 
 import torch
 
@@ -22,27 +24,39 @@ from .. import _cuda
 from .._cuda import I, P
 from ..flash_attention.kernel import DTYPES, LOG2E, check_inputs
 
-TILE = 64                  # cache rows a block stages at once
+TILE = 64                  # cache rows a split holds a multiple of (at least)
+HEADS_PER_BLOCK = 8        # query heads a block serves
+MAX_SPLIT = 8              # blocks of a cluster: the portable most (16,
+                           # non-portable, ran slower on an H100)
 _READY = set()
+_SMS: Dict[int, int] = {}
 
 
 def _lib():
     lib = _cuda.library("attention")
     if "decode" not in _READY:
         lib.decode_attention_launch.argtypes = (
-            [P] * 7 + [I] * 8 + [ctypes.c_float, P])
+            [P] * 5 + [I] * 7 + [ctypes.c_float, P])
         lib.decode_attention_launch.restype = I
         _READY.add("decode")
     return lib
 
 
-def split_cache(b: int, hk: int, s: int, sms: int):
-    """``(nsplit, chunk)``: cut ``s`` cache rows into splits of a multiple
-    of ``TILE`` rows so that ``b * hk * nsplit`` is about ``2 * sms``."""
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA tensor's device, read once."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device.index).multi_processor_count
+    return _SMS[device.index]
+
+
+def cluster_splits(blocks: int, s: int, sms: int) -> int:
+    """The splits of each (batch, KV head, head group), ``blocks`` of them:
+    about ``2 * sms`` blocks in all, at most ``MAX_SPLIT`` (a cluster) and
+    at most one a ``TILE`` rows of the ``s``-row cache."""
     tiles = max(1, -(-s // TILE))
-    nsplit = min(tiles, max(1, -(-2 * sms // max(1, b * hk))))
-    chunk = -(-tiles // nsplit) * TILE
-    return -(-max(s, 1) // chunk), chunk
+    want = -(-2 * sms // max(1, blocks))
+    return max(1, min(want, MAX_SPLIT, tiles))
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,17 +71,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention takes one query row per sequence "
                          "and one length per sequence, got q %s, lengths %s"
                          % (tuple(q.shape), tuple(lengths.shape)))
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, chunk = split_cache(b, hk, s, sms)
-    part_ml = torch.empty((b * hq * nsplit * 2,), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b * hq * nsplit * d,), dtype=torch.float32,
-                           device=q.device)
+    groups = -(-(hq // hk) // HEADS_PER_BLOCK)
+    nsplit = cluster_splits(b * hk * groups, s, _sm_count(q.device))
     out = torch.empty_like(q)
     _cuda.check(_lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, hq, hk,
-        s, d, DTYPES[q.dtype], nsplit, chunk, LOG2E / math.sqrt(d),
-        _cuda.stream_of(q)), "decode_attention")
+        out.data_ptr(), b, hq, hk, s, d, DTYPES[q.dtype], nsplit,
+        LOG2E / math.sqrt(d), _cuda.stream_of(q)), "decode_attention")
     _cuda.count_launch("decode_attention")
     return out

@@ -14,6 +14,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lengths[b]`` rows of ``k, v [B, Hk, S, D]`` -> ``[B, Hq, 1, D]``;
     0 where a length is 0."""
     if q.is_cuda:
-        return kernel.decode_attention_cuda(q, k, v,
-                                            lengths.to(torch.int32))
+        if lengths.dtype != torch.int32:
+            lengths = lengths.to(torch.int32)
+        return kernel.decode_attention_cuda(q, k, v, lengths)
     return ref.decode_attention_ref(q, k, v, lengths)

@@ -147,14 +147,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                           torch.ones(1, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("b,hk,s,sms,want", [
-    (4, 2, 2112, 132, (33, 64)),     # the decode path's shape: 264 blocks
-    (1, 1, 0, 132, (1, 64)),         # an empty cache: one dead split
-    (128, 2, 32768, 132, (2, 16384)),
-    (1, 2, 100, 132, (2, 64)),
+@pytest.mark.parametrize("blocks,s,sms,want", [
+    (8, 2112, 132, 8),       # the decode path's shape: 8 clusters of 8
+    (1, 0, 132, 1),          # an empty cache: one dead split
+    (256, 32768, 132, 2),
+    (2, 100, 132, 2),        # no more splits than 64-row tiles
 ])
-def test_decode_split_of_the_cache(b, hk, s, sms, want):
-    nsplit, chunk = p_da_kernel.split_cache(b, hk, s, sms)
-    assert (nsplit, chunk) == want
-    assert chunk % p_da_kernel.TILE == 0 and nsplit * chunk >= s
-    assert (nsplit - 1) * chunk < max(s, 1)
+def test_decode_split_of_the_cache(blocks, s, sms, want):
+    assert p_da_kernel.cluster_splits(blocks, s, sms) == want
+
+
+@pytest.mark.parametrize("blocks", range(1, 65))
+def test_decode_cluster_splits_fill_the_card(blocks):
+    """B * Hk (* head groups) from 1 to 64 on 132 SMs: a cluster of 1 to 8
+    splits, as many as about two blocks an SM allow."""
+    sms, s = 132, 32768
+    n = p_da_kernel.cluster_splits(blocks, s, sms)
+    assert 1 <= n <= p_da_kernel.MAX_SPLIT
+    assert n == p_da_kernel.MAX_SPLIT or blocks * n >= 2 * sms
+    assert n == 1 or blocks * (n - 1) < 2 * sms

@@ -427,6 +427,13 @@ DECODE_CASES = {
     "g1_d64": (3, 2, 2, 1000, 64, [1000, 513, 64]),
     "g3_d16": (2, 6, 2, 77, 16, [77, 0]),
     "g6_d32": (2, 12, 2, 130, 32, [65, 130]),
+    # the one-launch kernel's edges, at 8 splits a (batch, KV head): rows
+    # 128 and 1152 end a split, 129 and 1153 put one row in the next
+    "split_edges": (4, 12, 2, 2112, 128, [128, 129, 1152, 1153]),
+    "dead_but_first_split": (4, 12, 2, 2112, 128, [1, 1, 64, 2]),
+    "g8": (2, 16, 2, 1000, 128, [1000, 517]),
+    "g12_two_head_groups": (2, 24, 2, 300, 64, [300, 171]),
+    "b1_s32768": (1, 12, 2, 32768, 128, [32768]),
 }
 
 
@@ -469,6 +476,28 @@ def test_decode_attention_kernel_matches_plain(card, case, dtype):
     want = p_da_ref.decode_attention_ref(q, k, v, lens)
     torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
     assert torch.all(got[lens == 0] == 0)
+
+
+@pytest.mark.gpu
+def test_decode_attention_is_one_kernel_launch(card):
+    """One call at the decode path's shape puts exactly one ``decode_``
+    kernel on the profiler and counts one launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = (t.to(card) for t in _qkv((4, 12, 1, 128), (4, 2, 2112, 128),
+                                         torch.bfloat16, seed=3))
+    lens = torch.full((4,), 2080, dtype=torch.int32, device=card)
+    p_da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    before = _cuda.LAUNCHES["decode_attention"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p_da_ops.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decode_attention"] == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len([n for n in names if "decode_" in n]) == 1, names
 
 
 @contextlib.contextmanager
@@ -563,6 +592,12 @@ SSD_CASES = {
     "g2_h4": (2, 128, 4, 64, 2, 64, 64, True),
     "s16_p16": (1, 64, 2, 16, 1, 16, 32, False),
     "s32_p32_g2": (2, 128, 4, 32, 2, 32, 64, True),
+    # the model's view of one [B, T, d_inner + 2GS] tensor at full width
+    "model_view_t2048": (1, 2048, 24, 64, 1, 128, 128, False),
+    "g1_h24_t512": (2, 512, 24, 64, 1, 128, 128, True),
+    "chunk64_ragged_t300": (2, 300, 8, 64, 1, 128, 64, True),
+    "init_g2_h8_s128": (2, 200, 8, 64, 2, 128, 128, True),
+    "h_equals_g": (2, 160, 2, 64, 2, 128, 128, True),
 }
 
 
@@ -601,6 +636,31 @@ def test_ssd_kernel_matches_plain(card, case, dtype):
     want_y, want_state = p_ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, chunk, s0)
     assert y.dtype == dtype and y.shape == (b, t, h, p)
     assert state.dtype == torch.float32 and state.shape == (b, h, s, p)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(state, want_state, **STATE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_unaligned_views(card, dtype):
+    """x, B and C sliced one element into a wider tensor: no row starts on
+    16 bytes, so the kernel takes its element loads; same answer."""
+    b, t, h, p, g, s = 2, 200, 4, 64, 1, 128
+    rng = np.random.default_rng(11)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, t, 1 + h * p + 2 * g * s)).astype(np.float32)).to(card, dtype)
+    x = xbc[..., 1:1 + h * p].reshape(b, t, h, p)
+    Bm = xbc[..., 1 + h * p:1 + h * p + g * s].reshape(b, t, g, s)
+    Cm = xbc[..., 1 + h * p + g * s:].reshape(b, t, g, s)
+    assert x.data_ptr() % 16 and Bm.data_ptr() % 16
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, t, h)).astype(
+        np.float32)).to(card)
+    A = torch.from_numpy(-rng.uniform(0.5, 2.0, (h,)).astype(
+        np.float32)).to(card)
+    s0 = torch.from_numpy(rng.standard_normal((b, h, s, p)).astype(
+        np.float32)).to(card)
+    y, state = p_ssd_kernel.ssd_cuda(x, dt, A, Bm, Cm, 128, s0)
+    want_y, want_state = p_ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, 128, s0)
     torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
     torch.testing.assert_close(state, want_state, **STATE_TOL)
 

@@ -56,3 +56,67 @@ def test_each_profiler_symbol_names_a_global_function(name):
 
 def test_every_launch_counter_has_a_profiler_symbol():
     assert set(_cuda.LAUNCHES) <= set(SYMBOLS)
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _body(text, signature):
+    """The brace-balanced body of the first definition that starts with
+    ``signature`` (a function head up to its name)."""
+    start = text.index(signature)
+    i = text.index("{", start)
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[i:j + 1]
+    raise AssertionError("unbalanced braces after %r" % signature)
+
+
+def test_decode_attention_is_one_kernel():
+    text = _source("attention.cu")
+    assert "decode_combine_kernel" not in text
+    # the dtype picks one of two kernels: bf16 on the tensor cores, f32 not
+    assert sorted(fn for fn in _global_functions()
+                  if fn.startswith("decode_")) == [
+        "decode_attention_kernel", "decode_attention_mma_kernel"]
+    assert "mma_16816(" in _body(text, "decode_attention_mma_kernel(")
+    launcher = _body(text, "int decode_launch(")
+    launches = launcher.count("<<<") + launcher.count("cudaLaunchKernelEx(")
+    assert launches == 1
+    assert "cudaLaunchAttributeClusterDimension" in launcher
+    # the function's attributes are set once per device, not per call
+    assert "static unsigned ready" in launcher
+
+
+@pytest.mark.parametrize("kernel", ["ssd_chunk_state_wgmma_kernel",
+                                    "ssd_output_wgmma_kernel"])
+def test_bf16_ssd_products_run_on_the_tensor_cores(kernel):
+    text = _source("ssd.cu")
+    body = _body(text, kernel + "(")
+    assert re.search(r"\bwgmma_(ss|rs)_n\d+", body)
+    assert kernel in _body(text, "int ssd_run_bf16(")
+
+
+def test_the_ssd_computes_c_bt_once_per_group():
+    """The output pass multiplies C B^T (an m64n128 product from two shared
+    tiles) before its loop over the group's heads, and not inside it."""
+    body = _body(_source("ssd.cu"), "ssd_output_wgmma_kernel(")
+    loop = body.index("for (int j = 0; j < hpg; ++j)")
+    assert "wgmma_ss_n128(" in body[:loop]
+    assert "wgmma_ss_n128(" not in body[loop:]
+
+
+def test_a_shared_header_change_rebuilds_every_source(tmp_path, monkeypatch):
+    for path in glob.glob(os.path.join(CSRC, "*")):
+        with open(path, "rb") as f:
+            (tmp_path / os.path.basename(path)).write_bytes(f.read())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    before = {n: _cuda._lib_path(n) for n in _cuda.SOURCES}
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// changed\n")
+    after = {n: _cuda._lib_path(n) for n in _cuda.SOURCES}
+    assert all(before[n] != after[n] for n in _cuda.SOURCES)
