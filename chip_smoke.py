@@ -21,9 +21,17 @@ Phases (each prints its lines; any failure exits non-zero):
    inside one, a CONST predicate in no KB row, cross products with no
    BOUND slot past out_cap, scattered validity, W = 1, live rows filling
    no whole row group; its count and scatter launches timed apart; the
-   closure step also at n = 64, 128, 512, 1024, densities 0.01, 0.2
-   and 1); then flash attention and decode attention at phase 7's shapes
-   and edge cases (flash also at the tensor-core kernel's tile edges: Tq
+   probe join also on the edge worlds of ``tests/probe_edge_worlds.py``:
+   duplicate runs over a fence, keys outside the view, views shorter than
+   a fence stride, runs of exactly k_max and k_max + 1 for k_max 1, 8, 64,
+   out_cap inside a block and a row, live rows in the cluster's last
+   block, M off the tiles, several tiles a block, set and dead-row
+   overflow, M = 0 and out_cap = 0; one probe call and one descendants
+   call must each put exactly one kernel on the profiler, with no fill,
+   copy, cast or scan; the closure step also at n = 64, 128, 512, 1024,
+   densities 0.01, 0.2 and 1; descendants on a column view, zero and
+   all-one root columns, n = 700 and 1100); then flash attention and
+   decode attention at phase 7's shapes and edge cases (flash also at the tensor-core kernel's tile edges: Tq
    127/128/129, ragged Tk and ``q_offset``, a window narrower than a KV
    tile, D 16 to 128, groups 1, 3, 6), float32 within 1e-4 and bfloat16
    within 2e-2 + 1e-2 relative; a bf16 call must reach only the ``wgmma``
@@ -185,11 +193,11 @@ METHODS = ("scan", "probe", "auto")
 
 # the __global__ function each kernel wrapper launches (profiler names)
 KERNEL_SYMBOLS = {"join_compact": "scan_join",   # count + scatter kernels
-                  "probe_compact": "probe_join_kernel",
+                  "probe_compact": "probe_join_kernel",      # one launch
                   "match_matrix": "match_matrix_kernel",
                   # closure_step_pack_kernel + closure_step_kernel
                   "closure_step": "closure_step",
-                  "descendants": "descendants_kernel",
+                  "descendants": "descendants_kernel",       # one launch
                   # flash_attention_wgmma_kernel (bf16) and
                   # flash_attention_kernel (f32)
                   "flash_attention": "flash_attention",
@@ -537,6 +545,52 @@ def phase_scan_edges(vocab, kbd, bind, check, rng):
          ragged, kb, pat_type, 4096)
 
 
+def probe_edge_worlds():
+    """The probe join's edge worlds, ``tests/probe_edge_worlds.py`` (the
+    card and CPU tests build the same ones), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_edge_worlds",
+        os.path.join(REPO, "tests", "probe_edge_worlds.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_probe_edges(check):
+    """Every probe edge world, byte for byte against the twin (at M = 0
+    against the contract: zero rows, no valid slot, the bindings'
+    overflow), each call one launch."""
+    from repro_torch import interop
+    from repro_torch.core.kb import build_kb
+    from repro_torch.core.pattern import Bindings, CompiledPattern, Slot
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.hash_join import ops as hj_ops
+
+    pew = probe_edge_worlds()
+    for e in pew.probe_edge_worlds():
+        r = e.kb_rows
+        kb = build_kb(r[:, 0], r[:, 1], r[:, 2], e.capacity)
+        bind = interop.bindings_from_arrays(e.cols, e.valid, e.overflow)
+        pat = pew.pattern(e.pattern, Slot, CompiledPattern)
+        before = _cuda.LAUNCHES["probe_compact"]
+        got = hj_ops.probe_compact(Bindings(*(t.cuda() for t in bind)),
+                                   kb.to("cuda"), pat, e.out_cap, e.k_max)
+        if _cuda.LAUNCHES["probe_compact"] != before + 1:
+            fail("probe edge %s: not one launch" % e.tag)
+        w, m, nv = e.cols.shape
+        if m:
+            want = hj_ops.probe_compact_torch(bind, kb, pat, e.out_cap,
+                                              e.k_max)
+        else:
+            want = Bindings(torch.zeros((w, e.out_cap, nv), dtype=torch.int64),
+                            torch.zeros((w, e.out_cap), dtype=torch.bool),
+                            torch.from_numpy(e.overflow))
+        check("probe_compact", "edge: %s" % e.tag[:38], got,
+              Bindings(*(t.cuda() for t in want)))
+
+
 def phase_kernels(vocab, kbd):
     from repro_torch.core.kb import kb_from_triples, probe_view
     from repro_torch.core.pattern import CompiledPattern, Slot
@@ -635,6 +689,25 @@ def phase_kernels(vocab, kbd):
               + matched * 12 + w * out_cap * nv * 4 + w * m * 8)
     rec.bound_ms, rec.bound_by = _bound(
         nbytes, live_rows * (2 * steps + 3 * 8))
+    # what one search reads and writes: validity, one anchor word and the
+    # fence table's segment plus the k_max + 1 keys after lo a live row,
+    # the matches' KB words, int64 rows, valid and overflow out
+    shift = kb.fences.shift
+    n_fences = -(-n_kb >> shift)
+    one_bytes = (w * m + live_rows * (8 + (64 + 9) * 4) + matched * 12
+                 + n_fences * 4 + w * out_cap * (nv * 8 + 1) + w)
+    log("  probe_compact bound %.5f ms (%s; the earlier formula: two searches "
+        "of log2 N steps a live row); one search from a %d-fence table "
+        "(every %d-th key) %.5f ms (%s)"
+        % ((rec.bound_ms, rec.bound_by, n_fences, 1 << shift)
+           + _bound(one_bytes, live_rows * (shift + 64 + 9 + 3 * 8))))
+    names = kernel_names(
+        lambda: hj_ops.probe_compact(bind, kb, pat_type, out_cap, 8))
+    log("  probe_compact one call, device kernels: %s" % sorted(names))
+    if len(names) != 1 or KERNEL_SYMBOLS["probe_compact"] not in next(
+            iter(names)):
+        fail("one probe_compact call launched %s, not one probe_join_kernel"
+             % sorted(names))
 
     # -- edge cases
     small = 64
@@ -700,6 +773,7 @@ def phase_kernels(vocab, kbd):
     check("join_compact", "numeric literals, object bound",
           hj_ops.join_compact(b_coll, kb_coll, pat_coll, 1024),
           hj_ops.join_compact_torch(b_coll, kb_coll, pat_coll, 1024))
+    phase_probe_edges(check)
 
     # -- match matrix: the candidate matrix of the unfused scan join
     def check_mm(tag, b, k, pat):
@@ -806,10 +880,22 @@ def phase_kernels(vocab, kbd):
                   (cl_ops.closure_step(cr),), (cl_ref.closure_step_ref(cr),))
 
     root = idx[sch.musical_artist]
-    rootcol = r[:, root].contiguous()
+    rootcol = r[:, root]            # a column view, as the path passes it
     got = cl_ops.descendants_step(r, rootcol, len(ids))
     check("descendants", "hierarchy n=%d, root MusicalArtist" % n, got,
           cl_ref.descendants_step_ref(r, rootcol, len(ids)))
+    names = kernel_names(
+        lambda: cl_ops.descendants_step(r, rootcol, len(ids)))
+    log("  descendants   one call, device kernels: %s" % sorted(names))
+    if len(names) != 1 or KERNEL_SYMBOLS["descendants"] not in next(
+            iter(names)):
+        fail("one descendants call launched %s, not one descendants_kernel"
+             % sorted(names))
+    for tag, col in (("zeros", torch.zeros(n, device="cuda")),
+                     ("ones", torch.ones(n, device="cuda"))):
+        check("descendants", "hierarchy n=%d, root column of %s" % (n, tag),
+              cl_ops.descendants_step(r, col, len(ids)),
+              cl_ref.descendants_step_ref(r, col, len(ids)))
     timed("descendants", lambda: cl_ops.descendants_step(r, rootcol, len(ids)),
           lambda: cl_ref.descendants_step_ref(r, rootcol, len(ids)),
           lambda: torch.nonzero(
@@ -824,11 +910,12 @@ def phase_kernels(vocab, kbd):
     rand = torch.clamp_max(rand + torch.eye(640, device="cuda"), 1.0)
     check("closure_step", "random n=640", (cl_ops.closure_step(rand),),
           (cl_ref.closure_step_ref(rand),))
-    rnd = (torch.rand((700, 700), device="cuda") < 0.02).float()
-    col = rnd[:, 3].contiguous()
-    check("descendants", "random n=700",
-          cl_ops.descendants_step(rnd, col, 700),
-          cl_ref.descendants_step_ref(rnd, col, 700))
+    for dn in (700, 1100):
+        rnd = (torch.rand((dn, dn), device="cuda") < 0.02).float()
+        col = rnd[:, 3]
+        check("descendants", "random n=%d, a column view" % dn,
+              cl_ops.descendants_step(rnd, col, dn),
+              cl_ref.descendants_step_ref(rnd, col, dn))
     sync()
     return recs
 

@@ -50,6 +50,23 @@ class KnowledgeBase(_KBArrays):
         return _KBArrays(*(c if c.dtype == torch.bool else
                            to_u32_bits(c).contiguous() for c in self))
 
+    @functools.cached_property
+    def fences(self) -> "Fences":
+        """Every ``2**shift``-th key of each sorted view, as int32 words
+        padded with ``0xFFFFFFFF`` to a multiple of 4: the table the probe
+        kernel stages into shared memory to start its lower-bound search.
+        Built on first use and kept with the KB, like :attr:`words`."""
+        keys = self.words.key_ps, self.words.key_po
+        n = int(keys[0].shape[-1])
+        shift = fence_shift(n)
+
+        def table(k):
+            f = k[::1 << shift]
+            pad = f.new_full(((-f.shape[0]) % 4,), -1)
+            return torch.cat([f, pad]).contiguous()
+
+        return Fences(shift, table(keys[0]), table(keys[1]))
+
     @property
     def capacity(self) -> int:
         return int(self.valid.shape[-1])
@@ -66,6 +83,29 @@ class KnowledgeBase(_KBArrays):
 
 
 _PAD_KEY = U32_MAX
+
+FENCE_SHIFT = 6       # a fence every 64 keys: the segment a thread counts
+FENCE_MAX = 16384     # the most fences a KB builds (64 KB; the kernel takes
+                      # twice that)
+
+
+class Fences(NamedTuple):
+    """Fence tables of the two sorted views: ``ps[i]`` is ``key_ps[i <<
+    shift]`` for ``i < ceil(N / 2**shift)`` (the rest is padding), ``po``
+    likewise."""
+
+    shift: int
+    ps: torch.Tensor
+    po: torch.Tensor
+
+
+def fence_shift(n: int) -> int:
+    """The fence stride for an ``n``-key view: every 64th key, or sparser
+    where that would give more than ``FENCE_MAX`` fences."""
+    shift = FENCE_SHIFT
+    while -(-n >> shift) > FENCE_MAX:
+        shift += 1
+    return shift
 
 
 def composite_key_np(p: np.ndarray, term: np.ndarray) -> np.ndarray:

@@ -67,7 +67,7 @@ def closure_descendants(adj, root: int, out_cap: int,
     reach = _reach(adj, block, device)
     for _ in range(_steps(n, max_depth) - 1):
         reach = closure_step(reach)
-    return descendants_step(reach, reach[:, root].contiguous(), out_cap)
+    return descendants_step(reach, reach[:, root], out_cap)
 
 
 def closure_ancestors(adj, root: int, out_cap: int,

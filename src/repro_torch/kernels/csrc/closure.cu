@@ -24,12 +24,30 @@
 // which is min(R @ R, 1) on the TPU kernel's 0/1 contract.
 
 // descendants: one matvec (2 n^2 operations, n^2 floats read), bound by
-// reading the matrix.  The TPU carried the running count across its
-// sequential grid; here one block of 32 warps walks the rows 32 at a
-// time: warp w reduces row g + w against the root column with shuffles,
-// warp 0 ballots the 32 flags and writes the set row ids at
-// count + popc(ballot & lanemask_lt), so ids come out ascending.
+// reading the matrix.  On the 0/1 contract, min(reach @ rootcol, 1)[i] >
+// 0.5 holds exactly when some k has reach[i][k] != 0 and rootcol[k] != 0
+// (the sum of 0/1 products is at least 1), so the kernel tests for any
+// such k and sums nothing.  The TPU carried the running count across its
+// sequential grid; here one launch of a cluster of C <= 8 blocks, each
+// owning a contiguous share of the rows in whole 32-row words:
+//   * every block stages the root column (read with its stride, so the
+//     caller passes a column view) as an n/32-word bit mask in shared
+//     memory, one ballot per 32 entries;
+//   * each warp takes 4 rows at a time, its lanes reading 16-byte chunks
+//     of them (the four rows' loads issued together) where the chunk's 4
+//     root bits are not all zero (a sparse root column skips most of the
+//     matrix), and keeps one flag a row (__any_sync); the block then
+//     ballots its rows' flags into words;
+//   * each block pushes its popcount total into the others' shared memory
+//     (distributed shared memory; a split barrier begun at the start has
+//     shown that they all run); after one cluster barrier each sums the
+//     earlier blocks' totals from its own, writes its ids in ascending
+//     order at that offset (while below out_cap) and its stripe of the zero
+//     tail, and block 0 writes count.
+// No fill, no atomic and no scratch: the wrapper allocates with
+// torch.empty.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,39 +117,127 @@ closure_step_kernel(const unsigned* __restrict__ rows,
     C[(size_t)(i0 + ty + 8 * i) * n + j0 + tx] = hit[i] ? 1.f : 0.f;
 }
 
-__global__ void __launch_bounds__(1024)
+constexpr int kDTThreads = 512;
+constexpr int kDTWarps = kDTThreads / 32;
+constexpr int kDTRows = 4;        // rows a warp reads at once
+constexpr int kDTMaxCluster = 8;  // the portable cluster size
+
+// grid (C), cluster (C, 1, 1); block c owns the row words [c WB, (c + 1)
+// WB) of the nw = ceil(n / 32), WB = ceil(nw / C).  kVec: n % 4 == 0 and
+// reach 16-byte aligned, so rows are read as float4.
+template <bool kVec>
+__global__ void __launch_bounds__(kDTThreads)
 descendants_kernel(const float* __restrict__ reach,
-                   const float* __restrict__ rootcol, int n,
+                   const float* __restrict__ rootcol, long long stride, int n,
                    int* __restrict__ ids, int* __restrict__ count,
                    int out_cap) {
-  __shared__ int flags[32];
-  __shared__ int running;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) running = 0;
-  __syncthreads();
-  for (int g = 0; g < n; g += 32) {
-    const int row = g + warp;
-    float s = 0.f;
-    if (row < n)
-      for (int k = lane; k < n; k += 32)
-        s += reach[(size_t)row * n + k] * rootcol[k];
-    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-    if (lane == 0) flags[warp] = (row < n) && (fminf(s, 1.f) > 0.5f);
-    __syncthreads();
-    if (warp == 0) {
-      const int f = flags[lane];
-      const unsigned bal = __ballot_sync(kFull, f);
-      const int base = running;
-      if (f) {
-        const int pos = base + __popc(bal & ((1u << lane) - 1u));
-        if (pos < out_cap) ids[pos] = g + lane;
-      }
-      __syncwarp();
-      if (lane == 0) running = base + __popc(bal);
-    }
-    __syncthreads();
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nw = (n + 31) >> 5, wb = (nw + C - 1) / C;
+  const int w0 = min(nw, c * wb), nb = min(nw, w0 + wb) - w0;
+  const int row0 = 32 * w0, row1 = min(n, 32 * (w0 + nb));
+  extern __shared__ __align__(16) unsigned dt_smem[];
+  unsigned* s_root = dt_smem;             // [nw] root-column bits
+  unsigned* s_word = s_root + nw;         // [wb] the block's row flags
+  int* s_pre = reinterpret_cast<int*>(s_word + wb);  // [wb] popc prefix
+  uint8_t* s_flag = reinterpret_cast<uint8_t*>(s_pre + wb);  // [32 wb]
+  __shared__ int s_counts[kDTMaxCluster];   // every block's, pushed by them
+
+  // every block has started once this phase completes: the counts pushed
+  // into the others' shared memory below find it there
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  for (int i = warp; i < nw; i += kDTWarps) {
+    const int k = 32 * i + lane;
+    const unsigned b =
+        __ballot_sync(kFull, k < n && rootcol[k * stride] != 0.f);
+    if (lane == 0) s_root[i] = b;
   }
-  if (threadIdx.x == 0) *count = running;
+  __syncthreads();
+
+  for (int g = row0 + warp * kDTRows; g < row1; g += kDTWarps * kDTRows) {
+    bool hit[kDTRows];
+#pragma unroll
+    for (int j = 0; j < kDTRows; ++j) hit[j] = false;
+    if (kVec) {
+      const int n4 = n >> 2;
+      for (int k4 = lane; k4 < n4; k4 += 32) {
+        const unsigned rb = (s_root[k4 >> 3] >> (4 * (k4 & 7))) & 0xFu;
+        if (!rb) continue;
+        float4 x[kDTRows];              // the rows' loads issued together
+#pragma unroll
+        for (int j = 0; j < kDTRows; ++j)
+          x[j] = __ldg(reinterpret_cast<const float4*>(
+                           reach + (size_t)min(g + j, row1 - 1) * n) + k4);
+#pragma unroll
+        for (int j = 0; j < kDTRows; ++j) {
+          const unsigned nz = (x[j].x != 0.f) | (x[j].y != 0.f) << 1 |
+                              (x[j].z != 0.f) << 2 | (x[j].w != 0.f) << 3;
+          hit[j] |= (nz & rb) != 0u;
+        }
+      }
+    } else {
+      for (int k = lane; k < n; k += 32) {
+        if (!(s_root[k >> 5] >> (k & 31) & 1u)) continue;
+        float x[kDTRows];
+#pragma unroll
+        for (int j = 0; j < kDTRows; ++j)
+          x[j] = reach[(size_t)min(g + j, row1 - 1) * n + k];
+#pragma unroll
+        for (int j = 0; j < kDTRows; ++j) hit[j] |= x[j] != 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDTRows; ++j) {
+      const bool f = __any_sync(kFull, hit[j]);
+      if (lane == 0 && g + j < row1) s_flag[g + j - row0] = f;
+    }
+  }
+  __syncthreads();
+  for (int i = warp; i < nb; i += kDTWarps) {
+    const int r = 32 * i + lane;
+    const unsigned b = __ballot_sync(kFull, row0 + r < row1 && s_flag[r]);
+    if (lane == 0) s_word[i] = b;
+  }
+  __syncthreads();
+  int flagged = 0;                      // the block's rows with the flag
+  if (warp == 0) {                      // exclusive prefix of the popcounts
+    for (int i0 = 0; i0 < nb; i0 += 32) {
+      const int i = i0 + lane;
+      const int p = i < nb ? __popc(s_word[i]) : 0;
+      int x = p;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (i < nb) s_pre[i] = flagged + x - p;
+      flagged += __shfl_sync(kFull, x, 31);
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0 && lane < C)            // push the count to block lane
+    *cluster.map_shared_rank(&s_counts[c], lane) = flagged;
+  cluster.sync();                       // the pushes have landed; no remote
+  int base = 0, total = 0;              // access follows
+  for (int r = 0; r < C; ++r) {
+    total += s_counts[r];
+    base += r < c ? s_counts[r] : 0;
+  }
+  for (int i = warp; i < nb; i += kDTWarps) {
+    const unsigned b = s_word[i];
+    if (b >> lane & 1u) {
+      const int pos = base + s_pre[i] + __popc(b & ((1u << lane) - 1u));
+      if (pos < out_cap) ids[pos] = 32 * (w0 + i) + lane;
+    }
+  }
+  for (int k = min(total, out_cap) + c * kDTThreads + tid; k < out_cap;
+       k += C * kDTThreads)
+    ids[k] = 0;
+  if (c == 0 && tid == 0) *count = total;
 }
 
 }  // namespace
@@ -156,12 +262,36 @@ int closure_step_launch(const void* A, void* bits, void* C, int n,
   return (int)cudaGetLastError();
 }
 
-// ids[:min(count, out_cap)] = ascending i with min(reach @ rootcol, 1)[i] > .5
-int descendants_launch(const void* reach, const void* rootcol, int n,
-                       void* ids, void* count, int out_cap, void* stream) {
-  descendants_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
-      (const float*)reach, (const float*)rootcol, n, (int*)ids, (int*)count,
-      out_cap);
+// ids[:min(count, out_cap)] = ascending i with min(reach @ rootcol, 1)[i] >
+// .5, then zeros, and count, for a row-major [n, n] reach with entries in
+// {0, 1} and rootcol[k] at rootcol + k * stride: one launch of a cluster of
+// up to kDTMaxCluster blocks, writing ids and count whole.
+int descendants_launch(const void* reach, const void* rootcol,
+                       long long stride, int n, void* ids, void* count,
+                       int out_cap, void* stream) {
+  const int nw = (n + 31) / 32;
+  const int C = max(1, min(kDTMaxCluster, nw));
+  const int wb = (nw + C - 1) / C;
+  const size_t bytes = (size_t)nw * 4 + (size_t)wb * (4 + 4 + 32);
+  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kDTThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool vec = n % 4 == 0 && ((uintptr_t)reach & 15u) == 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, vec ? descendants_kernel<true> : descendants_kernel<false>,
+      (const float*)reach, (const float*)rootcol, stride, n, (int*)ids,
+      (int*)count, out_cap);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Window-vs-KB joins for Hopper (sm_90a): the fused scan join and the fused
-// probe join, each as count -> exclusive scan -> scatter, and the unfused
-// scan join's candidate matrix.
+// probe join, each as count -> exclusive scan -> scatter (the probe join in
+// one launch), and the unfused scan join's candidate matrix.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/hash_join/kernel.py  join_compact_pallas
@@ -13,7 +13,8 @@
 // The TPU grid runs in order and carries running bases across grid steps
 // (counts_ref / rowbase_ref / base_ref).  CUDA blocks run in parallel, so
 // the carry becomes a count pass, an exclusive scan, and a scatter pass
-// that re-derives every match and writes it at its offset.  The result is
+// that writes every match at its offset (the scan join re-derives its
+// matches there; the probe join keeps what its count found).  The result is
 // the global row-major order of the virtual candidate matrix, bit for bit
 // what compacting the materialised matrix gives.
 //
@@ -56,11 +57,42 @@
 // A row group is staged once per block (12 KB of words at most), so there
 // is no stream of binding rows to double-buffer.
 //
-// Probe join.  Bounded by the binary searches' dependent loads (log2 N per
-// live row) and the k_max gathers: a few KB of traffic per chunk.  One
-// thread per binding row; the count pass stores [lo, hi) for the scatter
-// pass, which re-checks the candidates and writes matches in candidate
-// order.
+// Probe join.  Its bytes are a few KB a call (the live rows' anchors, a
+// few keys and KB words a live row, the output): what bounds it on this card
+// is the chain of dependent loads of each live row's binary search over the
+// ~N-key view (log2 N round trips to L2 for a plain lower bound) and the
+// launches around it.  Design, one launch:
+//   * a cluster of C <= 8 blocks per window (grid (C, W)).  Every block
+//     ranks the window's live rows (its validity, eight bytes a thread, one
+//     block scan per 4096 rows) and takes an equal share of them by rank,
+//     however they lie (the path's tables hold their live rows in front).
+//     Only live rows search: dead rows, and their fan-out, cost nothing;
+//   * one search, no upper bound.  The candidates are lo .. lo + k_max - 1
+//     where the key equals q (the view is sorted), and the fan-out flag is
+//     keys[lo + k_max] == q: both come from the k_max + 1 keys after lo,
+//     read eight at a time with the candidates' KB words.  lo itself comes
+//     from a fence table, every 2^shift-th key of the view, built once per
+//     KB (KnowledgeBase.fences) and staged whole into shared memory by one
+//     bulk copy (cp.async.bulk, completion on an mbarrier) that overlaps the
+//     ranking.  The fences give the 64-key segment holding lo (shift 6; a
+//     larger view takes a larger shift, its segment halved in device memory
+//     first), read as sixteen 16-byte loads and counted.  Within each of
+//     these steps a thread's loads are issued together, with no branch
+//     between them (a load past the view reads a clamped address and is
+//     masked): a load that waits on a branch serialises its round trip;
+//   * count -> offsets -> scatter in the same launch: each row with matches
+//     keeps (row, lo, match bits, its offset in the block) in shared memory
+//     (1024 rows a block; past that the scatter searches those rows again);
+//     every block pushes its count into the others' shared memory
+//     (distributed shared memory; a split barrier begun at the start has
+//     shown that they all run), and after one cluster barrier each reads
+//     its window offset and the window's total from its own.
+//     Matches are written while below out_cap, the window's valid flags and
+//     zero tail are striped over the cluster's blocks, and block 0 writes
+//     overflow = bind overflow | total > out_cap | any live row's fan-out;
+//   * no conversions: the kernel reads the int64 binding ids (their low
+//     words) and writes int64 rows (binding words copied, FREE slots the KB
+//     words zero-extended), so the wrapper only allocates its outputs.
 //
 // Match matrix.  Writes the int8 [W, M, N] all-slot equality of every
 // binding row against every KB row (1 = match), which the caller compacts.
@@ -80,8 +112,11 @@
 // (slot modes, constants, variable columns, repeated-variable flags): one
 // compiled kernel serves every pattern.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -120,7 +155,8 @@ __device__ __forceinline__ void write_row(uint32_t* orow, const uint32_t* crow,
 }
 
 // Exclusive prefix over the block of one int a thread (thread order), and
-// the block's total.  Every thread must call it.
+// the block's total, for a block of kWarps warps.  Every thread must call it.
+template <int kWarps>
 __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
                                                     int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -134,7 +170,7 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
   __syncthreads();
   int base = 0, tot = 0;
 #pragma unroll
-  for (int i = 0; i < kSJWarps; ++i) {
+  for (int i = 0; i < kWarps; ++i) {
     const int t = s_warp[i];
     base += i < warp ? t : 0;
     tot += t;
@@ -264,7 +300,7 @@ __device__ __forceinline__ int stage_rows(const uint32_t* __restrict__ cols,
     mine += take[q];
   }
   int total;
-  int at = block_exclusive_scan(mine, s_warp, &total);
+  int at = block_exclusive_scan<kSJWarps>(mine, s_warp, &total);
 #pragma unroll
   for (int q = 0; q < kSJRowsPerThread; ++q) {
     if (!take[q]) continue;
@@ -407,81 +443,355 @@ __device__ __forceinline__ uint32_t composite_key(uint32_t p, uint32_t t) {
   return (p << kTermBits) | low;
 }
 
-__device__ __forceinline__ int lower_bound(const uint32_t* keys, int n,
-                                           uint32_t q) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < q) lo = mid + 1; else hi = mid;
+constexpr int kPJThreads = 512;
+constexpr int kPJWarps = kPJThreads / 32;
+constexpr int kPJEntries = 1024;     // rows with matches a block keeps
+constexpr int kPJMaxCluster = 8;     // the portable cluster size
+constexpr int kPJMaxFences = 32768;  // fence words a block can stage (128 KB)
+constexpr int kPJSeg = 64;           // keys a thread counts at the end
+constexpr int kPJCntBits = 20;       // packed scan: rows << 20 | matches
+
+struct ProbeArgs {
+  const long long* cols;     // [W, M, nv] int64-held uint32 ids
+  const uint8_t* bvalid;     // [W, M]
+  const uint8_t* bovf;       // [W]
+  int M, nv;
+  const uint32_t *vs, *vp, *vo, *keys;   // the sorted view, N rows
+  int N;
+  const uint32_t* fences;    // keys[i << shift], F of them, padded to 4
+  int F, shift;
+  Pattern pat;
+  int anchor;
+  uint32_t p_const;
+  int k_max;
+  long long* rows;           // [W, out_cap, nv]
+  uint8_t* valid;            // [W, out_cap]
+  uint8_t* overflow;         // [W]
+  int out_cap;
+};
+
+// Number of fences below q; branchless, so a warp's lanes step together.
+__device__ __forceinline__ int fence_rank(const uint32_t* f, int F,
+                                          uint32_t q) {
+  if (F == 0) return 0;
+  const uint32_t* b = f;
+  int n = F;
+  while (n > 1) {
+    const int half = n >> 1;
+    b = b[half] < q ? b + half : b;
+    n -= half;
   }
-  return lo;
+  return (int)(b - f) + (*b < q);
 }
 
-__device__ __forceinline__ int upper_bound(const uint32_t* keys, int n,
-                                           uint32_t q) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] <= q) lo = mid + 1; else hi = mid;
+// searchsorted(keys, q, "left") over the whole view.  The fence table gives
+// a segment [a, b) with keys[a] < q <= keys[b] (or b == N); a segment wider
+// than kPJSeg keys (fences sparser than every 64th key) is halved in device
+// memory down to kPJSeg keys, which are then counted.  kVec (the keys
+// 16-byte aligned, shift >= 2, N >= 4): sixteen 16-byte loads, issued
+// together (no branch between them: a chunk past the last whole one reads
+// that one and is masked), plus the ragged last keys where the segment
+// reaches them.
+template <bool kVec>
+__device__ __forceinline__ int probe_lo(const uint32_t* __restrict__ keys,
+                                        int N, const uint32_t* s_fence,
+                                        int F, int shift, uint32_t q) {
+  const int j = fence_rank(s_fence, F, q);
+  if (j == 0) return 0;
+  int a = (j - 1) << shift;
+  int b = (int)min((long long)j << shift, (long long)N);
+  while (b - a > kPJSeg) {            // a stays a multiple of kPJSeg
+    int mid = (a + ((b - a) >> 1)) & ~(kPJSeg - 1);
+    if (mid <= a) mid = a + kPJSeg;
+    if (__ldg(keys + mid) < q) a = mid; else b = mid;
   }
-  return lo;
-}
-
-template <bool kScatter>
-__global__ void probe_join_kernel(const uint32_t* __restrict__ cols,
-                                  const uint8_t* __restrict__ bvalid, int M,
-                                  int nv, const uint32_t* __restrict__ vs,
-                                  const uint32_t* __restrict__ vp,
-                                  const uint32_t* __restrict__ vo,
-                                  const uint32_t* __restrict__ keys, int N,
-                                  Pattern pat, int anchor, uint32_t p_const,
-                                  int k_max, int* __restrict__ counts,
-                                  int* __restrict__ fan,
-                                  int* __restrict__ range,
-                                  const long long* __restrict__ offsets,
-                                  uint32_t* __restrict__ out, int out_cap) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const int w = blockIdx.y;
-  if (row >= M) return;
-  const size_t r = (size_t)w * M + row;
-  const uint32_t* crow = cols + r * nv;
-  const bool live = bvalid[r];
-  int lo, hi;
-  if (!kScatter) {
-    const uint32_t a = pat.mode[anchor] == 0 ? pat.cst[anchor]
-                                             : crow[pat.var[anchor]];
-    const uint32_t q = composite_key(p_const, a);
-    lo = lower_bound(keys, N, q);
-    hi = upper_bound(keys, N, q);
-    fan[r] = (hi - lo) > k_max ? 1 : 0;
-    range[2 * r] = lo;
-    range[2 * r + 1] = hi;
-    if (!live) return;                 // counts were zeroed by the wrapper
-  } else {
-    if (!live) return;
-    lo = range[2 * r];
-    hi = range[2 * r + 1];
-  }
-  uint32_t bv[3];
-  for (int i = 0; i < 3; ++i) bv[i] = pat.mode[i] == 1 ? crow[pat.var[i]] : 0u;
-  long long pos = kScatter ? offsets[r] : 0;
-  int cnt = 0;
-  const int end = min(hi, lo + k_max);
-  for (int idx = lo; idx < end; ++idx) {
-    const uint32_t a = vs[idx], b = vp[idx], c = vo[idx];
-    const bool m = slot_ok(pat.mode[0], a, pat.cst[0], bv[0]) &&
-                   slot_ok(pat.mode[1], b, pat.cst[1], bv[1]) &&
-                   slot_ok(pat.mode[2], c, pat.cst[2], bv[2]);
-    if (!m) continue;
-    if (kScatter) {
-      if (pos >= out_cap) break;
-      write_row(out + ((size_t)w * out_cap + pos) * nv, crow, nv, pat, a, b, c);
-      ++pos;
-    } else {
-      ++cnt;
+  int below = 0;
+  if (kVec) {
+    const uint4* vkeys = reinterpret_cast<const uint4*>(keys);
+    const int whole = N >> 2;           // whole 16-byte chunks
+    uint4 v[kPJSeg / 4];
+#pragma unroll
+    for (int i = 0; i < kPJSeg / 4; ++i)
+      v[i] = __ldg(vkeys + min((a >> 2) + i, whole - 1));
+#pragma unroll
+    for (int i = 0; i < kPJSeg / 4; ++i) {
+      const int e = a + 4 * i;
+      if (e + 4 <= 4 * whole) {
+        below += (e < b && v[i].x < q) + (e + 1 < b && v[i].y < q) +
+                 (e + 2 < b && v[i].z < q) + (e + 3 < b && v[i].w < q);
+      }
     }
+    for (int e = 4 * whole; e < b; ++e) below += __ldg(keys + e) < q;
+  } else {
+    for (int e = a; e < b; ++e) below += __ldg(keys + e) < q;
   }
-  if (!kScatter) counts[r] = cnt;
+  return a + below;
+}
+
+struct RowProbe {
+  int r, lo;
+  unsigned long long mask;   // bit t: candidate lo + t matches
+  bool fan;                  // the key's run is longer than k_max
+};
+
+// Probe one live row: the lower bound, then the keys lo .. lo + k_max eight
+// at a time (candidate t < k_max is in the range iff its key is q, as the
+// view is sorted; key k_max flags fan-out) with the candidates' words, all
+// loads of the eight issued together, and the exact re-check of the CONST
+// and BOUND slots (a key's low bits may be a hash of the term).
+template <bool kVec>
+__device__ __forceinline__ RowProbe probe_row(const ProbeArgs& A, int w,
+                                              int r, const uint32_t* s_fence) {
+  RowProbe p{r, 0, 0ull, false};
+  const Pattern& pat = A.pat;
+  const long long* crow = A.cols + ((size_t)w * A.M + r) * A.nv;
+  uint32_t bv[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    bv[i] = pat.mode[i] == 1 ? (uint32_t)crow[pat.var[i]] : 0u;
+  const uint32_t anchor =
+      A.anchor == 0 ? (pat.mode[0] == 0 ? pat.cst[0] : bv[0])
+                    : (pat.mode[2] == 0 ? pat.cst[2] : bv[2]);
+  const uint32_t q = composite_key(A.p_const, anchor);
+  p.lo = probe_lo<kVec>(A.keys, A.N, s_fence, A.F, A.shift, q);
+  const bool chk_s = pat.mode[0] != 2, chk_o = pat.mode[2] != 2;
+  for (int tk = 0; tk <= A.k_max; tk += 8) {
+    uint32_t kk[8], s[8], pp[8], o[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int t = tk + u, idx = min(p.lo + t, A.N - 1);
+      const bool in = t <= A.k_max && p.lo + t < A.N;
+      kk[u] = in ? __ldg(A.keys + idx) : ~q;
+      s[u] = chk_s && in ? __ldg(A.vs + idx) : 0u;
+      pp[u] = in ? __ldg(A.vp + idx) : 0u;
+      o[u] = chk_o && in ? __ldg(A.vo + idx) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int t = tk + u;
+      const bool eq = kk[u] == q;
+      if (t == A.k_max) p.fan = eq;
+      const bool m = eq && t < A.k_max &&
+                     slot_ok(pat.mode[0], s[u], pat.cst[0], bv[0]) &&
+                     slot_ok(pat.mode[1], pp[u], pat.cst[1], bv[1]) &&
+                     slot_ok(pat.mode[2], o[u], pat.cst[2], bv[2]);
+      p.mask |= (unsigned long long)m << (t & 63);
+    }
+    if (kk[7] != q) break;
+  }
+  return p;
+}
+
+// The live rows of window w whose rank (their order among the window's live
+// rows) is in [lr0, lr1), in row order, handed to fn(rows, n) a tile of at
+// most kPJThreads at a time.  The window's validity is read in sweeps of
+// kPJSweep rows, eight bytes a thread, ranked by one block scan a sweep.
+// fn returns whether to go on.  Every thread must call it.
+constexpr int kPJSweep = kPJThreads * 8;
+template <typename Fn>
+__device__ __forceinline__ void live_tiles(const ProbeArgs& A, int w, int lr0,
+                                           int lr1, int* s_live, int* s_warp,
+                                           Fn fn) {
+  const uint8_t* vrow = A.bvalid + (size_t)w * A.M;
+  int rank0 = 0;                        // live rows before the sweep
+  for (int s0 = 0; s0 < A.M && rank0 < lr1; s0 += kPJSweep) {
+    const int r = s0 + 8 * (int)threadIdx.x;
+    uint8_t v[8];
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      v[u] = r + u < A.M ? vrow[r + u] : 0;
+      mine += v[u] != 0;
+    }
+    int tot;
+    int k = rank0 + block_exclusive_scan<kPJWarps>(mine, s_warp, &tot);
+    const int first = max(lr0, rank0), last = min(lr1, rank0 + tot);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (!v[u]) continue;
+      if (k >= first && k < last) s_live[k - first] = r + u;
+      ++k;
+    }
+    __syncthreads();
+    for (int t0 = 0; t0 < last - first; t0 += kPJThreads)
+      if (!fn(s_live + t0, min(kPJThreads, last - first - t0))) return;
+    rank0 += tot;
+    __syncthreads();                    // s_live is rewritten next sweep
+  }
+}
+
+// The window's live rows (every block counts them alike).
+__device__ __forceinline__ int live_count(const ProbeArgs& A, int w,
+                                          int* s_warp) {
+  const uint8_t* vrow = A.bvalid + (size_t)w * A.M;
+  int total = 0;
+  for (int s0 = 0; s0 < A.M; s0 += kPJSweep) {
+    const int r = s0 + 8 * (int)threadIdx.x;
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) mine += r + u < A.M && vrow[r + u];
+    int tot;
+    block_exclusive_scan<kPJWarps>(mine, s_warp, &tot);
+    total += tot;
+  }
+  return total;
+}
+
+// Row r's matches (the bits of mask, candidates from lo) written from
+// window position pos on, while below out_cap: the binding row's int64
+// words, then the FREE slots' KB words zero-extended.
+__device__ __forceinline__ void write_matches(const ProbeArgs& A, int w,
+                                              int r, int lo,
+                                              unsigned long long mask,
+                                              long long pos) {
+  const long long* crow = A.cols + ((size_t)w * A.M + r) * A.nv;
+  const Pattern& pat = A.pat;
+  for (; mask && pos < A.out_cap; mask &= mask - 1, ++pos) {
+    const int idx = lo + __ffsll((long long)mask) - 1;
+    long long* orow = A.rows + ((size_t)w * A.out_cap + pos) * A.nv;
+    for (int k = 0; k < A.nv; ++k) orow[k] = crow[k];
+    if (pat.mode[0] == 2) orow[pat.var[0]] = (long long)__ldg(A.vs + idx);
+    if (pat.mode[1] == 2) orow[pat.var[1]] = (long long)__ldg(A.vp + idx);
+    if (pat.mode[2] == 2) orow[pat.var[2]] = (long long)__ldg(A.vo + idx);
+  }
+}
+
+// grid (C, W), cluster (C, 1, 1): the cluster owns window w, and its block
+// c the live rows of rank [c L / C, (c + 1) L / C) of the window's L, so
+// the blocks share the work however the live rows lie.  Count (keeping
+// each row with matches in shared memory), offsets through distributed
+// shared memory, scatter, then the window's zero tail, valid and overflow,
+// in one launch.  Every block reaches every cluster barrier.
+template <bool kVec>
+__global__ void __launch_bounds__(kPJThreads)
+probe_join_kernel(const ProbeArgs A) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int w = blockIdx.y, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char pj_smem[];
+  const int fpad = (A.F + 3) & ~3;
+  uint32_t* s_fence = reinterpret_cast<uint32_t*>(pj_smem);
+  unsigned long long* s_mask =
+      reinterpret_cast<unsigned long long*>(s_fence + fpad);
+  int* s_row = reinterpret_cast<int*>(s_mask + kPJEntries);
+  int* s_lo = s_row + kPJEntries;
+  int* s_pre = s_lo + kPJEntries;       // the row's first match in the block
+  int* s_live = s_pre + kPJEntries;     // [kPJSweep]
+  __shared__ __align__(8) unsigned long long s_bar;
+  __shared__ int s_warp[kPJWarps];
+  __shared__ long long s_counts[kPJMaxCluster];   // every block's, pushed
+  __shared__ int s_fans[kPJMaxCluster];           // by the blocks
+
+  // every block has started once this phase completes: the counts pushed
+  // into the others' shared memory below find it there
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // stage the fence table (one bulk copy) while the validity is ranked
+  const bool stage = A.F > 0 && A.M > 0;
+  const uint32_t bar = smem_u32(&s_bar);
+  if (tid == 0 && stage) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(fpad * 4) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(s_fence)), "l"(A.fences), "r"(fpad * 4), "r"(bar)
+        : "memory");
+  }
+  const int L = live_count(A, w, s_warp);     // its scans order the init
+  const int lr0 = (int)((long long)L * c / C);
+  const int lr1 = (int)((long long)L * (c + 1) / C);
+
+  // count: the block's matches so far, the rows kept, and where the rows
+  // stopped fitting (the scatter probes again for the rows from there)
+  long long count = 0, spill_base = -1;
+  int kept_rows = 0;
+  bool fan = false;
+  live_tiles(A, w, lr0, lr1, s_live, s_warp, [&](const int* rows, int n) {
+    RowProbe p{-1, 0, 0ull, false};
+    if (tid < n) {
+      if (stage) mbar_wait(bar, 0);   // the fence table has landed
+      p = probe_row<kVec>(A, w, rows[tid], s_fence);
+    }
+    const int cnt = __popcll(p.mask);
+    int tot;
+    const int ex = block_exclusive_scan<kPJWarps>(
+        (cnt > 0 ? 1 << kPJCntBits : 0) | cnt, s_warp, &tot);
+    const int tile_rows = tot >> kPJCntBits;
+    if (spill_base < 0 && kept_rows + tile_rows > kPJEntries)
+      spill_base = count;
+    if (spill_base < 0) {
+      if (cnt > 0) {
+        const int e = kept_rows + (ex >> kPJCntBits);
+        s_row[e] = p.r;
+        s_lo[e] = p.lo;
+        s_mask[e] = p.mask;
+        s_pre[e] = (int)count + (ex & ((1 << kPJCntBits) - 1));
+      }
+      kept_rows += tile_rows;
+    }
+    count += tot & ((1 << kPJCntBits) - 1);
+    fan = fan || p.fan;
+    return true;
+  });
+  if (stage && tid == 0) mbar_wait(bar, 0);    // no copy left in flight
+  const int block_fan = __syncthreads_or(fan);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < C) {                        // push (count, fan) to block tid
+    *cluster.map_shared_rank(&s_counts[c], tid) = count;
+    *cluster.map_shared_rank(&s_fans[c], tid) = block_fan;
+  }
+  cluster.sync();                       // the pushes have landed; no remote
+  long long base = 0, total = 0;        // access follows, so no barrier at
+  int any_fan = 0;                      // the end
+  for (int r = 0; r < C; ++r) {
+    total += s_counts[r];
+    base += r < c ? s_counts[r] : 0;
+    any_fan |= s_fans[r];
+  }
+
+  // scatter the kept rows; past them, probe again and write the rows whose
+  // offset in the block is from spill_base on
+  for (int e = tid; e < kept_rows; e += kPJThreads)
+    write_matches(A, w, s_row[e], s_lo[e], s_mask[e], base + s_pre[e]);
+  if (spill_base >= 0) {
+    long long run = 0;
+    live_tiles(A, w, lr0, lr1, s_live, s_warp, [&](const int* rows, int n) {
+      RowProbe p{-1, 0, 0ull, false};
+      if (tid < n) p = probe_row<kVec>(A, w, rows[tid], s_fence);
+      const int cnt = __popcll(p.mask);
+      int tot;
+      const long long off =
+          run + block_exclusive_scan<kPJWarps>(cnt, s_warp, &tot);
+      if (cnt > 0 && off >= spill_base)
+        write_matches(A, w, p.r, p.lo, p.mask, base + off);
+      run += tot;
+      return base + run < A.out_cap;
+    });
+  }
+
+  // the window's valid flags, and its zero tail as 16-byte stores over the
+  // tail's flat int64 words, striped over the cluster
+  const long long kept = min(total, (long long)A.out_cap);
+  const long long stride = (long long)C * kPJThreads;
+  const long long first = (long long)c * kPJThreads + tid;
+  for (long long k = first; k < A.out_cap; k += stride)
+    A.valid[(size_t)w * A.out_cap + k] = k < kept;
+  long long* wrows = A.rows + (size_t)w * A.out_cap * A.nv;
+  const long long z0 = kept * A.nv, z1 = (long long)A.out_cap * A.nv;
+  const long long za = min(z1, z0 + (long long)(
+      (reinterpret_cast<uintptr_t>(wrows + z0) & 15u) != 0));
+  const long long pairs = (z1 - za) >> 1;
+  uint4* zv = reinterpret_cast<uint4*>(wrows + za);
+  for (long long i = first; i < pairs; i += stride)
+    zv[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (first == 0 && za > z0) wrows[z0] = 0;      // the word before them
+  if (first == 1 && za + 2 * pairs < z1) wrows[z1 - 1] = 0;   // and after
+  if (c == 0 && tid == 0)
+    A.overflow[w] = A.bovf[w] || total > A.out_cap || any_fan;
 }
 
 constexpr int kMMThreads = 256;
@@ -656,33 +966,84 @@ int scan_join_launch(int phase, const void* cols, const void* bvalid, int W,
   return (int)cudaGetLastError();
 }
 
-int probe_join_launch(int phase, const void* cols, const void* bvalid, int W,
-                      int M, int nv, const void* vs, const void* vp,
-                      const void* vo, const void* keys, int N, int s_mode,
+int probe_join_fence_limit() { return kPJMaxFences; }
+
+// One launch: grid (C, W) of kPJThreads-thread blocks, cluster (C, 1, 1),
+// C = ceil(M / kPJThreads) up to kPJMaxCluster.  Writes rows [W, out_cap,
+// nv] (int64), valid [W, out_cap] and overflow [W] entirely: the caller
+// allocates them without filling.
+int probe_join_launch(const void* cols, const void* bvalid, const void* bovf,
+                      int W, int M, int nv, const void* vs, const void* vp,
+                      const void* vo, const void* keys, int N,
+                      const void* fences, int F, int shift, int s_mode,
                       unsigned s_cst, int s_var, int p_mode, unsigned p_cst,
                       int p_var, int o_mode, unsigned o_cst, int o_var,
-                      int anchor, int k_max, void* counts, void* fan,
-                      void* range, const void* offsets, void* out,
-                      int out_cap, void* stream) {
-  if (W == 0 || M == 0) return 0;
-  const Pattern pat = make_pattern(s_mode, s_cst, s_var, p_mode, p_cst, p_var,
-                                   o_mode, o_cst, o_var, 0, 0, 0);
-  const dim3 block(128);
-  const dim3 grid((M + 127) / 128, W);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (phase == 0) {
-    probe_join_kernel<false><<<grid, block, 0, st>>>(
-        (const uint32_t*)cols, (const uint8_t*)bvalid, M, nv,
-        (const uint32_t*)vs, (const uint32_t*)vp, (const uint32_t*)vo,
-        (const uint32_t*)keys, N, pat, anchor, p_cst, k_max, (int*)counts,
-        (int*)fan, (int*)range, nullptr, nullptr, out_cap);
-  } else {
-    probe_join_kernel<true><<<grid, block, 0, st>>>(
-        (const uint32_t*)cols, (const uint8_t*)bvalid, M, nv,
-        (const uint32_t*)vs, (const uint32_t*)vp, (const uint32_t*)vo,
-        (const uint32_t*)keys, N, pat, anchor, p_cst, k_max, nullptr, nullptr,
-        (int*)range, (const long long*)offsets, (uint32_t*)out, out_cap);
+                      int anchor, int k_max, void* rows, void* valid,
+                      void* overflow, int out_cap, void* stream) {
+  if (W == 0) return 0;
+  if (W > 65535 || F > kPJMaxFences || k_max < 1 || k_max > 64 ||
+      (N > 0 && (long long)F << shift < N))
+    return (int)cudaErrorInvalidValue;
+  const int fpad = (F + 3) & ~3;
+  const int C = max(1, min(kPJMaxCluster, (M + kPJThreads - 1) / kPJThreads));
+  const size_t tail = (size_t)kPJEntries * (8 + 3 * 4) + kPJSweep * 4;
+  // the function's attribute, once per device
+  static unsigned ready = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32 || !(ready >> dev & 1u)) {
+    void (*fns[2])(const ProbeArgs) = {probe_join_kernel<true>,
+                                        probe_join_kernel<false>};
+    for (int i = 0; i < 2; ++i) {
+      err = cudaFuncSetAttribute(fns[i],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)(kPJMaxFences * 4 + tail));
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (dev < 32) ready |= 1u << dev;
   }
+  ProbeArgs a;
+  a.cols = (const long long*)cols;
+  a.bvalid = (const uint8_t*)bvalid;
+  a.bovf = (const uint8_t*)bovf;
+  a.M = M;
+  a.nv = nv;
+  a.vs = (const uint32_t*)vs;
+  a.vp = (const uint32_t*)vp;
+  a.vo = (const uint32_t*)vo;
+  a.keys = (const uint32_t*)keys;
+  a.N = N;
+  a.fences = (const uint32_t*)fences;
+  a.F = F;
+  a.shift = shift;
+  a.pat = make_pattern(s_mode, s_cst, s_var, p_mode, p_cst, p_var, o_mode,
+                       o_cst, o_var, 0, 0, 0);
+  a.anchor = anchor;
+  a.p_const = p_cst;
+  a.k_max = k_max;
+  a.rows = (long long*)rows;
+  a.valid = (uint8_t*)valid;
+  a.overflow = (uint8_t*)overflow;
+  a.out_cap = out_cap;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, W);
+  cfg.blockDim = dim3(kPJThreads);
+  cfg.dynamicSmemBytes = (size_t)fpad * 4 + tail;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // 16-byte loads of the keys where they are aligned and the fences fall
+  // on multiples of 4
+  const bool vec = ((uintptr_t)keys & 15u) == 0 && shift >= 2 && N >= 4;
+  err = cudaLaunchKernelEx(
+      &cfg, vec ? probe_join_kernel<true> : probe_join_kernel<false>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,9 @@ PyTorch twin for CPU tensors.
   compacted, variable-extended :class:`Bindings` straight from the KB.
 * :func:`probe_compact` / :func:`probe_compact_torch` — the fused probe
   join: composite-key binary search, bounded ``k_max`` gather, exact
-  re-check and compaction.
+  re-check and compaction.  On the card it is one kernel launch that
+  writes the :class:`Bindings` whole (rows, valid, overflow), with no
+  other device op in the call.
 * :func:`match_matrix` / :func:`match_matrix_torch` — the unfused scan
   join's bool ``[W, M, N]`` candidate matrix, which the caller compacts.
 
@@ -57,11 +59,11 @@ def probe_compact(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
     if not bind.cols.is_cuda:
         return probe_compact_torch(bind, kb, pat, out_cap, k_max)
     keys, (vs, vp, vo), _, anchor_is_s = probe_view(kb.words, pat)
-    rows, counts, fan = kernel.probe_compact_cuda(
-        bind.cols, bind.valid, vs, vp, vo, keys, pat, anchor_is_s, out_cap,
-        k_max)
-    fan_ovf = torch.any((fan > 0) & bind.valid, dim=1)
-    return _finish(rows, counts, out_cap, fan_ovf | bind.overflow)
+    f = kb.fences
+    return Bindings(*kernel.probe_compact_cuda(
+        bind.cols, bind.valid, bind.overflow, vs, vp, vo, keys,
+        f.ps if anchor_is_s else f.po, f.shift, pat, anchor_is_s,
+        out_cap, k_max))
 
 
 def match_matrix(bind: Bindings, kb: KnowledgeBase,

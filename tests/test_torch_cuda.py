@@ -19,6 +19,9 @@ outputs as the attention kernels'.
 import contextlib
 import copy
 import dataclasses
+import json
+import subprocess
+import sys
 from unittest import mock
 
 import os
@@ -35,6 +38,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.closure import kernel as p_cl_kernel
 from repro_torch.kernels.closure import ops as p_cl_ops
 from repro_torch.kernels.closure import ref as p_cl_ref
+from repro_torch.kernels.hash_join import kernel as p_hj_kernel
 from repro_torch.kernels.hash_join import ops as p_hj_ops
 from repro_torch.kernels.decode_attention import ops as p_da_ops
 from repro_torch.kernels.decode_attention import ref as p_da_ref
@@ -43,6 +47,8 @@ from repro_torch.kernels.flash_attention import ref as p_fa_ref
 from repro_torch.kernels.ssd import kernel as p_ssd_kernel
 from repro_torch.kernels.ssd import ops as p_ssd_ops
 from repro_torch.kernels.ssd import ref as p_ssd_ref
+
+import probe_edge_worlds as pew     # tests/ helper, beside this file
 
 BASE = 5000
 PATTERNS = {
@@ -317,6 +323,168 @@ def test_closure_ops_on_the_card_match_the_cpu(card):
         _same(got, want)
     assert torch.equal(p_cl_ops.transitive_closure(adj, device=card).cpu(),
                        p_cl_ops.transitive_closure(adj))
+
+
+PROBE_EDGES = {e.tag: e for e in pew.probe_edge_worlds()}
+
+
+_ONE_CALL = r"""
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+{setup}
+fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def _kernels_of_one_call(setup):
+    """The device kernels that one ``fn()`` (defined by ``setup``) puts on
+    the profiler, by name, profiled in a process of its own: on the card, a
+    profiler session early in this long test process has left the later
+    ones in it (test_decode_attention_is_one_kernel_launch's) recording no
+    device event at all."""
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    res = subprocess.run([sys.executable, "-c", _ONE_CALL.format(setup=setup)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _edge_world(e):
+    r = e.kb_rows
+    kb = pkb.build_kb(r[:, 0], r[:, 1], r[:, 2], e.capacity)
+    bind = interop.bindings_from_arrays(e.cols, e.valid, e.overflow)
+    pat = pew.pattern(e.pattern, Slot, CompiledPattern)
+    return bind, kb, pat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(PROBE_EDGES))
+def test_probe_join_kernel_edge_worlds(card, tag):
+    """The probe join's edge worlds (the CPU tests hold the twin to the
+    reference on the same worlds), byte for byte against the twin; at M = 0
+    against the contract (zero rows, no valid slot, the bindings'
+    overflow), as the twin has no row to gather from there."""
+    e = PROBE_EDGES[tag]
+    bind, kb, pat = _edge_world(e)
+    before = _cuda.LAUNCHES["probe_compact"]
+    got = p_hj_ops.probe_compact(_to(bind, card), kb.to(card), pat,
+                                 e.out_cap, e.k_max)
+    assert _cuda.LAUNCHES["probe_compact"] == before + 1
+    if e.cols.shape[1]:
+        want = p_hj_ops.probe_compact_torch(bind, kb, pat, e.out_cap, e.k_max)
+    else:
+        w, _, nv = e.cols.shape
+        want = Bindings(torch.zeros((w, e.out_cap, nv), dtype=torch.int64),
+                        torch.zeros((w, e.out_cap), dtype=torch.bool),
+                        torch.from_numpy(e.overflow))
+    _same(got, want)
+
+
+@pytest.mark.gpu
+def test_probe_join_without_windows(card):
+    """W = 0: empty outputs of the right shapes and no launch."""
+    e = PROBE_EDGES["M=0"]
+    bind, kb, pat = _edge_world(e)
+    none = _to(Bindings(torch.zeros((0, 5, 3), dtype=torch.int64),
+                        torch.zeros((0, 5), dtype=torch.bool),
+                        torch.zeros((0,), dtype=torch.bool)), card)
+    before = _cuda.LAUNCHES["probe_compact"]
+    got = p_hj_ops.probe_compact(none, kb.to(card), pat, 64, 8)
+    assert _cuda.LAUNCHES["probe_compact"] == before
+    assert [tuple(t.shape) for t in got] == [(0, 64, 3), (0, 64), (0,)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 2, 6, 8, 10])
+def test_probe_join_kernel_takes_any_fence_stride(card, shift):
+    """Fence tables other than the KB's (every 2^shift-th key): a stride
+    below the 64-key segment, and strides whose segment is halved in device
+    memory first, all give the twin's bytes."""
+    bind, kb = _world(m=700, n=5000, spread=400)
+    pat = PATTERNS["bound_const_free"]
+    want = p_hj_ops.probe_compact_torch(bind, kb, pat, 3000, 8)
+    words = kb.to(card).words
+    keys = words.key_ps
+    fences = keys[::1 << shift]
+    fences = torch.cat([fences, fences.new_full(((-len(fences)) % 4,), -1)])
+    b = _to(bind, card)
+    before = _cuda.LAUNCHES["probe_compact"]
+    got = p_hj_kernel.probe_compact_cuda(
+        b.cols, b.valid, b.overflow, words.s_ps, words.p_ps, words.o_ps, keys,
+        fences, shift, pat, True, 3000, 8)
+    assert _cuda.LAUNCHES["probe_compact"] == before + 1
+    _same(got, want)
+
+
+@pytest.mark.gpu
+def test_probe_join_is_one_kernel_launch(card):
+    """One call at a 4096-row shape is one device kernel: no fill, copy,
+    cast or scan around it."""
+    names = _kernels_of_one_call("""
+import probe_edge_worlds as pew
+from repro_torch import interop
+from repro_torch.core import kb as pkb
+from repro_torch.core.pattern import CompiledPattern, Slot
+from repro_torch.kernels.hash_join import ops
+e = {w.tag: w for w in pew.probe_edge_worlds()}[
+    "live rows only in the window's last 512 rows"]
+r = e.kb_rows
+kb = pkb.build_kb(r[:, 0], r[:, 1], r[:, 2], e.capacity).to("cuda")
+b = interop.bindings_from_arrays(e.cols, e.valid, e.overflow, device="cuda")
+pat = pew.pattern(e.pattern, Slot, CompiledPattern)
+fn = lambda: ops.probe_compact(b, kb, pat, e.out_cap, e.k_max)
+""")
+    assert len(names) == 1 and "probe_join_kernel" in names[0], names
+
+
+def _reach_cases(n):
+    rng = np.random.default_rng(n)
+    reach = np.minimum((rng.random((n, n)) < 3.0 / n) + np.eye(n), 1)
+    reach = torch.from_numpy(reach.astype(np.float32))
+    return {"column %d" % (n // 3): reach[:, n // 3],
+            "zeros": torch.zeros(n), "ones": torch.ones(n)}, reach
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 512, 700, 1024, 1100])
+def test_descendants_kernel_matches_plain_bytes(card, n):
+    """Sizes ragged against the cluster's 32-row words, root columns of
+    reach (passed as a strided view), of zeros and of ones, and out_cap
+    both past and below the count; ids past the count are zero."""
+    roots, reach = _reach_cases(n)
+    r = reach.to(card)
+    for tag, col in roots.items():
+        col_card = r[:, n // 3] if tag.startswith("column") else col.to(card)
+        assert tag.startswith("column") == (col_card.stride(0) == n)
+        for cap in (n + 3, 17):
+            before = _cuda.LAUNCHES["descendants"]
+            got = p_cl_kernel.descendants_cuda(r, col_card, cap)
+            assert _cuda.LAUNCHES["descendants"] == before + 1
+            want = p_cl_ref.descendants_step_ref(reach, col, cap)
+            _same(got, want)
+
+
+@pytest.mark.gpu
+def test_descendants_is_one_kernel_launch(card):
+    """One call (a strided root column) is one device kernel: no fill or
+    copy."""
+    names = _kernels_of_one_call("""
+import numpy as np
+from repro_torch.kernels.closure import ops
+rng = np.random.default_rng(512)
+reach = np.minimum((rng.random((512, 512)) < 3.0 / 512) + np.eye(512), 1)
+r = torch.from_numpy(reach.astype(np.float32)).cuda()
+fn = lambda: ops.descendants_step(r, r[:, 170], 512)
+""")
+    assert len(names) == 1 and "descendants_kernel" in names[0], names
 
 
 def _session_world():

@@ -92,6 +92,33 @@ def test_decode_attention_is_one_kernel():
     assert "static unsigned ready" in launcher
 
 
+@pytest.mark.parametrize("source,launcher,kernel", [
+    ("hash_join.cu", "int probe_join_launch(", "probe_join_kernel"),
+    ("closure.cu", "int descendants_launch(", "descendants_kernel")])
+def test_probe_join_and_descendants_are_one_cluster_launch(source, launcher,
+                                                           kernel):
+    """Each launcher makes one launch, of its own kernel, as a thread-block
+    cluster (the blocks of a window, or of the matrix, meet through
+    distributed shared memory)."""
+    text = _source(source)
+    body = _body(text, launcher)
+    assert body.count("<<<") + body.count("cudaLaunchKernelEx(") == 1
+    assert "cudaLaunchAttributeClusterDimension" in body
+    assert kernel in body
+    kbody = _body(text, kernel + "(")
+    assert "cluster.sync()" in kbody and "map_shared_rank" in kbody
+
+
+def test_the_probe_join_searches_once():
+    """No upper-bound search: the fan-out flag and the candidates come from
+    the keys after the lower bound, which starts from the fence table."""
+    text = _source("hash_join.cu")
+    assert "upper_bound" not in text
+    kernel = _body(text, "probe_join_kernel(")
+    assert "cp.async.bulk" in kernel          # the fence table, staged
+    assert "<= q" not in text and "<=q" not in text
+
+
 @pytest.mark.parametrize("kernel", ["ssd_chunk_state_wgmma_kernel",
                                     "ssd_output_wgmma_kernel"])
 def test_bf16_ssd_products_run_on_the_tensor_cores(kernel):

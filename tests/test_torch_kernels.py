@@ -6,7 +6,10 @@
   interpret mode, as the reference's own tests run it;
 * the edge cases: past ``out_cap``, fan-out past ``k_max``, an empty
   binding table, sizes that are not tile multiples, duplicate keys,
-  composite-key collisions and repeated variables.
+  composite-key collisions and repeated variables;
+* the probe join's edge worlds (``probe_edge_worlds.py``, which the card
+  tests and ``chip_smoke.py`` hold the CUDA kernel to) and the descendants
+  step at the card tests' sizes, against the reference.
 
 The CUDA kernels against their plain versions are in ``test_torch_cuda.py``.
 """
@@ -33,6 +36,8 @@ from repro_torch.kernels.closure import ref as p_cl_ref
 from repro_torch.kernels.hash_join import kernel as p_hj_kernel
 from repro_torch.kernels.hash_join import ops as p_hj_ops
 from repro_torch.kernels.hash_join import ref as p_hj_ref
+
+import probe_edge_worlds as pew     # tests/ helper (on sys.path via conftest)
 
 BASE = 5000
 PATTERNS = {
@@ -284,3 +289,69 @@ def test_pattern_args_encode_modes_and_repeats():
     args, eq = p_hj_kernel.pattern_args(
         CompiledPattern(Slot.const_(0xFFFFFFFF), Slot.const_(2), Slot.bound(4)))
     assert args[:3] == [0, 0xFFFFFFFF, -1] and eq == [0, 0, 0]
+
+
+# the worlds with binding rows: at M = 0 neither the twin nor the reference
+# has a row to gather from (the card test holds the kernel to the contract)
+PROBE_EDGES = {e.tag: e for e in pew.probe_edge_worlds() if e.cols.shape[1]}
+
+
+@pytest.fixture(scope="module")
+def probe_edges():
+    """Every probe edge world on both sides: the port's KB and batched
+    bindings, and the reference's KB holding the same arrays (built from
+    the port's, so no JAX program is compiled per KB size)."""
+    built = {}
+    for tag, e in PROBE_EDGES.items():
+        r = e.kb_rows
+        port_kb = pkb.build_kb(r[:, 0], r[:, 1], r[:, 2], e.capacity)
+        ref_kb = rkb.KnowledgeBase(**{
+            f: jnp.asarray(getattr(port_kb, f).numpy().astype(
+                bool if f == "valid" else np.uint32))
+            for f in rkb.KnowledgeBase._fields})
+        port_bind = interop.bindings_from_arrays(e.cols, e.valid, e.overflow)
+        built[tag] = ref_kb, port_bind, port_kb
+    return built
+
+
+@pytest.mark.parametrize("tag", sorted(PROBE_EDGES))
+def test_probe_edge_worlds_twin_matches_reference(probe_edges, tag):
+    """The plain twin against the reference's fused jnp probe (jitted once
+    per world, vmapped over its windows) on every probe edge world."""
+    import jax
+
+    e = PROBE_EDGES[tag]
+    ref_kb, port_bind, port_kb = probe_edges[tag]
+    twin = p_hj_ops.probe_compact_torch(
+        port_bind, port_kb, pew.pattern(e.pattern, Slot, CompiledPattern),
+        e.out_cap, e.k_max)
+    w, _, nv = e.cols.shape
+    assert twin.cols.shape == (w, e.out_cap, nv)
+    pat = pew.pattern(e.pattern, rpat.Slot, rpat.CompiledPattern)
+    ref = jax.jit(jax.vmap(
+        lambda c, v, o: r_hj_ops.probe_compact_jnp(
+            rpat.Bindings(c, v, o), ref_kb, pat, e.out_cap, e.k_max)))(
+        jnp.asarray(e.cols), jnp.asarray(e.valid), jnp.asarray(e.overflow))
+    for i in range(w):
+        _assert_window((ref.cols[i], ref.valid[i], ref.overflow[i]), twin, i)
+
+
+def test_descendants_step_plain_matches_reference():
+    """The plain step on ``R = min(adj + I, 1)`` and a column view of it is
+    the reference's one-squaring descendants oracle, at the card tests'
+    most ragged size (1100 rows: 35 words over a cluster of 8 blocks)."""
+    n = 1100
+    adj = _hierarchy(n=n, seed=n)
+    reach = torch.clamp_max(torch.from_numpy(adj) + torch.eye(n), 1.0)
+    import jax
+
+    cap = 40
+    oracle = jax.jit(r_cl_ref.descendants_ref, static_argnums=(2, 3))
+    counts = []
+    for root in (0, 7, n // 2, n - 1):
+        ids, count = p_cl_ref.descendants_step_ref(reach, reach[:, root], cap)
+        r_ids, r_count = oracle(jnp.asarray(adj), root, 1, cap)
+        np.testing.assert_array_equal(np.asarray(r_ids), ids.numpy())
+        assert int(r_count) == int(count)
+        counts.append(int(count))
+    assert min(counts) < cap < max(counts)      # both sides of out_cap
