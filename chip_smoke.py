@@ -47,25 +47,33 @@ Phases (each prints its lines; any failure exits non-zero):
    bound and, where one exists, one PyTorch library call computing the
    same function.
 3. **The main path at full scale**: the paper's queries (Q15, Q16, CQuery1,
-   artist_classes) registered through ``Session`` in ``monolithic`` and
-   ``single_program`` mode under ``kb_method`` scan, probe and auto, over a
-   ~0.86 M-triple KB and ``CHUNKS`` stream chunks of 1000-triple tumbling
-   windows.  ``monolithic`` must equal ``single_program`` byte for byte
-   with zero overflow, and the GPU run must equal a CPU run of the port
-   (plain versions) on all its chunks.  Each configuration runs one
-   warm-up chunk, then the chunks ``REPEATS`` times (each pass must give
-   the same bytes); chunks/s is the median pass, with the spread, beside
-   the configuration's peak device memory.
+   artist_classes) registered through ``Session`` in ``monolithic``,
+   ``single_program`` and ``pipelined`` mode under ``kb_method`` scan,
+   probe and auto, over a ~0.86 M-triple KB and ``CHUNKS`` stream chunks
+   of 1000-triple tumbling windows.  The three modes must give the same
+   bytes with zero overflow; each line names the sink the DAG modes run
+   (``split``, ``split-delta`` or ``augmented``); every pipelined edge must
+   have held two chunks or more at once (``depth_hw``) and popped every
+   push; the four DSCEP kernels must launch in each mode's runs.  The GPU
+   run of ``monolithic`` and ``single_program`` must equal a CPU run of the
+   port (plain versions) on all its chunks; ``pipelined`` is held to
+   ``single_program`` on the card, so it gets no CPU run of its own.  Each
+   configuration runs one warm-up chunk, then the chunks ``REPEATS`` times
+   (each pass must give the same bytes); chunks/s is the median pass, with
+   the spread, beside the configuration's peak device memory.
 4. **Where the time goes**: a ``torch.profiler`` window over two chunks of
-   CQuery1 (monolithic scan, monolithic auto, single_program auto): device
-   time by kernel and by PyTorch operator, and the device's idle share.
+   CQuery1 (monolithic scan, monolithic auto, single_program auto,
+   pipelined auto): device time by kernel and by PyTorch operator, and the
+   device's idle share.
 5. **Sliding windows and incremental evaluation**, on the same world: Q15,
    Q16 and CQuery1 at ``RANGE 1000 STEP 250``, artist_classes at its own
    ``RANGE 256 STEP 64`` (``window_from_query``), both modes, ``auto``
-   with and without incremental evaluation and ``scan`` with it.
-   Incremental must equal recompute, monolithic single_program, and GPU
-   the CPU (one chunk per query) byte for byte, with zero overflow and no
-   triple dropped by the slide packing.
+   with and without incremental evaluation and ``scan`` with it, and
+   ``pipelined`` under ``auto`` incremental (the delta split sink; CQuery1
+   keeps the augmented window).  Incremental must equal recompute,
+   monolithic single_program and pipelined, and GPU the CPU (one chunk per
+   query) byte for byte, with zero overflow, no triple dropped by the
+   slide packing, and the pipelined channel gates of phase 3.
 6. **The unfused scan join**: the four queries in both modes under
    ``kb_method="scan", fuse_compaction=False`` (the match-matrix kernel),
    tumbling, full KB; byte for byte the fused run of phase 3.
@@ -189,6 +197,10 @@ ATT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
+# phase 3 also runs the pipelined runtime (phase 5 under auto incremental)
+MAIN_MODES = MODES + ("pipelined",)
+DSCEP_KERNELS = ("join_compact", "probe_compact", "closure_step",
+                 "descendants")
 METHODS = ("scan", "probe", "auto")
 
 # the __global__ function each kernel wrapper launches (profiler names)
@@ -996,7 +1008,24 @@ def run_session(vocab, kb, chunks, text, cfg, repeats=1):
             "plan_launches": plan_launches, "run_launches": run_launches,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "geometry": (reg.config.window_capacity,
-                         reg.config.window_step)}
+                         reg.config.window_step),
+            "sink": getattr(reg.runtime, "sink_kind", "-"),
+            "channels": reg.channel_stats()}
+
+
+def check_channels(res, what):
+    """A pipelined run's edges: every push popped, nothing dropped, and two
+    chunks or more in flight on every edge."""
+    chans = res["channels"]
+    if not chans:
+        fail("no channel statistics for %s" % what)
+    for edge, st in chans.items():
+        if (st["depth_hw"] < 2 or st["pushes"] != st["pops"]
+                or st["overflows"] or st["size"]):
+            fail("channel %s of %s: %s" % (edge, what, st))
+    return " ".join("%s depth_hw=%d pushes=%d" % (
+        edge.split("->")[0], st["depth_hw"], st["pushes"])
+        for edge, st in chans.items())
 
 
 def rate_text(res) -> str:
@@ -1042,31 +1071,46 @@ def phase_main(vocab, kbd, chunks, smi):
         % (" ".join("%s=%d" % kv for kv in CAPS.items()), MAX_WINDOWS,
            len(chunks), REPEATS))
     results = {}
+    by_mode = {mode: {k: 0 for k in _cuda.LAUNCHES} for mode in MAIN_MODES}
     _cuda.reset_launches()
     for q in QUERIES:
         for method in METHODS:
-            for mode in MODES:
+            for mode in MAIN_MODES:
+                before = dict(_cuda.LAUNCHES)
                 res = run_session(vocab, kbd.kb, gpu_chunks, texts[q],
                                   exec_config(mode, method, "cuda"), REPEATS)
+                for k, v in _launch_delta(before).items():
+                    by_mode[mode][k] += v
                 outs, ovf = res["outs"], res["overflow"]
                 results[(q, mode, method)] = outs
-                log("  %-14s %-14s %-5s plan %.3f s, %s, %d output triples, "
-                    "overflow %s, launches plan {%s} pass {%s} [%s]"
-                    % (q, mode, method, res["plan_s"], rate_text(res),
-                       n_triples(outs), ovf, _short(res["plan_launches"]),
+                log("  %-14s %-14s %-5s sink %-11s plan %.3f s, %s, %d "
+                    "output triples, overflow %s, launches plan {%s} pass "
+                    "{%s} [%s]"
+                    % (q, mode, method, res["sink"], res["plan_s"],
+                       rate_text(res), n_triples(outs), ovf,
+                       _short(res["plan_launches"]),
                        _short(res["run_launches"]), smi))
                 if any(ovf.values()):
                     fail("overflow in %s %s %s: %s" % (q, mode, method, ovf))
                 if n_triples(outs) == 0:
                     fail("empty output stream for %s %s %s" % (q, mode, method))
-            if not same_outputs(results[(q, "monolithic", method)],
-                                results[(q, "single_program", method)]):
-                fail("monolithic != single_program for %s %s" % (q, method))
-            log("  %-14s %-5s monolithic == single_program byte for byte"
-                % (q, method))
-    launches = path_launches(
-        "phase 3 (tumbling main path)",
-        ("join_compact", "probe_compact", "closure_step", "descendants"), smi)
+                if mode == "pipelined":
+                    log("    channels: %s" % check_channels(
+                        res, "%s %s" % (q, method)))
+            for mode in MAIN_MODES[1:]:
+                if not same_outputs(results[(q, "monolithic", method)],
+                                    results[(q, mode, method)]):
+                    fail("monolithic != %s for %s %s" % (mode, q, method))
+            log("  %-14s %-5s monolithic == single_program == pipelined "
+                "byte for byte" % (q, method))
+    launches = path_launches("phase 3 (tumbling main path)", DSCEP_KERNELS,
+                             smi)
+    for mode, counts in by_mode.items():
+        log("  launches in %s runs: %s" % (mode, _short(counts)))
+        for k in DSCEP_KERNELS:
+            if counts[k] <= 0:
+                fail("kernel %s never launched in phase 3's %s runs"
+                     % (k, mode))
 
     # host-side window packing of one merged chunk (host clock, synced)
     merged = [merge_streams([c]) for c in gpu_chunks]
@@ -1138,33 +1182,38 @@ def phase_sliding(vocab, kbd, rows, smi):
     _cuda.reset_launches()
     for q in QUERIES:
         for method, incremental in SLIDE_CONFIGS:
-            for mode in MODES:
+            # the pipelined runtime under auto incremental: the delta split
+            # sink, or CQuery1's augmented fallback (its OPTIONAL)
+            modes = MODES + (("pipelined",) if (method, incremental)
+                             == ("auto", True) else ())
+            for mode in modes:
                 cfg = slide_config(q, mode, method, incremental, "cuda")
                 res = run_session(vocab, kbd.kb, gpu_chunks, texts[q], cfg,
                                   REPEATS)
                 outs, ovf = res["outs"], res["overflow"]
                 results[(q, mode, method, incremental)] = outs
-                log("  %-14s %-14s %-5s %-11s RANGE %d STEP %d: %s, %d "
-                    "output triples, overflow %s [%s]"
+                log("  %-14s %-14s %-5s %-11s RANGE %d STEP %d: sink %s, "
+                    "%s, %d output triples, overflow %s [%s]"
                     % (q, mode, method,
                        "incremental" if incremental else "recompute",
-                       *res["geometry"], rate_text(res),
+                       *res["geometry"], res["sink"], rate_text(res),
                        n_triples(outs), ovf, smi))
                 if any(ovf.values()):
                     fail("overflow in %s %s %s incremental=%s: %s"
                          % (q, mode, method, incremental, ovf))
                 if n_triples(outs) == 0:
                     fail("empty output stream for %s %s %s" % (q, mode, method))
+                if mode == "pipelined":
+                    log("    channels: %s" % check_channels(
+                        res, "%s sliding" % q))
         ref = results[(q, "monolithic", "auto", False)]
         for key, outs in results.items():
             if key[0] == q and not same_outputs(outs, ref):
                 fail("%s %s %s incremental=%s != monolithic auto recompute"
                      % key)
         log("  %-14s incremental == recompute, scan == auto, monolithic == "
-            "single_program byte for byte" % q)
-    launches = path_launches(
-        "phase 5 (sliding windows)",
-        ("join_compact", "probe_compact", "closure_step", "descendants"), smi)
+            "single_program == pipelined byte for byte" % q)
+    launches = path_launches("phase 5 (sliding windows)", DSCEP_KERNELS, smi)
 
     kb_cpu = kbd.kb.to("cpu")
     for q in QUERIES:
@@ -1224,7 +1273,8 @@ def phase_profile(vocab, kbd, chunks, smi):
     gpu_chunks = [c.to("cuda") for c in chunks[:3]]
     for q, mode, method in (("cquery1", "monolithic", "scan"),
                             ("cquery1", "monolithic", "auto"),
-                            ("cquery1", "single_program", "auto")):
+                            ("cquery1", "single_program", "auto"),
+                            ("cquery1", "pipelined", "auto")):
         reg = Session(exec_config(mode, method, "cuda"), vocab=vocab,
                       kb=kbd.kb).register(texts[q])
         reg.run(gpu_chunks[:1])

@@ -16,7 +16,7 @@ import torch
 
 from . import algebra
 from .kb import KnowledgeBase
-from .pattern import Bindings, CompiledPattern, universe_bindings
+from .pattern import Bindings, CompiledPattern, compact_rows, universe_bindings
 from .rdf import ID_DTYPE, TripleBatch
 from .window import SlideView, Windows
 
@@ -84,9 +84,30 @@ class ProjectStep:
     keep: Tuple[int, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class BindingJoin:
+    """Join a pre-joined upstream binding *table* into the state.
+
+    The split aggregation sink (``planner.split_agg_plan``) replaces the
+    binding-graph decode scans (one ScanJoin per published variable, each
+    over the whole augmented window) with one natural join against the
+    upstream operator's already-projected table of result rows.
+    ``cols[j]`` is the sink-plan column the table's j-th column binds;
+    ``shared`` are the columns joined on (recomputed by the rewriter from
+    the bound-before set, as for any ScanJoin).  ``replace=True`` marks the
+    plan's very first step, where ``universe ⋈ T == T`` and the outer
+    product is skipped.
+    """
+
+    source: str
+    cols: Tuple[int, ...]
+    shared: Tuple[int, ...]
+    replace: bool = False
+
+
 Step = Union[
     ScanJoin, KBJoin, FilterNumStep, FilterBoolStep, FilterInStep,
-    OptionalSteps, UnionSteps, DistinctStep, ProjectStep,
+    OptionalSteps, UnionSteps, DistinctStep, ProjectStep, BindingJoin,
 ]
 
 
@@ -113,6 +134,13 @@ class Plan:
 
 Env = Dict[str, torch.Tensor]
 
+# Upstream binding tables for the split aggregation sink: operator name ->
+# ``(cols, valid)``.  A window table is ``[W, rows, k]`` / ``[W, rows]``
+# (one column per published variable); a delta table is chunk-level,
+# ``[rows, k + 2]`` / ``[rows]`` (the two span columns appended).  Only
+# BindingJoin steps read these.
+Tables = Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
+
 
 def plan_out_vars(plan: Plan) -> Tuple[int, ...]:
     """Columns the CONSTRUCT templates reference (the output signature)."""
@@ -121,8 +149,47 @@ def plan_out_vars(plan: Plan) -> Tuple[int, ...]:
     }))
 
 
+def _binding_table(step: BindingJoin, tables: Tables, width: int,
+                   num_span: int = 0) -> Bindings:
+    """Scatter an upstream table into a ``width``-column relation.
+
+    ``num_span`` > 0 (the delta path) also maps the table's trailing span
+    columns onto the state's span columns at ``width - num_span``.  A
+    chunk-level table becomes one relation (``W = 1``).
+    """
+    assert tables is not None and step.source in tables, (
+        "BindingJoin on %r but no table supplied: split-sink runners must "
+        "pass the upstream tables" % step.source)
+    tcols, tvalid = tables[step.source]
+    if tcols.dim() == 2:
+        tcols, tvalid = tcols[None], tvalid[None]
+    k = len(step.cols)
+    out = tcols.new_zeros(tcols.shape[:2] + (width,))
+    # published variables are distinct, so their columns are too
+    out[..., list(step.cols)] = tcols[..., :k]
+    if num_span:
+        out[..., width - num_span:] = tcols[..., k:k + num_span]
+    # upstream clipping is reported as that operator's own overflow flag
+    return Bindings(out, tvalid, torch.zeros_like(tvalid[:, 0]))
+
+
+def _join_table(step: BindingJoin, cur: Bindings, b: Bindings,
+                plan: Plan) -> Bindings:
+    if step.replace:
+        # first step: universe ⋈ T is T itself (shared is empty, the
+        # max-merge with all-PAD is the identity); clip to bind_cap
+        # without the [1, rows] outer product
+        rows, valid, ovf = compact_rows(b.cols, b.valid, plan.bind_cap)
+        return Bindings(rows, valid, ovf | cur.overflow)
+    return algebra.join(cur, b, step.shared, plan.bind_cap)
+
+
 def _apply(step: Step, cur: Bindings, window: TripleBatch,
-           kb: Optional[KnowledgeBase], env: Env, plan: Plan) -> Bindings:
+           kb: Optional[KnowledgeBase], env: Env, plan: Plan,
+           tables: Tables = None) -> Bindings:
+    if isinstance(step, BindingJoin):
+        return _join_table(step, cur,
+                           _binding_table(step, tables, plan.num_vars), plan)
     if isinstance(step, ScanJoin):
         b = algebra.scan_pattern(window, step.pat, plan.num_vars, plan.scan_cap)
         return algebra.join(cur, b, step.shared, plan.bind_cap)
@@ -141,15 +208,15 @@ def _apply(step: Step, cur: Bindings, window: TripleBatch,
         sub = universe_bindings(cur.num_windows, plan.bind_cap, plan.num_vars,
                                 cur.cols.device)
         for s in step.sub:
-            sub = _apply(s, sub, window, kb, env, plan)
+            sub = _apply(s, sub, window, kb, env, plan, tables)
         return algebra.optional_join(cur, sub, step.shared, plan.bind_cap)
     if isinstance(step, UnionSteps):
         left = cur
         for s in step.left:
-            left = _apply(s, left, window, kb, env, plan)
+            left = _apply(s, left, window, kb, env, plan, tables)
         right = cur
         for s in step.right:
-            right = _apply(s, right, window, kb, env, plan)
+            right = _apply(s, right, window, kb, env, plan, tables)
         return algebra.union(left, right, plan.bind_cap)
     if isinstance(step, DistinctStep):
         return algebra.distinct(cur)
@@ -160,43 +227,48 @@ def _apply(step: Step, cur: Bindings, window: TripleBatch,
 
 def run_steps(plan: Plan, cur: Bindings, steps: Sequence[Step],
               window: TripleBatch, kb: Optional[KnowledgeBase],
-              env: Env) -> Bindings:
+              env: Env, tables: Tables = None) -> Bindings:
     """Apply a step subsequence."""
     for step in steps:
-        cur = _apply(step, cur, window, kb, env, plan)
+        cur = _apply(step, cur, window, kb, env, plan, tables)
     return cur
+
+
+def _emit_relation(plan: Plan, cur: Bindings) -> Bindings:
+    """Project onto the CONSTRUCT variables, dedup and canonically order:
+    the relation a plan publishes (as triples, or as its table)."""
+    out_vars = plan_out_vars(plan)
+    # significance by variable *name*: column numbering is plan-local
+    sig = tuple(sorted(out_vars, key=lambda c: plan.var_names[c]))
+    return algebra.canonical_order(
+        algebra.distinct(algebra.project(cur, out_vars)), sig)
 
 
 def finalize_bindings(plan: Plan, cur: Bindings, ts: torch.Tensor,
                       graph_base: torch.Tensor) -> Tuple[TripleBatch, torch.Tensor]:
     """Project onto the CONSTRUCT variables, dedup, canonically order,
     construct.  Returns (output triples [W, out_cap], overflow [W])."""
-    out_vars = plan_out_vars(plan)
-    emit = cur
-    if out_vars:
-        # significance by variable *name*: column numbering is plan-local
-        sig = tuple(sorted(out_vars, key=lambda c: plan.var_names[c]))
-        emit = algebra.canonical_order(
-            algebra.distinct(algebra.project(cur, out_vars)), sig)
+    emit = _emit_relation(plan, cur) if plan_out_vars(plan) else cur
     out, c_ovf = algebra.construct(emit, plan.templates, ts, plan.out_cap,
                                    graph_base)
     return out, cur.overflow | emit.overflow | c_ovf
 
 
 def run_plan(plan: Plan, window: TripleBatch, kb: Optional[KnowledgeBase],
-             env: Env, graph_base: torch.Tensor):
+             env: Env, graph_base: torch.Tensor, tables: Tables = None):
     """Execute ``plan`` on a ``[W, C]`` window batch.  Returns
     (constructed stream [W, out_cap], final bindings, overflow [W])."""
     w = window.valid.shape[0]
     cur = universe_bindings(w, plan.bind_cap, plan.num_vars, window.valid.device)
-    cur = run_steps(plan, cur, plan.steps, window, kb, env)
+    cur = run_steps(plan, cur, plan.steps, window, kb, env, tables)
     ts = torch.where(window.valid, window.ts, torch.zeros_like(window.ts)).amax(-1)
     out, ovf = finalize_bindings(plan, cur, ts, graph_base)
     return out, cur, ovf
 
 
 def run_plan_windows(plan: Plan, windows: Windows,
-                     kb: Optional[KnowledgeBase], env: Env):
+                     kb: Optional[KnowledgeBase], env: Env,
+                     tables: Tables = None):
     """Run the plan over every window of the batch at once.
 
     Returns a ``[W, out_cap]``-leaf TripleBatch plus a ``[W]`` overflow
@@ -205,7 +277,7 @@ def run_plan_windows(plan: Plan, windows: Windows,
     w = windows.num_windows
     dev = windows.window_valid.device
     graph_base = torch.arange(w, dtype=ID_DTYPE, device=dev) * plan.bind_cap
-    out, _, ovf = run_plan(plan, windows.triples, kb, env, graph_base)
+    out, _, ovf = run_plan(plan, windows.triples, kb, env, graph_base, tables)
     return out._replace(valid=out.valid & windows.window_valid[:, None]), ovf
 
 
@@ -215,7 +287,7 @@ def run_plan_windows(plan: Plan, windows: Windows,
 
 def _apply_delta(step: Step, cur: Bindings, view: SlideView,
                  kb: Optional[KnowledgeBase], env: Env, plan: Plan,
-                 max_span: int) -> Bindings:
+                 max_span: int, tables: Tables = None) -> Bindings:
     """One plan step over one span-tagged table (``num_vars + 2`` columns).
 
     Every step here is monotone (``planner.plan_supports_delta`` gates
@@ -223,7 +295,15 @@ def _apply_delta(step: Step, cur: Bindings, view: SlideView,
     slide, joins merge spans through the elementwise-max merge, and a
     retract after every stream join drops rows whose span no longer fits a
     window.  KB joins and filters treat the span columns as opaque words.
+    BindingJoin is monotone too: an upstream table row carries the span of
+    its contributing slides, the max-merge unions spans across the join,
+    and a combined derivation fits a window iff every constituent span
+    does.
     """
+    if isinstance(step, BindingJoin):
+        b = _binding_table(step, tables, plan.num_vars + 2, num_span=2)
+        return algebra.delta_retract(_join_table(step, cur, b, plan),
+                                     plan.num_vars, max_span)
     if isinstance(step, ScanJoin):
         b = algebra.scan_pattern_delta(view.stream, step.pat, plan.num_vars,
                                        plan.scan_cap, view.slide_of_row)
@@ -232,10 +312,12 @@ def _apply_delta(step: Step, cur: Bindings, view: SlideView,
     if isinstance(step, UnionSteps):
         left = cur
         for s in step.left:
-            left = _apply_delta(s, left, view, kb, env, plan, max_span)
+            left = _apply_delta(s, left, view, kb, env, plan, max_span,
+                                tables)
         right = cur
         for s in step.right:
-            right = _apply_delta(s, right, view, kb, env, plan, max_span)
+            right = _apply_delta(s, right, view, kb, env, plan, max_span,
+                                 tables)
         return algebra.union(left, right, plan.bind_cap)
     if isinstance(step, (KBJoin, FilterNumStep, FilterBoolStep, FilterInStep)):
         return _apply(step, cur, view.stream, kb, env, plan)
@@ -244,8 +326,21 @@ def _apply_delta(step: Step, cur: Bindings, view: SlideView,
         "this plan to per-window recompute" % (step,))
 
 
+def _delta_chain(plan: Plan, view: SlideView, slides_per_window: int,
+                 kb: Optional[KnowledgeBase], env: Env,
+                 tables: Tables = None) -> Bindings:
+    """The plan's step chain once over the chunk: one span-tagged table."""
+    cur = algebra.delta_universe(plan.bind_cap, plan.num_vars,
+                                 view.slide_valid.device)
+    for step in plan.steps:
+        cur = _apply_delta(step, cur, view, kb, env, plan,
+                           slides_per_window - 1, tables)
+    return cur
+
+
 def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
-                    max_windows: int, kb: Optional[KnowledgeBase], env: Env):
+                    max_windows: int, kb: Optional[KnowledgeBase], env: Env,
+                    tables: Tables = None):
     """Incremental execution: one chunk-level pass, per-window selection.
 
     The step chain runs ONCE over the merged stream (``W = 1``) with slide
@@ -263,9 +358,7 @@ def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
     """
     r = slides_per_window
     dev = view.slide_valid.device
-    cur = algebra.delta_universe(plan.bind_cap, plan.num_vars, dev)
-    for step in plan.steps:
-        cur = _apply_delta(step, cur, view, kb, env, plan, r - 1)
+    cur = _delta_chain(plan, view, r, kb, env, tables)
     out_vars = plan_out_vars(plan)
     assert out_vars, (
         "plan %s has no output variables: plan_supports_delta should have "
@@ -286,3 +379,109 @@ def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
                                    wid.to(ID_DTYPE) * plan.bind_cap)
     out = out._replace(valid=out.valid & w_valid[:, None])
     return out, chunk_ovf | emit.overflow | c_ovf
+
+
+# --------------------------------------------------------------------------
+# split aggregation sink: upstream table producers + sink runners
+# --------------------------------------------------------------------------
+#
+# The binding-graph protocol (planner.decompose) ships upstream results as
+# RDF triples, one graph event per result row, and the aggregation sink
+# re-parses them: one decode ScanJoin per published variable over the
+# augmented window, then the natural joins that stitch each row back
+# together.  The split sink skips that round trip: each upstream publishes
+# its final binding TABLE (joined, projected, deduplicated and canonically
+# ordered), and the rewritten sink plan (planner.split_agg_plan) joins the
+# tables directly through BindingJoin.  Output bytes are unchanged: the
+# published stream is a function of the binding *set* (finalize_bindings
+# dedups and canonically orders), and the table rows are exactly the rows
+# the decode scans would have rebuilt.
+
+def _clip_table(emit: Bindings, pub_cols: Tuple[int, ...], rows_cap: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather ``pub_cols`` from the leading ``rows_cap`` rows of ``emit``.
+
+    ``emit`` keeps its valid rows as a prefix (distinct and canonical_order
+    guarantee that), so the prefix clip drops exactly the rows the triple
+    publication would have clipped at ``out_cap``.  Returns ``(cols [W,
+    rows_cap, k], valid [W, rows_cap], clipped [W])``.
+    """
+    take = min(rows_cap, emit.capacity)
+    cols = emit.cols[:, :take, list(pub_cols)]
+    valid = emit.valid[:, :take]
+    clipped = (emit.valid[:, take:].any(-1) if take < emit.capacity
+               else torch.zeros_like(emit.overflow))
+    if take < rows_cap:
+        pad = rows_cap - take
+        cols = torch.cat([cols, cols.new_zeros(
+            (cols.shape[0], pad, len(pub_cols)))], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((valid.shape[0], pad))],
+                          dim=1)
+    return cols, valid, clipped
+
+
+def run_plan_window_tables(plan: Plan, windows: Windows,
+                           pub_cols: Tuple[int, ...], rows_cap: int,
+                           kb: Optional[KnowledgeBase], env: Env):
+    """Upstream table producer, per window: the operator's whole step
+    chain, then project -> distinct -> canonical_order (the emit relation
+    the triple publication constructs from), clipped to ``rows_cap`` rows.
+
+    Returns ``((cols [W, rows_cap, k], valid [W, rows_cap]), ovf [W])``.
+    """
+    w = windows.num_windows
+    cur = universe_bindings(w, plan.bind_cap, plan.num_vars,
+                            windows.window_valid.device)
+    cur = run_steps(plan, cur, plan.steps, windows.triples, kb, env)
+    emit = _emit_relation(plan, cur)
+    cols, valid, clipped = _clip_table(emit, pub_cols, rows_cap)
+    valid = valid & windows.window_valid[:, None]
+    return (cols, valid), cur.overflow | emit.overflow | clipped
+
+
+def run_plan_slide_tables(plan: Plan, view: SlideView,
+                          pub_cols: Tuple[int, ...], rows_cap: int,
+                          slides_per_window: int,
+                          kb: Optional[KnowledgeBase], env: Env):
+    """Upstream table producer, incremental: one chunk-level delta pass,
+    emitting the span-tagged table (variable columns + the two span
+    columns).  The sink's per-window interval test selects each window's
+    rows, so the table is produced once per chunk, not once per window.
+
+    Returns ``((cols [rows_cap, k + 2], valid [rows_cap]), ovf [])``.
+    """
+    cur = _delta_chain(plan, view, slides_per_window, kb, env)
+    nv = plan.num_vars
+    span = (nv, nv + 1)
+    # dedup over (variables, span): rows equal in both are interchangeable
+    # for every window's interval test, so multiplicity can go here
+    emit = algebra.distinct(
+        algebra.project(cur, tuple(plan_out_vars(plan)) + span))
+    cols, valid, clipped = _clip_table(emit, tuple(pub_cols) + span,
+                                       rows_cap)
+    return (cols[0], valid[0]), (cur.overflow | emit.overflow | clipped)[0]
+
+
+def run_sink_windows(plan: Plan, windows: Windows,
+                     tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                     kb: Optional[KnowledgeBase], env: Env):
+    """Split-sink twin of :func:`run_plan_windows`: the rewritten sink plan
+    over the RAW windows, with the per-window upstream tables (leaves
+    ``[W, rows, k]`` / ``[W, rows]``).  The finalize tail, and so the
+    published bytes, are those of the unsplit path: upstream publication
+    triples carry their window's max timestamp, so the raw window's ts is
+    the augmented one's."""
+    return run_plan_windows(plan, windows, kb, env, tables)
+
+
+def run_sink_slides(plan: Plan, view: SlideView,
+                    tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                    slides_per_window: int, max_windows: int,
+                    kb: Optional[KnowledgeBase], env: Env):
+    """Split-sink twin of :func:`run_plan_slides`: the rewritten sink
+    plan's delta pass over the chunk, joining chunk-level span-tagged
+    upstream tables, then the per-window interval select and finalize.
+    Shares :func:`run_plan_slides` so the set-to-stream tail cannot diverge
+    from the recompute path."""
+    return run_plan_slides(plan, view, slides_per_window, max_windows, kb,
+                           env, tables)

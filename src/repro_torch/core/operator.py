@@ -12,7 +12,10 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .engine import Plan, run_plan_slides, run_plan_windows
+from .engine import (
+    Plan, run_plan_slide_tables, run_plan_slides, run_plan_window_tables,
+    run_plan_windows, run_sink_slides, run_sink_windows,
+)
 from .kb import KnowledgeBase
 from .pattern import compact_rows
 from .planner import plan_supports_delta
@@ -75,6 +78,37 @@ class SCEPOperator:
         windows = windows_from_slides(view, cfg.window_capacity,
                                       cfg.max_windows, cfg.window_step)
         return self.process_windows(windows)
+
+    # -- split-sink surfaces (see the engine's split-sink section) -----------
+    def process_window_tables(self, windows: Windows,
+                              pub_cols: Tuple[int, ...], rows_cap: int):
+        """Table-producing twin of :meth:`process_windows`: the operator's
+        final binding table per window instead of its triple publication,
+        what the split aggregation sink joins directly."""
+        return run_plan_window_tables(self.plan, windows, pub_cols, rows_cap,
+                                      self.kb, self.env)
+
+    def process_slide_tables(self, view: SlideView,
+                             pub_cols: Tuple[int, ...], rows_cap: int):
+        """Incremental table producer: one chunk-level span-tagged table
+        (the plan must be delta-safe; the split-sink builder checks)."""
+        _, r = window_slides(self.config.window_capacity,
+                             self.config.window_step)
+        return run_plan_slide_tables(self.plan, view, pub_cols, rows_cap, r,
+                                     self.kb, self.env)
+
+    def process_sink_windows(self, windows: Windows, tables):
+        """Split-sink step over RAW windows and per-window upstream tables
+        (``self.plan`` is the rewritten plan with BindingJoin steps)."""
+        return run_sink_windows(self.plan, windows, tables, self.kb, self.env)
+
+    def process_sink_slides(self, view: SlideView, tables):
+        """Split-sink step on the delta path: the sink's own chain runs once
+        per chunk over span-tagged upstream tables, finalized per window."""
+        cfg = self.config
+        _, r = window_slides(cfg.window_capacity, cfg.window_step)
+        return run_sink_slides(self.plan, view, tables, r, cfg.max_windows,
+                               self.kb, self.env)
 
     def process(self, chunks: Sequence[TripleBatch]) -> Tuple[TripleBatch, torch.Tensor]:
         """Process one round of input chunks; returns (output chunk, overflow[W])."""

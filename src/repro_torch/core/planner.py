@@ -7,6 +7,8 @@
   KB-touching enrichment chain becomes its own operator; a final aggregation
   operator joins the intermediate streams.
 * ``prune_kb_for``  — the "used KB" extraction per sub-query.
+* ``split_agg_plan`` — the aggregation sink rewritten to join upstream
+  binding tables (the split sink) instead of decoding their triples.
 
 Closure sets (subclass FILTER env, ``p+``/``p*`` path relations) are always
 computed through :mod:`repro_torch.kernels.closure` on the KB's device: the
@@ -27,8 +29,8 @@ import torch
 
 from . import query as Q
 from .engine import (
-    FilterBoolStep, FilterInStep, FilterNumStep, KBJoin, OptionalSteps, Plan,
-    ScanJoin, Step, UnionSteps,
+    BindingJoin, FilterBoolStep, FilterInStep, FilterNumStep, KBJoin,
+    OptionalSteps, Plan, ScanJoin, Step, UnionSteps, plan_out_vars,
 )
 from .kb import KBStats, KnowledgeBase, build_kb, host_rows, prune
 from .pattern import CompiledPattern, Slot, SlotMode
@@ -481,7 +483,9 @@ def plan_supports_delta(plan: Plan) -> bool:
     its stream triples came from and selects each window's rows by an
     interval test, which is sound only when every step is *monotone* (a
     derivation exists in a window iff all its contributing triples do):
-    stream scans, KB joins of any method, filters and UNION.  OPTIONAL is
+    stream scans, KB joins of any method, filters, UNION and BindingJoin
+    (a table row carries the union span of its contributing slides, and
+    the max-merge unions spans across the join).  OPTIONAL is
     non-monotone, and a plan without output variables skips the
     pre-CONSTRUCT distinct, making row multiplicity observable; both fall
     back to per-window recompute.
@@ -492,7 +496,8 @@ def plan_supports_delta(plan: Plan) -> bool:
                 if not (steps_ok(s.left) and steps_ok(s.right)):
                     return False
             elif not isinstance(s, (ScanJoin, KBJoin, FilterNumStep,
-                                    FilterBoolStep, FilterInStep)):
+                                    FilterBoolStep, FilterInStep,
+                                    BindingJoin)):
                 return False
         return True
 
@@ -737,3 +742,174 @@ def decompose(q: Q.Query, vocab: Vocab) -> OperatorDAG:
         var_preds=var_preds,
         row_base=row_base,
     )
+
+
+# --------------------------------------------------------------------------
+# split aggregation sink: rewrite the sink plan to join upstream TABLES
+# --------------------------------------------------------------------------
+
+def split_agg_plan(plan: Plan, dag: OperatorDAG
+                   ) -> Optional[Tuple[Plan, Dict[str, Tuple[str, ...]]]]:
+    """Rewrite the aggregation-sink plan to consume upstream binding tables.
+
+    The decomposed sink re-parses the binding-graph protocol: one decode
+    ScanJoin per published variable, ``(?__row_u, var_pred_v, ?v)`` over
+    the *augmented* window, then natural joins stitch each row back
+    together.  This rewrite replaces each upstream's decode-scan group with
+    ONE :class:`~repro_torch.core.engine.BindingJoin` against that
+    upstream's final binding table, and runs the remaining scans over the
+    RAW window: no augmentation, no decode.
+
+    Semantics are kept exactly:
+
+    * a table row is the variable tuple the decode scans would rebuild for
+      one published row node (row ids are unique per row, so decode joins
+      never mix rows);
+    * ``shared`` tuples are *replayed* over the new step order from the
+      bound-before sets, so every cross-step equality the decode path
+      enforced is enforced here (the max-merge treats non-shared
+      overlapping columns as corruption);
+    * filters stay in place; a BindingJoin binds an upstream's variables at
+      its *first* decode position, never later than the decode chain did.
+
+    Returns ``(rewritten plan, {upstream -> published variable names in
+    table column order})``, or ``None`` when the plan falls outside the
+    equivalent fragment and the caller keeps the augmented-window path:
+
+    * a stream scan (top level or inside OPTIONAL/UNION) with a variable
+      predicate or a predicate in the binding-protocol band: over the
+      augmented window it matches the binding triples themselves;
+    * a decode step after a KBJoin / OPTIONAL / UNION: those keep their
+      compiled bound-mode/shared wiring, valid only when every decode (so
+      every BindingJoin) precedes them;
+    * an upstream with no decode step in the plan, a plan with no output
+      variables (row multiplicity observable), or a Distinct/Project step
+      (not produced for sink plans).
+    """
+    upstreams = [n for n in dag.subqueries if n != dag.final]
+    protocol_preds = set(dag.var_preds.values())
+    if not plan_out_vars(plan):
+        return None
+
+    # map decode ScanJoins to their upstream through the row column
+    row_cols = {}
+    for u in upstreams:
+        row_var = "__row_%s" % u
+        if row_var in plan.var_names:
+            row_cols[plan.var_col(row_var)] = u
+
+    def scan_ok(cp: CompiledPattern) -> bool:
+        # a raw-window scan must match the same rows with and without the
+        # binding-triple augmentation
+        return (cp.p.mode == SlotMode.CONST
+                and int(cp.p.const) not in protocol_preds)
+
+    def group_ok(steps: Sequence[Step]) -> bool:
+        # OPTIONAL/UNION bodies: stream scans pass the raw-window test, KB
+        # joins and filters never read the window, anything else bails
+        for s in steps:
+            if isinstance(s, ScanJoin):
+                if not scan_ok(s.pat):
+                    return False
+            elif isinstance(s, OptionalSteps):
+                if not group_ok(s.sub):
+                    return False
+            elif isinstance(s, UnionSteps):
+                if not (group_ok(s.left) and group_ok(s.right)):
+                    return False
+            elif not isinstance(s, (KBJoin, FilterNumStep, FilterBoolStep,
+                                    FilterInStep)):
+                return False
+        return True
+
+    decode_of: Dict[int, str] = {}              # step index -> upstream
+    tail = False   # seen a KBJoin/OPTIONAL/UNION
+    for i, step in enumerate(plan.steps):
+        if isinstance(step, (FilterNumStep, FilterBoolStep, FilterInStep)):
+            continue
+        if isinstance(step, ScanJoin):
+            cp = step.pat
+            if (cp.s.mode == SlotMode.FREE and cp.s.var in row_cols
+                    and cp.p.mode == SlotMode.CONST
+                    and int(cp.p.const) in protocol_preds
+                    and cp.o.mode == SlotMode.FREE):
+                if tail:
+                    return None
+                decode_of[i] = row_cols[cp.s.var]
+            elif not scan_ok(cp):
+                return None
+        elif isinstance(step, KBJoin):
+            tail = True
+        elif isinstance(step, OptionalSteps):
+            if not group_ok(step.sub):
+                return None
+            tail = True
+        elif isinstance(step, UnionSteps):
+            if not (group_ok(step.left) and group_ok(step.right)):
+                return None
+            tail = True
+        else:
+            return None
+    if set(decode_of.values()) != set(upstreams):
+        return None
+
+    # publication signature per upstream: the CONSTRUCT template order
+    # (anchor first, then the rest), the column order of its table
+    pub: Dict[str, Tuple[str, ...]] = {}
+    for u in upstreams:
+        names = tuple(tpl.o.name for tpl in dag.subqueries[u].query.construct)
+        if any(n not in plan.var_names for n in names):
+            return None
+        pub[u] = names
+
+    # splice: each upstream's first decode step becomes its BindingJoin,
+    # the rest go; then replay the bound set to recompute every shared
+    first_decode: Dict[str, int] = {}
+    for i, u in decode_of.items():
+        first_decode.setdefault(u, i)
+    spliced: List[Step] = []
+    for i, step in enumerate(plan.steps):
+        u = decode_of.get(i)
+        if u is None:
+            spliced.append(step)
+        elif first_decode[u] == i:
+            spliced.append(BindingJoin(
+                source=u, cols=tuple(plan.var_col(n) for n in pub[u]),
+                shared=()))
+
+    def step_vars(s: Step) -> Set[int]:
+        # every column a step can bind (for the bound-set replay)
+        if isinstance(s, BindingJoin):
+            return set(s.cols)
+        if isinstance(s, (ScanJoin, KBJoin)):
+            return {sl.var for sl in (s.pat.s, s.pat.p, s.pat.o)
+                    if sl.mode != SlotMode.CONST}
+        if isinstance(s, OptionalSteps):
+            return set().union(set(), *(step_vars(x) for x in s.sub))
+        if isinstance(s, UnionSteps):
+            return set().union(
+                set(), *(step_vars(x) for x in s.left + s.right))
+        return set()
+
+    bound: Set[int] = set()
+    steps: List[Step] = []
+    for step in spliced:
+        if isinstance(step, BindingJoin):
+            shared = tuple(sorted(set(step.cols) & bound))
+            steps.append(dataclasses.replace(
+                step, shared=shared, replace=not steps and not shared))
+        elif isinstance(step, ScanJoin):
+            free = {sl.var for sl in (step.pat.s, step.pat.p, step.pat.o)
+                    if sl.mode != SlotMode.CONST}
+            steps.append(dataclasses.replace(
+                step, shared=tuple(sorted(free & bound))))
+        else:
+            # KBJoin / OPTIONAL / UNION / filters keep their compiled
+            # wiring: every decode (so every BindingJoin) precedes them, and
+            # the bound sets they were compiled against differ from the
+            # replayed ones only in the __row columns, which no query-level
+            # pattern can reference
+            steps.append(step)
+        bound |= step_vars(step)
+
+    return dataclasses.replace(plan, steps=tuple(steps)), pub

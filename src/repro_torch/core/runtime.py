@@ -1,13 +1,20 @@
 """DSCEP runtimes: the decomposed operator DAG and the monolithic baseline.
 
 * :class:`DSCEPRuntime` — every operator of the decomposed DAG runs on the
-  same window batch; intermediate results stay **window-aligned**: the
-  aggregation operator sees upstream outputs appended to the very window
-  that produced them, which is what makes decomposed and monolithic results
-  identical (paper: "All results are the same").  The aggregator always
-  takes this augmented-window path (the split sink is not ported yet).
+  same window batch, chunk by chunk, and intermediate results stay
+  **window-aligned**, which is what makes decomposed and monolithic results
+  identical (paper: "All results are the same").  Where the sink plan's
+  rewrite applies (:func:`prepare_split_sink`), the upstream operators
+  publish binding *tables* and the aggregation sink joins them directly
+  over the raw windows (the split sink; incremental mode ships chunk-level
+  span-tagged tables).  Otherwise the aggregator sees upstream output
+  triples appended to the very window that produced them (the augmented
+  window) and decodes them.
 * :class:`MonolithicRuntime` — one operator, the whole query, the full KB
   (the paper's baseline).
+
+:class:`~repro_torch.core.pipeline.PipelinedRuntime` runs the same stages
+as independently scheduled steps joined by channels.
 """
 from __future__ import annotations
 
@@ -18,9 +25,10 @@ import torch
 
 from .kb import KnowledgeBase, collect_kb_stats, pad_to
 from .operator import OperatorConfig, SCEPOperator, publish_chunk
+from .engine import Plan
 from .planner import (
-    OperatorDAG, augment_kb_with_closures, compile_query, prepare_env,
-    prune_kb_for,
+    OperatorDAG, augment_kb_with_closures, compile_query,
+    plan_supports_delta, prepare_env, prune_kb_for, split_agg_plan,
 )
 from .rdf import TripleBatch, Vocab
 from .stream import merge_streams
@@ -89,6 +97,94 @@ def build_operators(dag: OperatorDAG, kb: KnowledgeBase,
     return operators
 
 
+# --------------------------------------------------------------------------
+# split aggregation sink (planner.split_agg_plan, the engine's sink runners)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PubSpec:
+    """How one upstream operator publishes its binding table to the sink."""
+
+    vars: Tuple[str, ...]       # published variable names, table column order
+    cols: Tuple[int, ...]       # upstream-plan columns, same order
+    rows_cap: int               # windows-mode table rows (out_cap / templates)
+    slide_rows_cap: int         # delta-mode table rows (the chain's bind_cap)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitSink:
+    """A split aggregation sink: the rewritten plan plus each upstream's
+    table publication.  ``delta=True`` routes the sink through the
+    span-tagged slide path (one sink-chain pass per chunk)."""
+
+    plan: Plan
+    pub: Dict[str, PubSpec]
+    delta: bool
+
+
+def prepare_split_sink(dag: OperatorDAG, operators: Dict[str, SCEPOperator],
+                       config: RuntimeConfig) -> Optional[SplitSink]:
+    """Try to split the aggregation sink of this DAG.
+
+    Returns ``None`` (the caller keeps the augmented-window path) when the
+    plan rewrite is outside the equivalent fragment
+    (:func:`~repro_torch.core.planner.split_agg_plan`), or when incremental
+    mode is asked for but a plan of the DAG cannot run the delta path
+    (mixing per-window tables with a delta sink would need a third table
+    format).
+
+    ``rows_cap`` mirrors the triple path's clipping: an upstream publishes
+    ``templates-per-row * rows`` triples into ``out_cap``, so the decode
+    path sees at most ``out_cap // templates`` complete rows (a clipped
+    partial row decodes to nothing).  The delta table carries the whole
+    chunk-level chain state, which ``bind_cap`` already bounds.
+    """
+    res = split_agg_plan(operators[dag.final].plan, dag)
+    if res is None:
+        return None
+    plan, pub_vars = res
+    delta = False
+    if config.incremental:
+        if not all(plan_supports_delta(operators[u].plan) for u in pub_vars):
+            return None
+        if not plan_supports_delta(plan):
+            return None
+        delta = True
+    pub = {
+        u: PubSpec(
+            vars=names,
+            cols=tuple(operators[u].plan.var_col(v) for v in names),
+            rows_cap=max(1, operators[u].plan.out_cap // max(1, len(names))),
+            slide_rows_cap=operators[u].plan.bind_cap,
+        )
+        for u, names in pub_vars.items()
+    }
+    return SplitSink(plan=plan, pub=pub, delta=delta)
+
+
+def sink_kind(split: Optional[SplitSink]) -> str:
+    """Which sink a DAG runs: ``"split"``, ``"split-delta"`` or
+    ``"augmented"``."""
+    if split is None:
+        return "augmented"
+    return "split-delta" if split.delta else "split"
+
+
+def upstream_tables(split: SplitSink, name: str, op: SCEPOperator, payload,
+                    max_windows: int):
+    """One upstream operator's table for the split sink: per window over
+    ``Windows``, or chunk-level over a ``SlideView`` (delta).  Returns
+    ``(table, overflow [max_windows])``: a delta table's chunk-level flag is
+    broadcast to the per-window convention every overflow consumer
+    expects."""
+    spec = split.pub[name]
+    if split.delta:
+        table, ovf = op.process_slide_tables(payload, spec.cols,
+                                             spec.slide_rows_cap)
+        return table, ovf.expand(max_windows)
+    return op.process_window_tables(payload, spec.cols, spec.rows_cap)
+
+
 def augment_windows(dag: OperatorDAG, windows: Windows,
                     upstream_out: Dict[str, TripleBatch]) -> Windows:
     """Append upstream operator outputs to the very window that produced
@@ -116,6 +212,14 @@ class _OverflowAccumulator:
     def totals(self) -> Dict[str, int]:
         return {n: int(v) for n, v in self._acc.items()}
 
+    def mark(self) -> Dict[str, torch.Tensor]:
+        """The counts now, still on the device (no sync)."""
+        return dict(self._acc)
+
+    def since(self, mark: Dict[str, torch.Tensor]) -> Dict[str, int]:
+        """Counts added after :meth:`mark` (synced when read)."""
+        return {n: int(v - mark[n]) for n, v in self._acc.items()}
+
 
 class DSCEPRuntime:
     """Executes a decomposed query DAG over chunked input streams."""
@@ -126,13 +230,61 @@ class DSCEPRuntime:
         self.config = config if config is not None else RuntimeConfig()
         self.vocab = vocab
         self.operators = build_operators(dag, kb, self.config)
+        # the split sink: upstream operators ship binding tables and the
+        # sink joins them directly (None keeps the augmented-window path).
+        # The sink operator's plan is swapped for the rewritten one, so
+        # introspection reports the plan that runs
+        self._split = prepare_split_sink(dag, self.operators, self.config)
+        if self._split is not None:
+            self.operators[dag.final].plan = self._split.plan
         self._overflow = _OverflowAccumulator(self.operators, kb.device)
+
+    @property
+    def sink_kind(self) -> str:
+        return sink_kind(self._split)
 
     def process_chunk(self, chunk: TripleBatch) -> Tuple[TripleBatch, Dict[str, torch.Tensor]]:
         """Push one stream chunk through the DAG; returns (final output,
         per-operator overflow flags [W])."""
         cfg = self.config
         merged = merge_streams([chunk])
+        if self._split is not None:
+            out_w, overflow = self._chunk_split(merged)
+        else:
+            out_w, overflow = self._chunk_augmented(merged)
+        for name, flags in overflow.items():
+            self._overflow.add(name, flags)
+        return publish_chunk(out_w, cfg.out_stream_cap), overflow
+
+    def _chunk_split(self, merged: TripleBatch):
+        """The split-sink DAG step: upstream operators produce binding
+        tables (per window, or span-tagged per chunk), and the sink joins
+        them through its rewritten plan over the raw windows; no augmented
+        window, no binding-graph decode scans."""
+        cfg = self.config
+        split = self._split
+        final = self.dag.final
+        if split.delta:
+            payload = count_slides(merged, cfg.window_capacity,
+                                   cfg.max_windows, cfg.window_step)
+        else:
+            payload = count_windows(merged, cfg.window_capacity,
+                                    cfg.max_windows, cfg.window_step)
+        overflow: Dict[str, torch.Tensor] = {}
+        tables = {}
+        for name in self.dag.subqueries:
+            if name != final:
+                tables[name], overflow[name] = upstream_tables(
+                    split, name, self.operators[name], payload,
+                    cfg.max_windows)
+        sink = self.operators[final]
+        out_w, overflow[final] = (
+            sink.process_sink_slides(payload, tables) if split.delta
+            else sink.process_sink_windows(payload, tables))
+        return out_w, overflow
+
+    def _chunk_augmented(self, merged: TripleBatch):
+        cfg = self.config
         view = None
         if cfg.incremental:
             # upstreams run delta over the slides; the aggregator still gets
@@ -156,9 +308,7 @@ class DSCEPRuntime:
                 else op.process_windows(windows))
         aug = augment_windows(self.dag, windows, upstream_out)
         out_w, overflow[final] = self.operators[final].process_windows(aug)
-        for name, flags in overflow.items():
-            self._overflow.add(name, flags)
-        return publish_chunk(out_w, cfg.out_stream_cap), overflow
+        return out_w, overflow
 
     def process_stream(self, chunks: Sequence[TripleBatch]
                        ) -> Tuple[List[TripleBatch], Dict[str, int]]:
@@ -171,6 +321,11 @@ class DSCEPRuntime:
 
     def overflow_totals(self) -> Dict[str, int]:
         return self._overflow.totals()
+
+    def channel_stats(self) -> Dict[str, Dict[str, int]]:
+        """No inter-operator channels here: the DAG's edges are plain
+        tensors handed from one stage to the next within a chunk."""
+        return {}
 
 
 class MonolithicRuntime:
@@ -210,3 +365,6 @@ class MonolithicRuntime:
 
     def overflow_totals(self) -> Dict[str, int]:
         return self._overflow.totals()
+
+    def channel_stats(self) -> Dict[str, Dict[str, int]]:
+        return {}

@@ -11,8 +11,10 @@ Entry points run on the card: ``ExecutionConfig.device`` defaults to
 every chunk are moved to that device; pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels on the host.
 
-``monolithic`` and ``single_program`` produce bit-identical output streams,
-and so do sliding windows with and without incremental evaluation.  Knobs
+``monolithic``, ``single_program`` and ``pipelined`` produce bit-identical
+output streams, and so do sliding windows with and without incremental
+evaluation.  ``pipelined`` places the operators on devices (``placement``)
+and keeps up to ``channel_capacity`` chunks in flight between them.  Knobs
 of the reference that this port does not have yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item; none is ignored.
 """
@@ -24,13 +26,15 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import torch
 
 from . import query as Q
+from ..launch.mesh import place_operators
 from .kb import KnowledgeBase
+from .pipeline import PipelinedRuntime
 from .planner import OperatorDAG, decompose
 from .rdf import TripleBatch, Vocab
 from .runtime import DSCEPRuntime, MonolithicRuntime, RuntimeConfig
 from .sparql import ParseInfo, parse_query_info, serialize_query
 
-MODES = ("monolithic", "single_program")
+MODES = ("monolithic", "single_program", "pipelined")
 KB_METHODS = ("scan", "probe", "auto")
 
 
@@ -71,8 +75,14 @@ class ExecutionConfig:
     # measured, not a deployment setting.  The reference defaults to
     # False; both give the same bytes
     fuse_compaction: bool = True
-    mode: str = "single_program"       # monolithic | single_program
+    mode: str = "single_program"       # monolithic | single_program | pipelined
     device: str = "cuda"               # where the KB, chunks and kernels run
+    # pipelined mode: operator -> device.  A strategy name for
+    # launch.mesh.place_operators ("round_robin" or "single", over every
+    # visible card when ``device`` is "cuda", else over ``device`` alone),
+    # an explicit {operator: device} dict, or None (all on ``device``)
+    placement: Union[str, Dict[str, Any], None] = "round_robin"
+    channel_capacity: int = 4          # chunks in flight (pipelined)
 
     # reference knobs still to port: any non-default value raises
     mesh: Optional[Any] = None
@@ -81,8 +91,6 @@ class ExecutionConfig:
     recovery: Any = None
 
     def __post_init__(self):
-        if self.mode == "pipelined":
-            raise _not_ported("mode='pipelined'", "Pipelined runtime")
         if self.mode not in MODES:
             raise ValueError(
                 "unknown mode %r (expected one of %s)" % (self.mode, list(MODES)))
@@ -168,8 +176,20 @@ class RegisteredQuery:
         if self.mode == "monolithic":
             return MonolithicRuntime(self.query, kb, cfg.runtime_config())
         self.dag = decompose(self.query, self.session.vocab)
-        return DSCEPRuntime(self.dag, kb, self.session.vocab,
-                            cfg.runtime_config())
+        if self.mode == "single_program":
+            return DSCEPRuntime(self.dag, kb, self.session.vocab,
+                                cfg.runtime_config())
+        placement = cfg.placement
+        if isinstance(placement, str):
+            dev = self.session.device
+            devices = (None if dev.type == "cuda" and dev.index is None
+                       else [dev])
+            placement = place_operators(list(self.dag.subqueries),
+                                        self.dag.final, devices=devices,
+                                        strategy=placement)
+        return PipelinedRuntime(self.dag, kb, self.session.vocab,
+                                cfg.runtime_config(), placement=placement,
+                                channel_capacity=cfg.channel_capacity)
 
     @property
     def runtime(self):
@@ -207,13 +227,40 @@ class RegisteredQuery:
             [self._on_device(c) for c in chunks])
 
     def stream(self, chunks: Sequence[TripleBatch]) -> Iterator[TripleBatch]:
-        """Yield one output chunk per input chunk."""
-        for c in chunks:
-            yield self._runtime.process_chunk(self._on_device(c))[0]
+        """Yield one output chunk per input chunk, in input order.
+
+        In pipelined mode the schedule keeps ``channel_capacity`` chunks in
+        flight, so outputs trail inputs by the pipeline depth.  The
+        pipelined generator needs an idle runtime, and drains any chunks
+        left in flight when it is closed early, so a later ``run`` or
+        ``stream`` never sees another call's leftovers.
+        """
+        if self.mode != "pipelined":
+            for c in chunks:
+                yield self._runtime.process_chunk(self._on_device(c))[0]
+            return
+        rt = self._runtime
+        rt._require_idle("stream")
+        depth = self.config.channel_capacity
+        try:
+            for c in chunks:
+                if rt._in_flight >= depth:
+                    yield rt.drain()
+                rt.feed(self._on_device(c))
+            while rt._pending_count():
+                yield rt.drain()
+        finally:
+            while rt._pending_count():          # generator closed mid-stream
+                rt.drain()
 
     def overflow_totals(self) -> Dict[str, int]:
         """Lifetime per-operator overflow counts (synced when read)."""
         return self._runtime.overflow_totals()
+
+    def channel_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-edge channel statistics: filled in pipelined mode (the only
+        mode with channels between operators), ``{}`` elsewhere."""
+        return self._runtime.channel_stats()
 
 
 class Session:

@@ -551,6 +551,38 @@ def test_incremental_session_on_the_card_equals_the_cpu(card, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q15", "cquery1"])
+@pytest.mark.parametrize("incremental", [False, True])
+def test_pipelined_on_the_card_equals_single_program(card, q, incremental):
+    """The pipelined runtime on the card (channels in device memory, every
+    operator placed on it) gives single_program's bytes on the card, which
+    the tests above hold to the CPU, with two chunks or more in flight on
+    every edge and the probe join launched by its stages."""
+    from repro_torch.core.session import ExecutionConfig, Session
+
+    vocab, kbd, chunks, texts = _session_world()
+    caps = dict(window_capacity=96, max_windows=4, bind_cap=1024,
+                scan_cap=128, out_cap=1024, intermediate_cap=512,
+                kb_method="auto", incremental=incremental)
+    runs = {}
+    for mode in ("single_program", "pipelined"):
+        reg = Session(ExecutionConfig(mode=mode, **caps), vocab=vocab,
+                      kb=kbd.kb).register(texts[q])
+        _cuda.reset_launches()
+        runs[mode] = reg.run(chunks)
+    (want, want_ovf), (got, ovf) = runs["single_program"], runs["pipelined"]
+    assert _cuda.LAUNCHES["probe_compact"] > 0
+    assert ovf == want_ovf and not any(ovf.values())
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert sum(int(o.valid.sum()) for o in got) > 0
+    stats = reg.channel_stats()
+    assert stats and all(st["depth_hw"] >= 2 and st["pushes"] == st["pops"]
+                         and st["overflows"] == 0 for st in stats.values())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["monolithic", "single_program"])
 def test_unfused_session_on_the_card_equals_the_cpu(card, mode):
     _cuda.reset_launches()

@@ -143,13 +143,6 @@ def test_plan_supports_delta_per_operator(pworld):
             reg = pworld.port_register(q, mode, "auto")
             for name, op in reg.operators.items():
                 ref_plan = ref_reg.operators[name].plan
-                if mode == "single_program" and name == ref_reg.dag.final:
-                    # the port's sink is the reference's compile before the
-                    # split-sink rewrite
-                    ref_plan = rplanner.compile_query(
-                        ref_reg.dag.subqueries[name].query, kb_method="auto",
-                        scan_cap=CAPS["scan_cap"], bind_cap=CAPS["bind_cap"],
-                        out_cap=CAPS["out_cap"])
                 got = pplanner.plan_supports_delta(op.plan)
                 assert got == rplanner.plan_supports_delta(ref_plan), (q, name)
                 expected[(q, mode, name)] = got
@@ -325,5 +318,11 @@ def test_window_from_query_session_equals_reference(pworld, q, mode,
 @pytest.mark.parametrize("q", QUERIES)
 @pytest.mark.parametrize("mode", ["monolithic", "single_program"])
 def test_tumbling_incremental_session_equals_reference(pworld, q, mode):
-    """Incremental evaluation over tumbling windows (one slide a window)."""
-    check_against_reference(pworld, q, mode, "auto", incremental=True)
+    """Incremental evaluation over tumbling windows (one slide a window).
+    single_program takes the delta split sink where the reference does: on
+    every query but CQuery1, whose OPTIONAL keeps the augmented window."""
+    reg, _ = check_against_reference(pworld, q, mode, "auto",
+                                     incremental=True)
+    if mode == "single_program":
+        assert reg.runtime.sink_kind == (
+            "augmented" if q == "cquery1" else "split-delta")

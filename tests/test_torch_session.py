@@ -33,9 +33,9 @@ CAPS = dict(window_capacity=96, max_windows=4, bind_cap=1024, scan_cap=128,
             out_cap=1024, intermediate_cap=512)
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 CASES = ([(q, mode, "auto") for q in QUERIES
-          for mode in ("monolithic", "single_program")]
+          for mode in ("monolithic", "single_program", "pipelined")]
          + [("cquery1", mode, m) for m in ("scan", "probe")
-            for mode in ("monolithic", "single_program")])
+            for mode in ("monolithic", "single_program", "pipelined")])
 
 
 def _texts():
@@ -113,9 +113,12 @@ def check_against_reference(pworld, q, mode, method, expect_output=True,
     """Run ``q`` through the port's and the reference's ``Session`` under
     the same config; the output streams must be the same ``np.uint32``
     bytes, with the same overflow totals, and hold triples unless
-    ``expect_output`` is False.  Returns the port's registration and
-    outputs."""
-    _, ref_outs, ref_ovf, ref_totals = pworld.ref_run(q, mode, method, **kw)
+    ``expect_output`` is False.  The port's ``pipelined`` mode is held to
+    the reference's ``single_program`` run (the reference pins its two
+    modes equal).  Returns the port's registration and outputs."""
+    ref_mode = "single_program" if mode == "pipelined" else mode
+    _, ref_outs, ref_ovf, ref_totals = pworld.ref_run(q, ref_mode, method,
+                                                      **kw)
     reg = pworld.port_register(q, mode, method, **kw)
     outs, overflow = reg.run(pworld.port_chunks())
     assert len(outs) == len(ref_outs)
@@ -173,16 +176,9 @@ def test_compiled_plans_equal_reference(pworld, q, mode):
     assert sorted(reg.operators) == sorted(ref_reg.operators)
     for name, op in reg.operators.items():
         ref_op = ref_reg.operators[name]
+        # in single_program the sink's plan is the split sink's rewrite in
+        # both packages, BindingJoin steps included
         ref_plan = ref_op.plan
-        if mode == "single_program" and name == ref_reg.dag.final:
-            # the reference runs a split sink (its plan rewritten to join
-            # upstream tables); the port keeps the augmented-window sink,
-            # whose plan is the reference's compile before that rewrite
-            sub = ref_reg.dag.subqueries[name]
-            assert not sub.touches_kb
-            ref_plan = rplanner.compile_query(
-                sub.query, kb_method="auto", scan_cap=CAPS["scan_cap"],
-                bind_cap=CAPS["bind_cap"], out_cap=CAPS["out_cap"])
         assert _norm(op.plan) == _norm(ref_plan), name
         assert pplanner.plan_caps(op.plan) == rplanner.plan_caps(ref_plan)
         assert sorted(op.env) == sorted(ref_op.env)
@@ -193,6 +189,10 @@ def test_compiled_plans_equal_reference(pworld, q, mode):
             for f in op.kb._fields:
                 assert _bytes(getattr(op.kb, f)) == _bytes(
                     getattr(ref_op.kb, f)), (name, f)
+    if mode == "single_program":
+        assert reg.runtime.sink_kind == "split"
+        assert any(isinstance(s, pengine.BindingJoin)
+                   for s in reg.operators[reg.dag.final].plan.steps)
     assert reg.text == ref_reg.text
 
 
@@ -207,13 +207,16 @@ def test_stream_generator_matches_run(pworld):
     assert set(ovf) == set(reg.operators)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(mode="pipelined"), dict(mesh=object()), dict(trace=True),
-    dict(faults=object()), dict(recovery=object()),
+@pytest.mark.parametrize("knob,item", [
+    (dict(mesh=object()), "Sharded paths"),
+    (dict(trace=True), "Observability"),
+    (dict(faults=object()), "Faults and recovery"),
+    (dict(recovery=object()), "Faults and recovery"),
 ])
-def test_unported_knobs_raise_naming_their_roadmap_item(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecutionConfig(device="cpu", **knob)
+def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
+    for mode in ("single_program", "pipelined"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
+            ExecutionConfig(device="cpu", mode=mode, **knob)
 
 
 def test_device_cuda_without_a_card_raises():
