@@ -33,30 +33,33 @@ Structure:
 Every stage enqueues on the current stream of its device, so on one card
 the stages run in the order the driver dispatches them.  Results are the
 bytes of :class:`DSCEPRuntime` and
-:class:`~repro_torch.core.runtime.MonolithicRuntime`: the stages run the
-same window, engine and publish computations, only cut at the channels.
+:class:`~repro_torch.core.runtime.MonolithicRuntime`: the stages are the
+same functions (``runtime.source_stage``, ``upstream_stage``,
+``sink_stage``), only cut at the channels.  Each stage runs with its
+operator's device current, because the kernels' launchers take the device
+from the CUDA runtime (``kernels/_cuda.stream_of`` raises otherwise).
 """
 from __future__ import annotations
 
+import contextlib
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
 from . import channel
 from .channel import Channel, tree_leaves, tree_map
+from ..launch.mesh import place_operators
 from .kb import KnowledgeBase
 from .operator import publish_chunk
 from .planner import OperatorDAG
 from .rdf import ID_DTYPE, TripleBatch, Vocab
 from .runtime import (
-    RuntimeConfig, _OverflowAccumulator, augment_windows, build_operators,
-    prepare_split_sink, sink_kind, upstream_tables,
+    RuntimeConfig, _OverflowAccumulator, build_dag, sink_kind, sink_stage,
+    source_stage, upstream_stage,
 )
 from .stream import merge_streams
-from .window import (
-    SlideView, Windows, count_slides, window_slides, windows_from_slides,
-)
+from .window import Windows, window_slides
 
 
 class PipelineStalledError(RuntimeError):
@@ -80,6 +83,14 @@ def _to(tree, device):
     return tree_map(lambda t: t.to(device, non_blocking=True), tree)
 
 
+def _current(device: torch.device):
+    """Make ``device`` the current CUDA device for a stage's launches (a
+    no-op for the CPU)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _if_valid(x: torch.Tensor, ok: bool) -> torch.Tensor:
     """``x`` masked by a pop's validity, as a tensor of its own (a popped
     payload is a view of its channel slot)."""
@@ -91,8 +102,8 @@ class PipelinedRuntime:
 
     Takes :class:`~repro_torch.core.runtime.DSCEPRuntime`'s arguments plus:
 
-    * ``placement`` — optional ``{operator_name: device}`` (see
-      :func:`repro_torch.launch.mesh.place_operators`); ``None`` leaves
+    * ``placement`` — ``{operator_name: device}`` (see
+      :func:`repro_torch.launch.mesh.place_operators`); ``None`` places
       every stage on the KB's device (still pipelined, transport a no-op);
     * ``channel_capacity`` — slots per edge channel, at least 2 for the
       double-buffered schedule; it bounds the chunks in flight.
@@ -115,35 +126,29 @@ class PipelinedRuntime:
         self.vocab = vocab
         self.config = cfg = config if config is not None else RuntimeConfig()
         self.channel_capacity = channel_capacity
-        self.operators = build_operators(dag, kb, cfg)
+        # the split sink: upstream stages publish binding tables and the
+        # sink joins them directly (None keeps the augmented path)
+        self.operators, self._split = build_dag(dag, kb, cfg)
         self.final = dag.final
         # upstream operators in DAG insertion order, as DSCEPRuntime runs them
         self.upstream: List[str] = [n for n in dag.subqueries
                                     if n != self.final]
-        self.placement = ({n: torch.device(d) for n, d in placement.items()}
-                          if placement else None)
-        if self.placement is not None:
-            missing = set(self.operators) - set(self.placement)
-            if missing:
-                raise ValueError("placement missing operators: %s"
-                                 % sorted(missing))
-            # each operator's KB slice and env move to its device, so its
-            # step runs there (a new KB builds its words and fences there)
-            for name, op in self.operators.items():
-                dev = self.placement[name]
-                if op.kb is not None:
-                    op.kb = op.kb.to(dev)
-                op.env = {k: v.to(dev) for k, v in op.env.items()}
-        self._sink_dev = (self.placement[self.final] if self.placement
-                          else kb.device)
-
-        # the split sink: upstream stages publish binding tables and the
-        # sink joins them directly (None keeps the augmented path).  The
-        # sink operator's plan is swapped so introspection reports the plan
-        # that runs
-        self._split = prepare_split_sink(dag, self.operators, cfg)
-        if self._split is not None:
-            self.operators[self.final].plan = self._split.plan
+        if placement is None:
+            placement = place_operators(list(self.operators), self.final,
+                                        devices=[kb.device], strategy="single")
+        self.placement = {n: torch.device(d) for n, d in placement.items()}
+        missing = set(self.operators) - set(self.placement)
+        if missing:
+            raise ValueError("placement missing operators: %s"
+                             % sorted(missing))
+        # each operator's KB slice and env move to its device, so its step
+        # runs there (a new KB builds its words and fences there)
+        for name, op in self.operators.items():
+            dev = self.placement[name]
+            if op.kb is not None and op.kb.device != dev:
+                op.kb = op.kb.to(dev)
+            op.env = {k: v.to(dev) for k, v in op.env.items()}
+        self._sink_dev = self.placement[self.final]
 
         # per-edge channels on the consumer's device.  The physical window
         # width is R * slide_capacity (the window capacity when tumbling)
@@ -201,9 +206,6 @@ class PipelinedRuntime:
     def sink_kind(self) -> str:
         return sink_kind(self._split)
 
-    def _device(self, name: str):
-        return self.placement[name] if self.placement else self._sink_dev
-
     def _edges(self) -> List[str]:
         return ["source->%s" % self.final] + [
             "%s->%s" % (n, self.final) for n in self.upstream]
@@ -218,56 +220,21 @@ class PipelinedRuntime:
         e = self._edge_stats[edge]
         return e["pushes"] - e["pops"] < self.channel_capacity
 
-    # -- stages -----------------------------------------------------------
-    def _windows_impl(self, chunk: TripleBatch):
-        """Source stage, the Aggregator's front end (merge + window).
-
-        Returns ``(sink payload, operator payload)``: the materialized
-        windows feed the aggregator's window channel, while the upstream
-        steps consume the windows or, incrementally, the slide view.  With
-        a delta split sink both sides take the view and no window is
-        materialized.
-        """
-        cfg = self.config
-        merged = merge_streams([chunk])
-        view = count_slides(merged, cfg.window_capacity, cfg.max_windows,
-                            cfg.window_step)
-        if self._split is not None and self._split.delta:
-            return view, view
-        windows = windows_from_slides(view, cfg.window_capacity,
-                                      cfg.max_windows, cfg.window_step)
-        return windows, (view if cfg.incremental else windows)
-
-    def _op_impl(self, name: str, payload):
-        """Enrichment operator step over this tick's windows (or slide
-        view): its table under the split sink, else its publication."""
-        op = self.operators[name]
-        if self._split is not None:
-            return upstream_tables(self._split, name, op, payload,
-                                   self.config.max_windows)
-        if isinstance(payload, SlideView):
-            return op.process_slides(payload)
-        return op.process_windows(payload)
-
+    # -- the sink stage -----------------------------------------------------
     def _sink_impl(self) -> Tuple[TripleBatch, Dict[str, torch.Tensor]]:
         """Aggregation operator step: pop every inbound edge, join,
         publish.  An empty pop's outputs and overflow flags are masked out
         by its validity."""
         self._agg_win_ch, sink_payload, has = channel.pop(self._agg_win_ch)
-        final_op = self.operators[self.final]
         overflow: Dict[str, torch.Tensor] = {}
         inputs: Dict[str, Any] = {}
         for name in self.upstream:
             self._out_ch[name], (pub, ovf), h = channel.pop(self._out_ch[name])
             inputs[name] = pub
             overflow[name] = _if_valid(ovf, h)
-        if self._split is None:
-            aug = augment_windows(self.dag, sink_payload, inputs)
-            out_w, ovf_f = final_op.process_windows(aug)
-        elif self._split.delta:
-            out_w, ovf_f = final_op.process_sink_slides(sink_payload, inputs)
-        else:
-            out_w, ovf_f = final_op.process_sink_windows(sink_payload, inputs)
+        out_w, ovf_f = sink_stage(self.dag, self._split,
+                                  self.operators[self.final], sink_payload,
+                                  inputs)
         overflow[self.final] = _if_valid(ovf_f, has)
         out = publish_chunk(out_w, self.config.out_stream_cap)
         if not has:
@@ -303,7 +270,9 @@ class PipelinedRuntime:
         src_edge = "source->%s" % self.final
         while self._src_q and self._edge_room(src_edge):
             chunk = self._src_q.popleft()
-            sink_payload, op_payload = self._windows_impl(chunk)
+            with _current(self._sink_dev):
+                sink_payload, op_payload = source_stage(
+                    merge_streams([chunk]), self.config, self._split)
             self._ensure_win_channel(sink_payload)
             self._push("source", src_edge, sink_payload)
             for name in self.upstream:
@@ -313,9 +282,14 @@ class PipelinedRuntime:
         for name in self.upstream:
             edge = "%s->%s" % (name, self.final)
             q = self._disp_q[name]
+            dev = self.placement[name]
             while q and self._edge_room(edge):
-                payload = _to(q.popleft(), self._device(name))
-                self._push(name, edge, self._op_impl(name, payload))
+                with _current(dev):
+                    pub = upstream_stage(self._split, name,
+                                         self.operators[name],
+                                         _to(q.popleft(), dev),
+                                         self.config.max_windows)
+                self._push(name, edge, pub)
 
     def feed(self, chunk: TripleBatch) -> None:
         """Accept one chunk and dispatch every stage with room.  Never
@@ -343,7 +317,8 @@ class PipelinedRuntime:
         # source stage: the sink never pops an unmatched window
         assert all(not q for q in self._disp_q.values()), (
             "operator dispatch queues lag the window edge")
-        out, overflow = self._sink_impl()
+        with _current(self._sink_dev):
+            out, overflow = self._sink_impl()
         for edge in self._edges():
             self._edge_stats[edge]["pops"] += 1
         for name, flags in overflow.items():
@@ -380,30 +355,43 @@ class PipelinedRuntime:
         out = self.drain()
         return out, dict(self._last_overflow)
 
-    def process_stream(self, chunks: Sequence[TripleBatch]
-                       ) -> Tuple[List[TripleBatch], Dict[str, int]]:
-        """Software-pipelined stream execution.
+    def iter_stream(self, chunks: Iterable[TripleBatch]
+                    ) -> Iterator[TripleBatch]:
+        """Software-pipelined stream execution: yields one published chunk
+        per input chunk, in input order.
 
         ``channel_capacity`` chunks stay in flight: the sink consumes chunk
         *t* only after the producer stages of the chunks after it were
-        dispatched.  Returns ``(outputs, overflow)`` like
-        ``DSCEPRuntime.process_stream``: the counts cover exactly this
-        call's chunks, read once at its end.
+        dispatched, so outputs trail inputs by the pipeline depth.  Needs an
+        idle runtime; a generator closed early drains the chunks it left in
+        flight, so a later call never sees its leftovers.
         """
+        self._require_idle("iter_stream")
+        try:
+            for c in chunks:
+                if self._in_flight >= self.channel_capacity:
+                    yield self.drain()
+                self.feed(c)
+            while self._pending_count():
+                pending = self._pending_count()
+                yield self.drain()
+                if self._pending_count() >= pending:
+                    raise PipelineStalledError(
+                        "drain() retired no chunk (%d still pending); %s"
+                        % (pending, self._stall_detail()))
+        except GeneratorExit:           # closed early
+            while self._pending_count():
+                self.drain()
+            raise
+
+    def process_stream(self, chunks: Iterable[TripleBatch]
+                       ) -> Tuple[List[TripleBatch], Dict[str, int]]:
+        """:meth:`iter_stream` to its end.  Returns ``(outputs, overflow)``
+        like ``DSCEPRuntime.process_stream``: the counts cover exactly this
+        call's chunks, read once at its end."""
         self._require_idle("process_stream")
         before = self._overflow.mark()
-        outs: List[TripleBatch] = []
-        for c in chunks:
-            if self._in_flight >= self.channel_capacity:
-                outs.append(self.drain())
-            self.feed(c)
-        while self._pending_count():
-            pending = self._pending_count()
-            outs.append(self.drain())
-            if self._pending_count() >= pending:
-                raise PipelineStalledError(
-                    "drain() retired no chunk (%d still pending); %s"
-                    % (pending, self._stall_detail()))
+        outs = list(self.iter_stream(chunks))
         return outs, self._overflow.since(before)
 
     # -- observability ----------------------------------------------------

@@ -19,7 +19,7 @@ as independently scheduled steps joined by channels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,7 +32,9 @@ from .planner import (
 )
 from .rdf import TripleBatch, Vocab
 from .stream import merge_streams
-from .window import Windows, count_slides, count_windows, windows_from_slides
+from .window import (
+    SlideView, Windows, count_slides, count_windows, windows_from_slides,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,13 +172,57 @@ def sink_kind(split: Optional[SplitSink]) -> str:
     return "split-delta" if split.delta else "split"
 
 
-def upstream_tables(split: SplitSink, name: str, op: SCEPOperator, payload,
-                    max_windows: int):
-    """One upstream operator's table for the split sink: per window over
-    ``Windows``, or chunk-level over a ``SlideView`` (delta).  Returns
-    ``(table, overflow [max_windows])``: a delta table's chunk-level flag is
-    broadcast to the per-window convention every overflow consumer
-    expects."""
+def build_dag(dag: OperatorDAG, kb: KnowledgeBase, config: RuntimeConfig
+              ) -> Tuple[Dict[str, SCEPOperator], Optional[SplitSink]]:
+    """The operators of a decomposed DAG and its split sink, if the rewrite
+    applies.  The sink operator's plan is swapped for the rewritten one, so
+    introspection reports the plan that runs."""
+    operators = build_operators(dag, kb, config)
+    split = prepare_split_sink(dag, operators, config)
+    if split is not None:
+        operators[dag.final].plan = split.plan
+    return operators, split
+
+
+# --------------------------------------------------------------------------
+# the DAG's stages, shared by DSCEPRuntime (one chunk at a time) and
+# PipelinedRuntime (stages scheduled apart, joined by channels)
+# --------------------------------------------------------------------------
+
+def source_stage(merged: TripleBatch, config: RuntimeConfig,
+                 split: Optional[SplitSink]):
+    """The aggregator's front end: window one merged chunk.
+
+    Returns ``(sink payload, operator payload)``.  The sink takes the
+    windows, and the upstream operators the windows or, incrementally, the
+    slide view.  With a delta split sink both sides take the view and no
+    window is materialized.
+    """
+    cfg = config
+    if cfg.incremental:
+        view = count_slides(merged, cfg.window_capacity, cfg.max_windows,
+                            cfg.window_step)
+        if split is not None and split.delta:
+            return view, view
+        return windows_from_slides(view, cfg.window_capacity,
+                                   cfg.max_windows, cfg.window_step), view
+    windows = count_windows(merged, cfg.window_capacity, cfg.max_windows,
+                            cfg.window_step)
+    return windows, windows
+
+
+def upstream_stage(split: Optional[SplitSink], name: str, op: SCEPOperator,
+                   payload, max_windows: int):
+    """One enrichment operator's step over a chunk's windows (or slide
+    view).  Returns ``(publication, overflow [max_windows])``: its binding
+    table under the split sink (per window, or chunk-level over a
+    ``SlideView`` when delta), else its output triples.  A delta table's
+    chunk-level flag is broadcast to the per-window convention every
+    overflow consumer expects."""
+    if split is None:
+        if isinstance(payload, SlideView):
+            return op.process_slides(payload)
+        return op.process_windows(payload)
     spec = split.pub[name]
     if split.delta:
         table, ovf = op.process_slide_tables(payload, spec.cols,
@@ -185,17 +231,21 @@ def upstream_tables(split: SplitSink, name: str, op: SCEPOperator, payload,
     return op.process_window_tables(payload, spec.cols, spec.rows_cap)
 
 
-def augment_windows(dag: OperatorDAG, windows: Windows,
-                    upstream_out: Dict[str, TripleBatch]) -> Windows:
-    """Append upstream operator outputs to the very window that produced
-    them, in the final sub-query's declared input order."""
-    parts = [windows.triples] + [
-        upstream_out[src]
-        for src in dag.subqueries[dag.final].inputs
-        if src != "stream"
-    ]
-    aug = TripleBatch(*(torch.cat(cols, dim=-1) for cols in zip(*parts)))
-    return Windows(aug, windows.window_valid)
+def sink_stage(dag: OperatorDAG, split: Optional[SplitSink],
+               op: SCEPOperator, payload, inputs: Dict[str, Any]):
+    """The aggregation operator's step.  The split sink joins the upstream
+    tables over the raw windows (or the slide view, delta); otherwise the
+    upstream output triples are appended to the very window that produced
+    them, in the final sub-query's declared input order, and decoded."""
+    if split is None:
+        parts = [payload.triples] + [
+            inputs[src] for src in dag.subqueries[dag.final].inputs
+            if src != "stream"]
+        aug = TripleBatch(*(torch.cat(cols, dim=-1) for cols in zip(*parts)))
+        return op.process_windows(Windows(aug, payload.window_valid))
+    if split.delta:
+        return op.process_sink_slides(payload, inputs)
+    return op.process_sink_windows(payload, inputs)
 
 
 class _OverflowAccumulator:
@@ -229,14 +279,8 @@ class DSCEPRuntime:
         self.dag = dag
         self.config = config if config is not None else RuntimeConfig()
         self.vocab = vocab
-        self.operators = build_operators(dag, kb, self.config)
-        # the split sink: upstream operators ship binding tables and the
-        # sink joins them directly (None keeps the augmented-window path).
-        # The sink operator's plan is swapped for the rewritten one, so
-        # introspection reports the plan that runs
-        self._split = prepare_split_sink(dag, self.operators, self.config)
-        if self._split is not None:
-            self.operators[dag.final].plan = self._split.plan
+        # the split sink (None keeps the augmented-window path)
+        self.operators, self._split = build_dag(dag, kb, self.config)
         self._overflow = _OverflowAccumulator(self.operators, kb.device)
 
     @property
@@ -247,68 +291,21 @@ class DSCEPRuntime:
         """Push one stream chunk through the DAG; returns (final output,
         per-operator overflow flags [W])."""
         cfg = self.config
-        merged = merge_streams([chunk])
-        if self._split is not None:
-            out_w, overflow = self._chunk_split(merged)
-        else:
-            out_w, overflow = self._chunk_augmented(merged)
+        final = self.dag.final
+        sink_in, op_in = source_stage(merge_streams([chunk]), cfg,
+                                      self._split)
+        overflow: Dict[str, torch.Tensor] = {}
+        inputs: Dict[str, Any] = {}
+        for name in self.dag.subqueries:
+            if name != final:
+                inputs[name], overflow[name] = upstream_stage(
+                    self._split, name, self.operators[name], op_in,
+                    cfg.max_windows)
+        out_w, overflow[final] = sink_stage(
+            self.dag, self._split, self.operators[final], sink_in, inputs)
         for name, flags in overflow.items():
             self._overflow.add(name, flags)
         return publish_chunk(out_w, cfg.out_stream_cap), overflow
-
-    def _chunk_split(self, merged: TripleBatch):
-        """The split-sink DAG step: upstream operators produce binding
-        tables (per window, or span-tagged per chunk), and the sink joins
-        them through its rewritten plan over the raw windows; no augmented
-        window, no binding-graph decode scans."""
-        cfg = self.config
-        split = self._split
-        final = self.dag.final
-        if split.delta:
-            payload = count_slides(merged, cfg.window_capacity,
-                                   cfg.max_windows, cfg.window_step)
-        else:
-            payload = count_windows(merged, cfg.window_capacity,
-                                    cfg.max_windows, cfg.window_step)
-        overflow: Dict[str, torch.Tensor] = {}
-        tables = {}
-        for name in self.dag.subqueries:
-            if name != final:
-                tables[name], overflow[name] = upstream_tables(
-                    split, name, self.operators[name], payload,
-                    cfg.max_windows)
-        sink = self.operators[final]
-        out_w, overflow[final] = (
-            sink.process_sink_slides(payload, tables) if split.delta
-            else sink.process_sink_windows(payload, tables))
-        return out_w, overflow
-
-    def _chunk_augmented(self, merged: TripleBatch):
-        cfg = self.config
-        view = None
-        if cfg.incremental:
-            # upstreams run delta over the slides; the aggregator still gets
-            # materialized windows (upstream outputs are window-aligned)
-            view = count_slides(merged, cfg.window_capacity, cfg.max_windows,
-                                cfg.window_step)
-            windows = windows_from_slides(view, cfg.window_capacity,
-                                          cfg.max_windows, cfg.window_step)
-        else:
-            windows = count_windows(merged, cfg.window_capacity,
-                                    cfg.max_windows, cfg.window_step)
-        final = self.dag.final
-        overflow: Dict[str, torch.Tensor] = {}
-        upstream_out: Dict[str, TripleBatch] = {}
-        for name in self.dag.subqueries:
-            if name == final:
-                continue
-            op = self.operators[name]
-            upstream_out[name], overflow[name] = (
-                op.process_slides(view) if view is not None
-                else op.process_windows(windows))
-        aug = augment_windows(self.dag, windows, upstream_out)
-        out_w, overflow[final] = self.operators[final].process_windows(aug)
-        return out_w, overflow
 
     def process_stream(self, chunks: Sequence[TripleBatch]
                        ) -> Tuple[List[TripleBatch], Dict[str, int]]:

@@ -80,7 +80,7 @@ class ExecutionConfig:
     # pipelined mode: operator -> device.  A strategy name for
     # launch.mesh.place_operators ("round_robin" or "single", over every
     # visible card when ``device`` is "cuda", else over ``device`` alone),
-    # an explicit {operator: device} dict, or None (all on ``device``)
+    # an explicit {operator: device} dict, or None (as "single")
     placement: Union[str, Dict[str, Any], None] = "round_robin"
     channel_capacity: int = 4          # chunks in flight (pipelined)
 
@@ -180,6 +180,8 @@ class RegisteredQuery:
             return DSCEPRuntime(self.dag, kb, self.session.vocab,
                                 cfg.runtime_config())
         placement = cfg.placement
+        if placement is None:
+            placement = "single"
         if isinstance(placement, str):
             dev = self.session.device
             devices = (None if dev.type == "cuda" and dev.index is None
@@ -235,23 +237,12 @@ class RegisteredQuery:
         left in flight when it is closed early, so a later ``run`` or
         ``stream`` never sees another call's leftovers.
         """
-        if self.mode != "pipelined":
-            for c in chunks:
-                yield self._runtime.process_chunk(self._on_device(c))[0]
+        if self.mode == "pipelined":
+            yield from self._runtime.iter_stream(
+                self._on_device(c) for c in chunks)
             return
-        rt = self._runtime
-        rt._require_idle("stream")
-        depth = self.config.channel_capacity
-        try:
-            for c in chunks:
-                if rt._in_flight >= depth:
-                    yield rt.drain()
-                rt.feed(self._on_device(c))
-            while rt._pending_count():
-                yield rt.drain()
-        finally:
-            while rt._pending_count():          # generator closed mid-stream
-                rt.drain()
+        for c in chunks:
+            yield self._runtime.process_chunk(self._on_device(c))[0]
 
     def overflow_totals(self) -> Dict[str, int]:
         """Lifetime per-operator overflow counts (synced when read)."""

@@ -131,8 +131,20 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device, read raw:
     ``torch.cuda.current_stream`` builds a Stream object and switches the
-    current device twice a call.  CUDA builds only (as every launch)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+    current device twice a call.  CUDA builds only (as every launch).
+
+    The launchers take their device from the CUDA runtime's current one,
+    so ``t``'s device must be current: a launch elsewhere would read
+    another card's memory with no order against its stream.  Callers that
+    spread work over cards make each card current in turn
+    (``torch.cuda.device``)."""
+    dev = t.get_device()
+    if dev != torch._C._cuda_getDevice():
+        raise RuntimeError(
+            "kernel launch on cuda:%d while cuda:%d is current; run it "
+            "under torch.cuda.device(%d)"
+            % (dev, torch._C._cuda_getDevice(), dev))
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def require(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:

@@ -583,6 +583,64 @@ def test_pipelined_on_the_card_equals_single_program(card, q, incremental):
 
 
 @pytest.mark.gpu
+def test_kernel_launch_needs_its_tensors_card_current(card):
+    """A launcher takes the CUDA runtime's current device: a tensor on
+    another card raises instead of being read from the wrong one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    rng = np.random.default_rng(0)
+    reach = torch.from_numpy((rng.random((64, 64)) < 0.2).astype(np.float32))
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        with pytest.raises(RuntimeError, match="cuda:1 while cuda:0"):
+            p_cl_kernel.closure_step_cuda(reach.to(other))
+    with torch.cuda.device(other):
+        got = p_cl_kernel.closure_step_cuda(reach.to(other))
+    assert got.device == other
+    assert torch.equal(got.cpu(), p_cl_ref.closure_step_ref(reach))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q15", "cquery1"])
+@pytest.mark.parametrize("incremental", [False, True])
+def test_pipelined_across_cards_equals_single_program(card, q, incremental):
+    """The default placement (round robin over every visible card) puts
+    the upstream operators on cards other than the current one: their
+    stages must launch there, and the stream must stay single_program's
+    bytes on one card."""
+    from repro_torch.core.session import ExecutionConfig, Session
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    vocab, kbd, chunks, texts = _session_world()
+    caps = dict(window_capacity=96, max_windows=4, bind_cap=1024,
+                scan_cap=128, out_cap=1024, intermediate_cap=512,
+                kb_method="auto", incremental=incremental)
+    want, want_ovf = Session(
+        ExecutionConfig(mode="single_program", device="cuda:0", **caps),
+        vocab=vocab, kb=kbd.kb).register(texts[q]).run(chunks)
+    reg = Session(ExecutionConfig(mode="pipelined", **caps), vocab=vocab,
+                  kb=kbd.kb).register(texts[q])
+    placement = reg.runtime.placement
+    assert placement[reg.dag.final] == torch.device("cuda", 0)
+    assert {d.index for n, d in placement.items() if n != reg.dag.final} \
+        - {0}
+    for name, op in reg.operators.items():
+        if op.kb is not None:
+            assert op.kb.device == placement[name]
+    _cuda.reset_launches()
+    got, ovf = reg.run(chunks)
+    assert _cuda.LAUNCHES["probe_compact"] + _cuda.LAUNCHES["join_compact"] > 0
+    assert ovf == want_ovf and not any(ovf.values())
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert sum(int(o.valid.sum()) for o in got) > 0
+    assert all(st["depth_hw"] >= 2 and st["pushes"] == st["pops"]
+               for st in reg.channel_stats().values())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["monolithic", "single_program"])
 def test_unfused_session_on_the_card_equals_the_cpu(card, mode):
     _cuda.reset_launches()

@@ -31,7 +31,7 @@ from repro_torch.kernels.hash_join import ops as p_hj_ops
 from repro_torch.kernels.hash_join import ref as p_hj_ref
 
 from test_torch_session import (  # noqa: F401
-    CAPS, QUERIES, check_against_reference, pworld,
+    CAPS, QUERIES, check_against_reference, one_torch_thread, pworld,
 )
 
 K = 0xFFFFFFFF
@@ -139,7 +139,7 @@ def test_plan_supports_delta_per_operator(pworld):
     expected = {}
     for q in QUERIES:
         for mode in ("monolithic", "single_program"):
-            ref_reg = pworld.ref_register(q, mode, "auto")
+            ref_reg = pworld.ref_registered(q, mode, "auto")
             reg = pworld.port_register(q, mode, "auto")
             for name, op in reg.operators.items():
                 ref_plan = ref_reg.operators[name].plan

@@ -38,7 +38,7 @@ from repro_torch.core.stream import merge_streams
 from repro_torch.core.window import count_slides, count_windows
 
 from test_torch_session import (  # noqa: F401
-    CAPS, QUERIES, check_against_reference, pworld,
+    CAPS, QUERIES, check_against_reference, one_torch_thread, pworld,
 )
 
 CAP, W = CAPS["window_capacity"], CAPS["max_windows"]
@@ -67,14 +67,9 @@ def _ref_slide_tables(plan, chunk, pub_cols, rows_cap, kb, env):
 
 
 def port_run(pworld, q, mode, **kw):
-    """The port's (outputs, overflow) for one configuration, run once per
-    module and shared by the port-only checks."""
-    runs = pworld.__dict__.setdefault("port_runs", {})
-    key = (q, mode, tuple(sorted(kw.items())))
-    if key not in runs:
-        runs[key] = pworld.port_register(q, mode, "auto", **kw).run(
-            pworld.port_chunks())
-    return runs[key]
+    """The port's (outputs, overflow) for one ``auto`` configuration, run
+    once per test process and shared with the session tests."""
+    return pworld.port_run(q, mode, "auto", **kw)[1:]
 
 
 def _same_stream(a, b):
@@ -89,8 +84,8 @@ def test_split_sink_tables_equal_reference(pworld, q, kind):
     """Each upstream operator's table for the split sink, on every chunk:
     per window (tumbling) or one chunk-level span-tagged table (the delta
     producer; every upstream plan of the four queries is delta-safe)."""
-    ref_rt = pworld.ref_register(q, "single_program", "auto").runtime
-    rt = pworld.port_register(q, "single_program", "auto").runtime
+    ref_rt = pworld.ref_registered(q, "single_program", "auto").runtime
+    rt = pworld.port_registered(q, "single_program", "auto").runtime
     assert rt.sink_kind == "split" and ref_rt._split is not None
     rows = 0
     for name, spec in ref_rt._split.pub.items():
@@ -125,9 +120,8 @@ def test_pipelined_channel_stats_equal_reference(pworld):
     """Q15 through both packages' ``PipelinedRuntime``: the same bytes, and
     the same statistics on every edge."""
     ref_reg, ref_outs, ref_ovf, _ = pworld.ref_run("q15", "pipelined", "auto")
-    reg = pworld.port_register("q15", "pipelined", "auto")
+    reg, outs, ovf = pworld.port_run("q15", "pipelined", "auto")
     assert isinstance(reg.runtime, PipelinedRuntime)
-    outs, ovf = reg.run(pworld.port_chunks())
     assert len(outs) == len(ref_outs)
     for ro, po in zip(ref_outs, outs):
         assert all(u32(a) == u32(b) for a, b in zip(ro, po))
@@ -156,9 +150,8 @@ def test_incremental_pipelined_equals_recompute(pworld, q, kind):
     """Q15 runs the delta split sink (span-tagged tables through the
     channels, the SlideView on the source edge); CQuery1's OPTIONAL keeps
     the augmented window."""
-    inc = pworld.port_register(q, "pipelined", "auto", incremental=True)
+    inc, outs, ovf = pworld.port_run(q, "pipelined", "auto", incremental=True)
     assert inc.runtime.sink_kind == kind
-    outs, ovf = inc.run(pworld.port_chunks())
     ref, ref_ovf = port_run(pworld, q, "single_program")
     _same_stream(outs, ref)
     assert ovf == ref_ovf
@@ -171,10 +164,9 @@ def test_sliding_incremental_pipelined_equals_single_program(pworld):
     kw = dict(window_from_query=True)
     want, want_ovf = port_run(pworld, "artist_classes", "single_program", **kw)
     for incremental in (False, True):
-        reg = pworld.port_register("artist_classes", "pipelined", "auto",
-                                   incremental=incremental, **kw)
+        reg, outs, ovf = pworld.port_run("artist_classes", "pipelined",
+                                         "auto", incremental=incremental, **kw)
         assert reg.config.window_step == 64
-        outs, ovf = reg.run(pworld.port_chunks())
         _same_stream(outs, want)
         assert ovf == want_ovf
 
@@ -242,14 +234,14 @@ def test_stream_generator_drains_when_closed_early(pworld):
 
 @pytest.mark.parametrize("placement", ["single", None, "dict"])
 def test_every_placement_gives_the_same_bytes(pworld, placement):
-    """A strategy name, no placement, and an explicit per-operator dict of
-    CPU devices: the stream of single_program (which the default round
-    robin gives too, above)."""
+    """A strategy name, no placement (as "single"), and an explicit
+    per-operator dict of CPU devices: the stream of single_program (which
+    the default round robin gives too, above), every operator placed."""
     want, _ = port_run(pworld, "q15", "single_program")
     if placement == "dict":
         placement = {"q15_kb0_ent": "cpu", "q15_agg": torch.device("cpu")}
-    reg = pworld.port_register("q15", "pipelined", "auto",
-                               placement=placement)
-    assert sorted(reg.runtime.placement or reg.operators) == sorted(
-        reg.operators)
-    _same_stream(reg.run(pworld.port_chunks())[0], want)
+    reg, outs, _ = pworld.port_run("q15", "pipelined", "auto",
+                                   placement=placement)
+    assert reg.runtime.placement == {n: torch.device("cpu")
+                                     for n in reg.operators}
+    _same_stream(outs, want)

@@ -8,6 +8,7 @@ equal overflow totals, and the compiled plans must agree field by field.
 """
 import copy
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -45,8 +46,16 @@ def _texts():
     return texts
 
 
+def _key(q, mode, method, kw):
+    return (q, mode, method, tuple(sorted((k, repr(v))
+                                          for k, v in kw.items())))
+
+
 class PortWorld:
-    """One reference world, and the same state as plain arrays."""
+    """One reference world, and the same state as plain arrays.  Runs and
+    registrations are cached by their configuration: every port test module
+    shares one world per process (:func:`_world`), so no configuration runs
+    twice in a test worker."""
 
     def __init__(self):
         self.vocab = RVocab()
@@ -62,6 +71,9 @@ class PortWorld:
         self.chunk_arrays = [[np.asarray(c) for c in ch] for ch in self.chunks]
         self.texts = _texts()
         self.ref = {}
+        self.ref_regs = {}
+        self.port_regs = {}
+        self.port_runs = {}
 
     def port_vocab(self):
         v = self.vocab
@@ -75,10 +87,18 @@ class PortWorld:
                         vocab=copy.deepcopy(self.vocab), kb=self.kbd.kb)
         return sess.register(self.texts[q])
 
+    def ref_registered(self, q, mode, method, **kw):
+        """The reference registration of this configuration, built once
+        (and run at most once, by :meth:`ref_run`)."""
+        key = _key(q, mode, method, kw)
+        if key not in self.ref_regs:
+            self.ref_regs[key] = self.ref_register(q, mode, method, **kw)
+        return self.ref_regs[key]
+
     def ref_run(self, q, mode, method, **kw):
-        key = (q, mode, method, tuple(sorted(kw.items())))
+        key = _key(q, mode, method, kw)
         if key not in self.ref:
-            reg = self.ref_register(q, mode, method, **kw)
+            reg = self.ref_registered(q, mode, method, **kw)
             outs, overflow = reg.run(self.chunks)
             self.ref[key] = (reg, [[np.asarray(c) for c in o] for o in outs],
                              overflow, reg.overflow_totals())
@@ -91,13 +111,50 @@ class PortWorld:
                        kb=interop.kb_from_arrays(self.kb_arrays))
         return sess.register(self.texts[q])
 
+    def port_registered(self, q, mode, method, **kw):
+        """The port's registration of this configuration, built once and
+        never run (:meth:`port_run` keeps its own)."""
+        key = _key(q, mode, method, kw)
+        if key not in self.port_regs:
+            self.port_regs[key] = self.port_register(q, mode, method, **kw)
+        return self.port_regs[key]
+
+    def port_run(self, q, mode, method, **kw):
+        """``(registration, outputs, overflow)`` of the port's whole-stream
+        run of this configuration, run once.  Callers read the registration
+        and do not drive it again."""
+        key = _key(q, mode, method, kw)
+        if key not in self.port_runs:
+            reg = self.port_register(q, mode, method, **kw)
+            self.port_runs[key] = (reg, *reg.run(self.port_chunks()))
+        return self.port_runs[key]
+
     def port_chunks(self):
         return [interop.triples_from_arrays(*c) for c in self.chunk_arrays]
 
 
+@functools.lru_cache(maxsize=None)
+def _world() -> PortWorld:
+    return PortWorld()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tensors here are small.  With one intra-op thread pool
+    over every core in each pytest-xdist worker, the workers' pools wait on
+    one another: a 4-worker run of these modules took twice the CPU time.
+    One thread a worker while a module's tests run; the count is restored
+    after.  Only integer ids are compared here, so the thread count cannot
+    change a result."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pworld():
-    w = PortWorld()
+    w = _world()
     assert len(w.chunks) >= 3
     return w
 
@@ -119,8 +176,7 @@ def check_against_reference(pworld, q, mode, method, expect_output=True,
     ref_mode = "single_program" if mode == "pipelined" else mode
     _, ref_outs, ref_ovf, ref_totals = pworld.ref_run(q, ref_mode, method,
                                                       **kw)
-    reg = pworld.port_register(q, mode, method, **kw)
-    outs, overflow = reg.run(pworld.port_chunks())
+    reg, outs, overflow = pworld.port_run(q, mode, method, **kw)
     assert len(outs) == len(ref_outs)
     for i, (ro, po) in enumerate(zip(ref_outs, outs)):
         for name, rc, pc in zip(po._fields, ro, po):
@@ -146,8 +202,7 @@ def test_unfused_scan_session_equals_reference(pworld, mode):
     steps = [s for op in reg.operators.values() for s in op.plan.steps
              if isinstance(s, pengine.KBJoin)]
     assert steps and not any(s.fuse_compaction for s in steps)
-    fused, _ = pworld.port_register("q15", mode, "scan").run(
-        pworld.port_chunks())
+    fused = pworld.port_run("q15", mode, "scan")[1]
     for a, b in zip(outs, fused):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -172,7 +227,7 @@ def _norm(x):
 @pytest.mark.parametrize("mode", ["monolithic", "single_program"])
 def test_compiled_plans_equal_reference(pworld, q, mode):
     ref_reg = pworld.ref_run(q, mode, "auto")[0]
-    reg = pworld.port_register(q, mode, "auto")
+    reg = pworld.port_registered(q, mode, "auto")
     assert sorted(reg.operators) == sorted(ref_reg.operators)
     for name, op in reg.operators.items():
         ref_op = ref_reg.operators[name]

@@ -20,7 +20,9 @@ from repro_torch import interop
 from repro_torch.core import window as pwin
 from repro_torch.core.session import ExecutionConfig, Session
 
-from test_torch_session import QUERIES, check_against_reference, pworld  # noqa: F401
+from test_torch_session import (  # noqa: F401
+    QUERIES, check_against_reference, one_torch_thread, pworld,
+)
 
 r_count_slides = jax.jit(rwin.count_slides, static_argnums=(1, 2, 3))
 r_windows_from_slides = jax.jit(rwin.windows_from_slides,
