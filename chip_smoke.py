@@ -97,10 +97,28 @@ Phases (each prints its lines; any failure exits non-zero):
    ``lm.forward`` on one prompt (24 more).  Throughput, peak memory and
    idle share as phase 7; the same two gates, with the SSD kernel's plain
    version as the plain path, and equal ids on the card and the CPU.
+9. **Observability and recovery**, on phase 3's world and caps: Q15 and
+   CQuery1 under ``auto`` with ``trace=True`` in the three modes must give
+   phase 3's bytes with the same DSCEP kernel launches (registration and
+   pass), zero overflow, every saturation at most 1, equal per-operator
+   counters in ``single_program`` and ``pipelined``, a monolithic
+   ``hw_out`` equal to the rows its fullest window published, and
+   pipelined spans for ``stage:source`` and every operator; it prints the
+   stage and metrics tables, the bottleneck stage, CQuery1 pipelined
+   chunks/s untraced and traced with and without fences, and CQuery1's
+   EXPLAIN.  CQuery1 at phase 5's ``RANGE 1000 STEP 250``, incremental and
+   traced, must count the same in both DAG modes.  Pipelined ``auto``
+   under a seeded schedule of the five fault kinds
+   (``RecoveryConfig(checkpoint_every=2)``) must give the fault-free bytes
+   with every event fired and the channels drained, printing the
+   recovery table with the checkpoint bytes and the ms per checkpoint and
+   per restore; a stall under ``stage_timeout_s`` (every stage waits by
+   polling CUDA events) and a crash past ``max_restarts=0`` (the chunk
+   takes the channel-free fallback) must give the fault-free bytes too.
 
-Phases 3, 5, 6, 7 and 8 each drive their path with the launch counters
+Phases 3, 5, 6, 7, 8 and 9 each drive their path with the launch counters
 zeroed just before and read just after; each kernel of the path must have
-launched, and the JSON line's ``launches`` sums the five runs.
+launched, and the JSON line's ``launches`` sums the six runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -195,6 +213,14 @@ SSD_F32_TOL = (2e-4, 2e-4)
 # either side of a boundary (2^-8 to 2^-7 of its magnitude)
 ATT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 
+# torch.profiler sessions per measurement (see profile_device)
+PROFILE_ATTEMPTS = 4
+
+# phase 9: observability and recovery, on phase 3's world and caps
+OBS_QUERIES = ("q15", "cquery1")
+CHAOS_SEED = 0         # FaultPlan.seeded draws one event of each kind
+STAGE_TIMEOUT_S = 30.0
+
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
 # phase 3 also runs the pipelined runtime (phase 5 under auto incremental)
@@ -276,22 +302,37 @@ def device_times(prof) -> dict:
     return dev
 
 
+def profile_device(fn, iters: int = 1) -> dict:
+    """Device microseconds by kernel name over ``iters`` calls of ``fn()``
+    (``torch.profiler``, after one call outside the session).  On the
+    H100 machines a session now and then records no device event at all
+    while the launch counters saw the launches (one session of a few
+    dozen in a run, at no fixed place): such a session is taken again, up
+    to ``PROFILE_ATTEMPTS`` times, each miss logged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        dev = device_times(prof)
+        if dev:
+            return dev
+        log("  (a profiler session recorded no device event: taken again)")
+    return {}
+
+
 def launch_ms(fn, symbol: str, iters: int = 10, by_kernel=None):
     """Mean device milliseconds per ``fn()`` of the kernels whose name holds
     ``symbol`` (``torch.profiler``): the launches alone, without what the
     wrapper does around them.  None when the profiler saw no such kernel.
     ``by_kernel``, a dict, receives the same per kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        sync()
-    ours = {k: t / 1e3 / iters for k, t in device_times(prof).items()
-            if symbol in k}
+    ours = {k: t / 1e3 / iters
+            for k, t in profile_device(fn, iters).items() if symbol in k}
     if by_kernel is not None:
         by_kernel.update(ours)
     return sum(ours.values()) if ours else None
@@ -299,15 +340,7 @@ def launch_ms(fn, symbol: str, iters: int = 10, by_kernel=None):
 
 def kernel_names(fn) -> set:
     """The device kernels one ``fn()`` launches (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    return set(device_times(prof))
+    return set(profile_device(fn))
 
 
 def hgmma_count(path: str) -> dict:
@@ -1010,7 +1043,7 @@ def run_session(vocab, kb, chunks, text, cfg, repeats=1):
             "geometry": (reg.config.window_capacity,
                          reg.config.window_step),
             "sink": getattr(reg.runtime, "sink_kind", "-"),
-            "channels": reg.channel_stats()}
+            "channels": reg.channel_stats(), "reg": reg}
 
 
 def check_channels(res, what):
@@ -1070,7 +1103,7 @@ def phase_main(vocab, kbd, chunks, smi):
         "1 warm-up chunk + %d timed passes per configuration"
         % (" ".join("%s=%d" % kv for kv in CAPS.items()), MAX_WINDOWS,
            len(chunks), REPEATS))
-    results = {}
+    results, config_launches = {}, {}
     by_mode = {mode: {k: 0 for k in _cuda.LAUNCHES} for mode in MAIN_MODES}
     _cuda.reset_launches()
     for q in QUERIES:
@@ -1083,6 +1116,8 @@ def phase_main(vocab, kbd, chunks, smi):
                     by_mode[mode][k] += v
                 outs, ovf = res["outs"], res["overflow"]
                 results[(q, mode, method)] = outs
+                config_launches[(q, mode, method)] = (res["plan_launches"],
+                                                      res["run_launches"])
                 log("  %-14s %-14s %-5s sink %-11s plan %.3f s, %s, %d "
                     "output triples, overflow %s, launches plan {%s} pass "
                     "{%s} [%s]"
@@ -1135,7 +1170,7 @@ def phase_main(vocab, kbd, chunks, smi):
             fail("GPU != CPU for %s %s %s" % (q, mode, method))
         log("  %-14s %-14s %-5s GPU == CPU on %d chunks (CPU %.1f s)"
             % (q, mode, method, len(res["outs"]), res["run_s"][0]))
-    return launches, results
+    return launches, results, config_launches
 
 
 def slide_config(q, mode, method, incremental, device):
@@ -1313,6 +1348,290 @@ def phase_profile(vocab, kbd, chunks, smi):
 
 
 # --------------------------------------------------------------------------
+# phase 9: observability and recovery
+# --------------------------------------------------------------------------
+
+def window_rows(outs, bind_cap):
+    """The most output triples one window published: ``construct`` numbers
+    a window's output graphs from ``window * bind_cap``."""
+    most = 0
+    for o in outs:
+        graph, valid = o[4][o[5]], o[5]
+        if valid.any():
+            most = max(most, int(torch.bincount(graph // bind_cap).max()))
+    return most
+
+
+def chaos_plan(dag):
+    """A seeded schedule over the five fault kinds: one event of each,
+    drawn by ``FaultPlan.seeded`` over the stream's chunks and the stages
+    where the kind can fire (a transport fault on a stage that pushes: the
+    source or an upstream operator; a crash or stall on any stage)."""
+    from repro_torch.core.faults import FAULT_KINDS, FaultPlan
+
+    producers = ["source"] + [n for n in dag.subqueries if n != dag.final]
+    stages = {"drop_payload": producers, "duplicate_payload": producers}
+    return FaultPlan(tuple(
+        ev for i, kind in enumerate(FAULT_KINDS)
+        for ev in FaultPlan.seeded(
+            CHAOS_SEED + i, stages.get(kind, producers + [dag.final]),
+            CHUNKS, 1, (kind,)).events))
+
+
+def aten_ops(fn) -> int:
+    """The aten ops ``fn()`` dispatches (host-side count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+class _Timed:
+    """Wall time of each call of a runtime's method, synced at its end
+    (checkpoints copy to the host; restores copy back to the card)."""
+
+    def __init__(self, obj, name):
+        self.ms = []
+        real = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            sync()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(obj, name, timed)
+
+    def text(self) -> str:
+        if not self.ms:
+            return "none"
+        return "%d, %.2f ms each (%.2f-%.2f)" % (
+            len(self.ms), sum(self.ms) / len(self.ms), min(self.ms),
+            max(self.ms))
+
+
+def phase_observability(vocab, kbd, rows, chunks, results, config_launches,
+                        smi):
+    """Phase 9: traced runs in every mode held to phase 3's bytes and
+    launches, the engine metrics' gates, the trace's cost on chunks/s,
+    EXPLAIN, incremental counters, and the pipelined runtime under a
+    seeded chaos schedule, a stage timeout and a degraded chunk."""
+    from repro_torch.core import pipeline as ppipeline
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.core.recovery import RecoveryConfig, tree_bytes
+    from repro_torch.core.session import Session
+    from repro_torch.data.tweets import stream_chunks
+    from repro_torch.kernels import _cuda
+    from repro_torch.obs import (
+        TraceConfig, bottleneck_stage, format_explain, format_metrics_table,
+        format_recovery_table, format_stage_table)
+
+    texts = query_texts()
+    gpu_chunks = [c.to("cuda") for c in chunks]
+    log("phase 9: observability and recovery, %s, auto, caps as phase 3"
+        % ", ".join(OBS_QUERIES))
+    _cuda.reset_launches()
+
+    # traced runs: phase 3's bytes and launches, and the metrics' gates
+    for q in OBS_QUERIES:
+        counters = {}
+        for mode in MAIN_MODES:
+            res = run_session(vocab, kbd.kb, gpu_chunks, texts[q],
+                              exec_config(mode, "auto", "cuda", trace=True))
+            reg, outs = res["reg"], res["outs"]
+            stats = reg.last_stats
+            what = "%s %s traced" % (q, mode)
+            if not same_outputs(outs, results[(q, mode, "auto")]):
+                fail("%s != phase 3's untraced bytes" % what)
+            if any(res["overflow"].values()):
+                fail("overflow in %s: %s" % (what, res["overflow"]))
+            plan_l, run_l = config_launches[(q, mode, "auto")]
+            for k in DSCEP_KERNELS:
+                if (res["plan_launches"][k], res["run_launches"][k]) != (
+                        plan_l[k], run_l[k]):
+                    fail("%s launched %s %d + %d times, untraced %d + %d"
+                         % (what, k, res["plan_launches"][k],
+                            res["run_launches"][k], plan_l[k], run_l[k]))
+            ops = stats["operators"]
+            if set(ops) != set(reg.operators):
+                fail("%s: metrics for %s, operators %s"
+                     % (what, sorted(ops), sorted(reg.operators)))
+            for op, entry in ops.items():
+                for key, sat in entry["saturation"].items():
+                    if sat > 1.0:
+                        fail("%s: %s %s saturation %.3f > 1"
+                             % (what, op, key, sat))
+            counters[mode] = {op: e["counters"] for op, e in ops.items()}
+            if mode == "monolithic":
+                hw = counters[mode][q]["hw_out"]
+                want = window_rows(outs, CAPS["bind_cap"])
+                if hw != want:
+                    fail("%s: hw_out %d, published %d rows in its fullest "
+                         "window" % (what, hw, want))
+            if mode == "pipelined":
+                stages = {p.split("/")[-1] for p in stats["spans"]}
+                want = {"stage:source"} | {"stage:%s" % n
+                                           for n in reg.operators}
+                if stages != want:
+                    fail("%s: spans %s, stages %s"
+                         % (what, sorted(stages), sorted(want)))
+                for line in format_stage_table(stats["spans"]).splitlines():
+                    log("    " + line)
+                log("    bottleneck stage: %s"
+                    % bottleneck_stage(stats["spans"], prefix="stage"))
+                for line in format_metrics_table(ops).splitlines():
+                    log("    " + line)
+            log("  %-8s %-14s traced: phase 3's bytes and DSCEP launches, "
+                "saturation <= 1, zero overflow; counters %s [%s]"
+                % (q, mode, json.dumps(counters[mode]), smi))
+            del res, reg
+        if counters["single_program"] != counters["pipelined"]:
+            fail("%s: single_program and pipelined counters differ" % q)
+        log("  %-8s single_program == pipelined counters" % q)
+
+    # the trace's cost on one configuration: untraced, traced without and
+    # with fences, in turns (A B C C B A), and the aten ops of one chunk
+    # (printed, not gated)
+    settings = (("untraced", None),
+                ("traced, fence=False", TraceConfig(fence=False)),
+                ("traced, fence=True", True))
+    rates = {label: [] for label, _ in settings}
+    ops = {}
+    for label, trace in settings + settings[::-1]:
+        res = run_session(vocab, kbd.kb, gpu_chunks, texts["cquery1"],
+                          exec_config("pipelined", "auto", "cuda",
+                                      trace=trace), REPEATS)
+        rates[label] += [len(res["outs"]) / t for t in res["run_s"]]
+        ops.setdefault(label, aten_ops(lambda: res["reg"].run(gpu_chunks[:1])))
+        del res
+    for label, _ in settings:
+        xs = sorted(rates[label])
+        log("  trace cost, cquery1 pipelined auto %-20s %.2f chunks/s median "
+            "of %d passes in 2 turns (%.2f-%.2f), %d aten ops a chunk [%s]"
+            % (label, xs[len(xs) // 2], len(xs), xs[0], xs[-1], ops[label],
+               smi))
+    reg = Session(exec_config("single_program", "auto", "cuda"), vocab=vocab,
+                  kb=kbd.kb).register(texts["cquery1"])
+    for line in format_explain(reg.explain()).splitlines():
+        log("    " + line)
+    del reg
+
+    # incremental: the delta evaluator's counters equal in both DAG modes
+    slide_chunks = [c.to("cuda") for c in
+                    list(stream_chunks(rows, SLIDE_CHUNK))[:SLIDE_CHUNKS]]
+    inc = {}
+    for mode in ("single_program", "pipelined"):
+        cfg = slide_config("cquery1", mode, "auto", True, "cuda")
+        res = run_session(vocab, kbd.kb, slide_chunks, texts["cquery1"],
+                          cfg.replace(trace=True))
+        inc[mode] = {op: e["counters"] for op, e in
+                     res["reg"].last_stats["operators"].items()}
+        if any(res["overflow"].values()):
+            fail("overflow in cquery1 %s incremental traced" % mode)
+        del res
+    if inc["single_program"] != inc["pipelined"]:
+        fail("incremental counters differ: %s" % inc)
+    log("  cquery1 RANGE 1000 STEP 250 incremental: single_program == "
+        "pipelined counters, n_retract %s"
+        % {op: c.get("n_retract") for op, c in inc["pipelined"].items()})
+
+    # chaos: a seeded schedule over the five kinds, recovered bit-exact
+    for q in OBS_QUERIES:
+        plan = chaos_plan(Session(
+            exec_config("single_program", "auto", "cuda"), vocab=vocab,
+            kb=kbd.kb).register(texts[q]).dag)
+        sess = Session(exec_config("pipelined", "auto", "cuda", faults=plan,
+                                   recovery=RecoveryConfig(checkpoint_every=2)),
+                       vocab=vocab, kb=kbd.kb)
+        reg = sess.register(texts[q])
+        rt = reg.runtime
+        ckpt = _Timed(rt, "_take_checkpoint")
+        restore = [_Timed(rt, "_restore_full"), _Timed(rt, "_rebuild_degraded")]
+        t0 = time.perf_counter()
+        outs, ovf = reg.run(gpu_chunks)
+        sync()
+        wall = time.perf_counter() - t0
+        rec = reg.last_stats["recovery"]
+        what = "%s chaos (%s)" % (q, ", ".join(
+            "%s@%s:%d" % (e.kind, e.stage, e.chunk) for e in plan.events))
+        if not same_outputs([tuple(c.cpu() for c in o) for o in outs],
+                            results[(q, "pipelined", "auto")]):
+            fail("%s != the fault-free bytes" % what)
+        if any(ovf.values()):
+            fail("overflow in %s: %s" % (what, ovf))
+        if rec["injected"] != rec["scheduled"]:
+            fail("%s: injected %s, scheduled %s"
+                 % (what, rec["injected"], rec["scheduled"]))
+        for edge, st in reg.channel_stats().items():
+            if st["size"] or st["overflows"]:
+                fail("%s: channel %s not drained: %s" % (what, edge, st))
+        log("  %s: the fault-free bytes, every event fired, channels "
+            "drained; %d chunks in %.3f s; checkpoints %s, %d bytes the "
+            "last (tree_bytes %d); restores %s [%s]"
+            % (what, len(outs), wall, ckpt.text(), rec["checkpoint_bytes"],
+               tree_bytes([rt._ckpt.win_ch.slots,
+                           [c.slots for c in rt._ckpt.out_ch.values()],
+                           rt._ckpt.envs]),
+               " / ".join(r.text() for r in restore), smi))
+        for line in format_recovery_table(rec).splitlines():
+            log("    " + line)
+        del sess, reg, rt, outs
+
+    # a stall with a stage timeout (every stage's wait polls its events),
+    # and a chunk past max_restarts through the channel-free fallback
+    q = "cquery1"
+    final = Session(exec_config("single_program", "auto", "cuda"),
+                    vocab=vocab, kb=kbd.kb).register(texts[q]).dag.final
+    for label, plan, rcfg, check in (
+            ("stall, stage timeout %.0f s" % STAGE_TIMEOUT_S,
+             FaultPlan((FaultEvent("stall_stage", final, 1),)),
+             RecoveryConfig(stage_timeout_s=STAGE_TIMEOUT_S),
+             lambda rec, waits: rec["retries"] == 1 and waits > 0),
+            ("crash past max_restarts=0",
+             FaultPlan((FaultEvent("crash_stage", "source", 1),)),
+             RecoveryConfig(checkpoint_every=0, max_restarts=0),
+             lambda rec, waits: rec["degraded_chunks"] == [1])):
+        waits = []
+        real_wait = ppipeline.wait_until_ready
+
+        def counted(out, timeout_s):
+            waits.append(timeout_s)
+            return real_wait(out, timeout_s)
+
+        reg = Session(exec_config("pipelined", "auto", "cuda", faults=plan,
+                                  recovery=rcfg),
+                      vocab=vocab, kb=kbd.kb).register(texts[q])
+        with mock.patch.object(ppipeline, "wait_until_ready", counted):
+            outs, ovf = reg.run(gpu_chunks)
+        rec = reg.last_stats["recovery"]
+        if not same_outputs([tuple(c.cpu() for c in o) for o in outs],
+                            results[(q, "pipelined", "auto")]):
+            fail("%s %s != the fault-free bytes" % (q, label))
+        if any(ovf.values()) or not check(rec, len(waits)):
+            fail("%s %s: overflow %s, %d timed waits, recovery %s"
+                 % (q, label, ovf, len(waits), rec))
+        log("  %s %s: the fault-free bytes; %d timed waits (event polling), "
+            "retries %d, restarts %d, degraded %s [%s]"
+            % (q, label, len(waits), rec["retries"], rec["restarts"],
+               rec["degraded_chunks"], smi))
+        del reg, outs
+    # every configuration here runs kb_method="auto", which takes the
+    # probe join on this world (as phase 3's auto runs do)
+    return path_launches("phase 9 (observability and recovery)",
+                         ("probe_compact", "closure_step", "descendants"),
+                         smi)
+
+
+# --------------------------------------------------------------------------
 # phase 2, continued: the attention kernels
 # --------------------------------------------------------------------------
 
@@ -1431,9 +1750,10 @@ def phase_attention(smi):
     f32_ms = launch_ms(lambda: fa_ops.flash_attention(qf, kf, vf),
                        rec.symbol, iters=3)
     log("  flash_attention  f32 SIMT kernel at the path shape: launches "
-        "alone %.4f ms, wrapper %.4f ms [%s]" % (
-            f32_ms, cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf),
-                            iters=3), smi))
+        "alone %s, wrapper %.4f ms [%s]" % (
+            "%.4f ms" % f32_ms if f32_ms is not None else "not measured",
+            cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf), iters=3),
+            smi))
     del qf, kf, vf
     pairs = b * hq * _live_pairs(tq, tk, True, None, 0)
     rec.bound_ms, rec.bound_by = _bound(
@@ -2028,7 +2348,7 @@ def main() -> int:
                 else "none", rec.bound_ms, rec.bound_by, smi))
 
     log("phase 2 done at %.1f s" % (time.time() - t_start))
-    launches, results = phase_main(vocab, kbd, chunks, smi)
+    launches, results, config_launches = phase_main(vocab, kbd, chunks, smi)
     log("phase 3 done at %.1f s" % (time.time() - t_start))
     log("phase 4: where the time goes (torch.profiler)")
     phase_profile(vocab, kbd, chunks, smi)
@@ -2041,8 +2361,12 @@ def main() -> int:
     log("phase 7 done at %.1f s" % (time.time() - t_start))
     mamba_launches = phase_mamba(smi)
     log("phase 8 done at %.1f s" % (time.time() - t_start))
+    obs_launches = phase_observability(vocab, kbd, rows, chunks, results,
+                                       config_launches, smi)
+    log("phase 9 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
-             + lm_launches[k] + mamba_launches[k] for k in launches}
+             + lm_launches[k] + mamba_launches[k] + obs_launches[k]
+             for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

@@ -34,13 +34,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..kernels.hash_join import ops as hj_ops
-from .kb import KnowledgeBase
+from ..obs.metrics import stat_max
+from .kb import KnowledgeBase, probe_range, probe_view
 from .pattern import (
     Bindings, CompiledPattern, SlotMode, compact_index, compact_rows,
     gather_rows, universe_bindings,
 )
 from .rdf import (
-    ID_DTYPE, NUM_BASE, PAD_ID, ROW_BASE, U32_MAX, TripleBatch, lexsort_order,
+    ID_DTYPE, NUM_BASE, PAD_ID, ROW_BASE, U32_MAX, TripleBatch, composite_key,
+    lexsort_order,
 )
 
 
@@ -219,9 +221,40 @@ def kb_join_scan(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
     return Bindings(rows, valid, (total > out_cap) | bind.overflow)
 
 
+def _probe_width_hw(bind: Bindings, kb: KnowledgeBase,
+                    pat: CompiledPattern) -> torch.Tensor:
+    """Widest probe range (``hi - lo``) over each window's valid binding
+    rows, ``[W]`` int32: the number ``k_max`` must dominate for the probe
+    to be lossless.  The fused probe never materializes ``lo``/``hi``
+    outside its kernel, so this is a plain ``searchsorted`` over the probe
+    view beside it, run only when metrics are on."""
+    keys, _, anchor, _ = probe_view(kb, pat)
+    if anchor.mode == SlotMode.CONST:
+        aval = torch.full(bind.valid.shape, int(anchor.const),
+                          dtype=bind.cols.dtype, device=bind.cols.device)
+    else:
+        aval = bind.cols[..., anchor.var]
+    lo, hi = probe_range(keys, composite_key(int(pat.p.const), aval))
+    width = torch.where(bind.valid, hi - lo, torch.zeros_like(lo))
+    return width.amax(-1).to(torch.int32)
+
+
+def kb_join_probe(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
+                  out_cap: int, k_max: int = 8,
+                  stats: Optional[dict] = None) -> Bindings:
+    """Join bindings against the KB through sorted-index probes: the fused
+    probe join (composite-key search, bounded ``k_max`` gather, exact
+    re-check and compaction), with the widest probe range as the
+    ``hw_probe_k`` gauge when ``stats`` is given."""
+    if stats is not None:
+        stat_max(stats, "hw_probe_k", _probe_width_hw(bind, kb, pat))
+    return hj_ops.probe_compact(bind, kb, pat, out_cap, k_max)
+
+
 def kb_join(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
             out_cap: int, method: str = "scan", k_max: int = 8,
-            fuse_compaction: bool = True) -> Bindings:
+            fuse_compaction: bool = True,
+            stats: Optional[dict] = None) -> Bindings:
     """Dispatch one KB join to its access method (resolved at plan time).
 
     The probe always runs the fused probe kernel, as the reference's
@@ -231,7 +264,7 @@ def kb_join(bind: Bindings, kb: KnowledgeBase, pat: CompiledPattern,
     """
     if method == "probe" and pat.p.mode == SlotMode.CONST and not (
             pat.s.mode == SlotMode.FREE and pat.o.mode == SlotMode.FREE):
-        return hj_ops.probe_compact(bind, kb, pat, out_cap, k_max)
+        return kb_join_probe(bind, kb, pat, out_cap, k_max, stats)
     return kb_join_scan(bind, kb, pat, out_cap, fuse_compaction)
 
 

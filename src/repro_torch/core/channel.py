@@ -130,3 +130,22 @@ def pop(ch: Channel) -> Tuple[Channel, Any, bool]:
 def occupancy(ch: Channel) -> int:
     """Current number of queued payloads."""
     return ch.size
+
+
+def snapshot(ch: Channel) -> Channel:
+    """Deep host copy of a channel's ring (a checkpoint ingredient).
+
+    ``push`` rewrites slots in place and a popped payload is a view of its
+    slot, so a checkpoint must never hold the device slots: the ring is
+    copied to the host (the copy waits for the writes enqueued before it,
+    a consistent cut) with ``head``, ``size`` and ``overflows``."""
+    return ch._replace(slots=tree_map(lambda t: t.to("cpu", copy=True),
+                                      ch.slots))
+
+
+def restore(snap: Channel, device) -> Channel:
+    """A :func:`snapshot` back in slots of its own on ``device`` (the
+    consumer's): the snapshot is never written, so it can be restored
+    again."""
+    return snap._replace(slots=tree_map(lambda t: t.to(device, copy=True),
+                                        snap.slots))

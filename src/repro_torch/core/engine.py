@@ -6,6 +6,12 @@ the window dimension ``W`` is written out in every op (the reference
 ``vmap``-s a per-window program instead).  :func:`run_plan_slides` is the
 incremental path: the step chain runs once per chunk over span-tagged
 bindings, and only the per-window tail runs batched over ``W``.
+
+Every runner takes ``with_stats``: True also returns a flat dict of chunk
+scalars (``repro_torch.obs.metrics``: occupancy high-water marks, probe
+widths, windows, retractions), computed on the device beside the step.
+Each instrumentation site is behind a Python-level ``stats is not None``
+test, so the stats-off call runs exactly the ops it runs without them.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..obs.metrics import reduce_stats, stat_add, stat_max
 from . import algebra
 from .kb import KnowledgeBase
 from .pattern import Bindings, CompiledPattern, compact_rows, universe_bindings
@@ -141,6 +148,19 @@ Env = Dict[str, torch.Tensor]
 # BindingJoin steps read these.
 Tables = Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
 
+# Optional metrics dict (repro_torch.obs.metrics).  None, the default
+# everywhere, collects nothing.  Inside a runner the gauges are per window,
+# ``[W]`` int32 (``[1]`` on the chunk-level delta chain); the runner
+# reduces them to chunk scalars on return.
+Stats = Optional[Dict[str, torch.Tensor]]
+
+
+def _rows(x) -> torch.Tensor:
+    """Valid rows of each window, ``[W]`` int32, of a binding table, a
+    triple batch or a bare ``[W, rows]`` mask."""
+    valid = x if torch.is_tensor(x) else x.valid
+    return valid.sum(-1, dtype=torch.int32)
+
 
 def plan_out_vars(plan: Plan) -> Tuple[int, ...]:
     """Columns the CONSTRUCT templates reference (the output signature)."""
@@ -186,18 +206,23 @@ def _join_table(step: BindingJoin, cur: Bindings, b: Bindings,
 
 def _apply(step: Step, cur: Bindings, window: TripleBatch,
            kb: Optional[KnowledgeBase], env: Env, plan: Plan,
-           tables: Tables = None) -> Bindings:
+           tables: Tables = None, stats: Stats = None) -> Bindings:
     if isinstance(step, BindingJoin):
-        return _join_table(step, cur,
-                           _binding_table(step, tables, plan.num_vars), plan)
+        b = _binding_table(step, tables, plan.num_vars)
+        if stats is not None:
+            stat_max(stats, "hw_scan", _rows(b))
+        return _join_table(step, cur, b, plan)
     if isinstance(step, ScanJoin):
         b = algebra.scan_pattern(window, step.pat, plan.num_vars, plan.scan_cap)
+        if stats is not None:
+            stat_max(stats, "hw_scan", _rows(b))
         return algebra.join(cur, b, step.shared, plan.bind_cap)
     if isinstance(step, KBJoin):
         assert kb is not None, "plan %s touches the KB but none attached" % plan.name
         return algebra.kb_join(cur, kb, step.pat, plan.bind_cap,
                                method=step.method, k_max=step.k_max,
-                               fuse_compaction=step.fuse_compaction)
+                               fuse_compaction=step.fuse_compaction,
+                               stats=stats)
     if isinstance(step, FilterNumStep):
         return algebra.filter_num(cur, step.var, step.op, step.value_id)
     if isinstance(step, FilterBoolStep):
@@ -208,15 +233,15 @@ def _apply(step: Step, cur: Bindings, window: TripleBatch,
         sub = universe_bindings(cur.num_windows, plan.bind_cap, plan.num_vars,
                                 cur.cols.device)
         for s in step.sub:
-            sub = _apply(s, sub, window, kb, env, plan, tables)
+            sub = _apply(s, sub, window, kb, env, plan, tables, stats)
         return algebra.optional_join(cur, sub, step.shared, plan.bind_cap)
     if isinstance(step, UnionSteps):
         left = cur
         for s in step.left:
-            left = _apply(s, left, window, kb, env, plan, tables)
+            left = _apply(s, left, window, kb, env, plan, tables, stats)
         right = cur
         for s in step.right:
-            right = _apply(s, right, window, kb, env, plan, tables)
+            right = _apply(s, right, window, kb, env, plan, tables, stats)
         return algebra.union(left, right, plan.bind_cap)
     if isinstance(step, DistinctStep):
         return algebra.distinct(cur)
@@ -227,10 +252,14 @@ def _apply(step: Step, cur: Bindings, window: TripleBatch,
 
 def run_steps(plan: Plan, cur: Bindings, steps: Sequence[Step],
               window: TripleBatch, kb: Optional[KnowledgeBase],
-              env: Env, tables: Tables = None) -> Bindings:
-    """Apply a step subsequence."""
+              env: Env, tables: Tables = None,
+              stats: Stats = None) -> Bindings:
+    """Apply a step subsequence (with the binding table's high-water mark
+    after every step when ``stats`` is given)."""
     for step in steps:
-        cur = _apply(step, cur, window, kb, env, plan, tables)
+        cur = _apply(step, cur, window, kb, env, plan, tables, stats)
+        if stats is not None:
+            stat_max(stats, "hw_bind", _rows(cur))
     return cur
 
 
@@ -245,40 +274,60 @@ def _emit_relation(plan: Plan, cur: Bindings) -> Bindings:
 
 
 def finalize_bindings(plan: Plan, cur: Bindings, ts: torch.Tensor,
-                      graph_base: torch.Tensor) -> Tuple[TripleBatch, torch.Tensor]:
+                      graph_base: torch.Tensor, stats: Stats = None
+                      ) -> Tuple[TripleBatch, torch.Tensor]:
     """Project onto the CONSTRUCT variables, dedup, canonically order,
     construct.  Returns (output triples [W, out_cap], overflow [W])."""
     emit = _emit_relation(plan, cur) if plan_out_vars(plan) else cur
     out, c_ovf = algebra.construct(emit, plan.templates, ts, plan.out_cap,
                                    graph_base)
+    if stats is not None:
+        stat_max(stats, "hw_out", _rows(out))
     return out, cur.overflow | emit.overflow | c_ovf
 
 
 def run_plan(plan: Plan, window: TripleBatch, kb: Optional[KnowledgeBase],
-             env: Env, graph_base: torch.Tensor, tables: Tables = None):
+             env: Env, graph_base: torch.Tensor, tables: Tables = None,
+             stats: Stats = None):
     """Execute ``plan`` on a ``[W, C]`` window batch.  Returns
     (constructed stream [W, out_cap], final bindings, overflow [W])."""
     w = window.valid.shape[0]
     cur = universe_bindings(w, plan.bind_cap, plan.num_vars, window.valid.device)
-    cur = run_steps(plan, cur, plan.steps, window, kb, env, tables)
+    cur = run_steps(plan, cur, plan.steps, window, kb, env, tables, stats)
     ts = torch.where(window.valid, window.ts, torch.zeros_like(window.ts)).amax(-1)
-    out, ovf = finalize_bindings(plan, cur, ts, graph_base)
+    out, ovf = finalize_bindings(plan, cur, ts, graph_base, stats)
     return out, cur, ovf
+
+
+def _chunk_stats(stats: Dict[str, torch.Tensor],
+                 window_valid: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-window gauges reduced to chunk scalars, plus the valid windows
+    (``window_valid`` None: a chunk-level table, which counts none)."""
+    stats = reduce_stats(stats)
+    if window_valid is not None:
+        stat_add(stats, "n_windows", window_valid.sum(dtype=torch.int32))
+    return stats
 
 
 def run_plan_windows(plan: Plan, windows: Windows,
                      kb: Optional[KnowledgeBase], env: Env,
-                     tables: Tables = None):
+                     tables: Tables = None, with_stats: bool = False):
     """Run the plan over every window of the batch at once.
 
     Returns a ``[W, out_cap]``-leaf TripleBatch plus a ``[W]`` overflow
-    flag (a set flag means capacities clipped that window).
+    flag (a set flag means capacities clipped that window), plus the chunk
+    stats when ``with_stats``.
     """
     w = windows.num_windows
     dev = windows.window_valid.device
+    stats: Stats = {} if with_stats else None
     graph_base = torch.arange(w, dtype=ID_DTYPE, device=dev) * plan.bind_cap
-    out, _, ovf = run_plan(plan, windows.triples, kb, env, graph_base, tables)
-    return out._replace(valid=out.valid & windows.window_valid[:, None]), ovf
+    out, _, ovf = run_plan(plan, windows.triples, kb, env, graph_base, tables,
+                           stats)
+    out = out._replace(valid=out.valid & windows.window_valid[:, None])
+    if stats is None:
+        return out, ovf
+    return out, ovf, _chunk_stats(stats, windows.window_valid)
 
 
 # --------------------------------------------------------------------------
@@ -287,7 +336,8 @@ def run_plan_windows(plan: Plan, windows: Windows,
 
 def _apply_delta(step: Step, cur: Bindings, view: SlideView,
                  kb: Optional[KnowledgeBase], env: Env, plan: Plan,
-                 max_span: int, tables: Tables = None) -> Bindings:
+                 max_span: int, tables: Tables = None,
+                 stats: Stats = None) -> Bindings:
     """One plan step over one span-tagged table (``num_vars + 2`` columns).
 
     Every step here is monotone (``planner.plan_supports_delta`` gates
@@ -300,27 +350,32 @@ def _apply_delta(step: Step, cur: Bindings, view: SlideView,
     and a combined derivation fits a window iff every constituent span
     does.
     """
-    if isinstance(step, BindingJoin):
-        b = _binding_table(step, tables, plan.num_vars + 2, num_span=2)
-        return algebra.delta_retract(_join_table(step, cur, b, plan),
-                                     plan.num_vars, max_span)
-    if isinstance(step, ScanJoin):
-        b = algebra.scan_pattern_delta(view.stream, step.pat, plan.num_vars,
-                                       plan.scan_cap, view.slide_of_row)
-        joined = algebra.join(cur, b, step.shared, plan.bind_cap)
-        return algebra.delta_retract(joined, plan.num_vars, max_span)
+    if isinstance(step, (BindingJoin, ScanJoin)):
+        if isinstance(step, BindingJoin):
+            b = _binding_table(step, tables, plan.num_vars + 2, num_span=2)
+            joined = _join_table(step, cur, b, plan)
+        else:
+            b = algebra.scan_pattern_delta(view.stream, step.pat,
+                                           plan.num_vars, plan.scan_cap,
+                                           view.slide_of_row)
+            joined = algebra.join(cur, b, step.shared, plan.bind_cap)
+        retracted = algebra.delta_retract(joined, plan.num_vars, max_span)
+        if stats is not None:
+            stat_max(stats, "hw_scan", _rows(b))
+            stat_add(stats, "n_retract", _rows(joined) - _rows(retracted))
+        return retracted
     if isinstance(step, UnionSteps):
         left = cur
         for s in step.left:
             left = _apply_delta(s, left, view, kb, env, plan, max_span,
-                                tables)
+                                tables, stats)
         right = cur
         for s in step.right:
             right = _apply_delta(s, right, view, kb, env, plan, max_span,
-                                 tables)
+                                 tables, stats)
         return algebra.union(left, right, plan.bind_cap)
     if isinstance(step, (KBJoin, FilterNumStep, FilterBoolStep, FilterInStep)):
-        return _apply(step, cur, view.stream, kb, env, plan)
+        return _apply(step, cur, view.stream, kb, env, plan, stats=stats)
     raise TypeError(
         "step %r is not delta-safe: plan_supports_delta should have routed "
         "this plan to per-window recompute" % (step,))
@@ -328,19 +383,21 @@ def _apply_delta(step: Step, cur: Bindings, view: SlideView,
 
 def _delta_chain(plan: Plan, view: SlideView, slides_per_window: int,
                  kb: Optional[KnowledgeBase], env: Env,
-                 tables: Tables = None) -> Bindings:
+                 tables: Tables = None, stats: Stats = None) -> Bindings:
     """The plan's step chain once over the chunk: one span-tagged table."""
     cur = algebra.delta_universe(plan.bind_cap, plan.num_vars,
                                  view.slide_valid.device)
     for step in plan.steps:
         cur = _apply_delta(step, cur, view, kb, env, plan,
-                           slides_per_window - 1, tables)
+                           slides_per_window - 1, tables, stats)
+        if stats is not None:
+            stat_max(stats, "hw_bind", _rows(cur))
     return cur
 
 
 def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
                     max_windows: int, kb: Optional[KnowledgeBase], env: Env,
-                    tables: Tables = None):
+                    tables: Tables = None, with_stats: bool = False):
     """Incremental execution: one chunk-level pass, per-window selection.
 
     The step chain runs ONCE over the merged stream (``W = 1``) with slide
@@ -354,11 +411,14 @@ def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
     across the chunk where recompute has them per window, so overflow trips
     earlier here; the flag reports it as usual.
 
-    Returns a ``[W, out_cap]``-leaf TripleBatch plus a ``[W]`` overflow flag.
+    Returns a ``[W, out_cap]``-leaf TripleBatch plus a ``[W]`` overflow
+    flag (plus the chunk stats when ``with_stats``: the chain's gauges are
+    chunk-level already, ``hw_out`` is the fullest window's).
     """
     r = slides_per_window
     dev = view.slide_valid.device
-    cur = _delta_chain(plan, view, r, kb, env, tables)
+    stats: Stats = {} if with_stats else None
+    cur = _delta_chain(plan, view, r, kb, env, tables, stats)
     out_vars = plan_out_vars(plan)
     assert out_vars, (
         "plan %s has no output variables: plan_supports_delta should have "
@@ -378,7 +438,11 @@ def run_plan_slides(plan: Plan, view: SlideView, slides_per_window: int,
     out, c_ovf = algebra.construct(emit, plan.templates, w_ts, plan.out_cap,
                                    wid.to(ID_DTYPE) * plan.bind_cap)
     out = out._replace(valid=out.valid & w_valid[:, None])
-    return out, chunk_ovf | emit.overflow | c_ovf
+    ovf = chunk_ovf | emit.overflow | c_ovf
+    if stats is None:
+        return out, ovf
+    stat_max(stats, "hw_out", _rows(out).amax())
+    return out, ovf, _chunk_stats(stats, w_valid)
 
 
 # --------------------------------------------------------------------------
@@ -422,35 +486,46 @@ def _clip_table(emit: Bindings, pub_cols: Tuple[int, ...], rows_cap: int
 
 def run_plan_window_tables(plan: Plan, windows: Windows,
                            pub_cols: Tuple[int, ...], rows_cap: int,
-                           kb: Optional[KnowledgeBase], env: Env):
+                           kb: Optional[KnowledgeBase], env: Env,
+                           with_stats: bool = False):
     """Upstream table producer, per window: the operator's whole step
     chain, then project -> distinct -> canonical_order (the emit relation
     the triple publication constructs from), clipped to ``rows_cap`` rows.
 
-    Returns ``((cols [W, rows_cap, k], valid [W, rows_cap]), ovf [W])``.
+    Returns ``((cols [W, rows_cap, k], valid [W, rows_cap]), ovf [W])``
+    (plus the chunk stats when ``with_stats``).
     """
     w = windows.num_windows
+    stats: Stats = {} if with_stats else None
     cur = universe_bindings(w, plan.bind_cap, plan.num_vars,
                             windows.window_valid.device)
-    cur = run_steps(plan, cur, plan.steps, windows.triples, kb, env)
+    cur = run_steps(plan, cur, plan.steps, windows.triples, kb, env,
+                    stats=stats)
     emit = _emit_relation(plan, cur)
     cols, valid, clipped = _clip_table(emit, pub_cols, rows_cap)
     valid = valid & windows.window_valid[:, None]
-    return (cols, valid), cur.overflow | emit.overflow | clipped
+    ovf = cur.overflow | emit.overflow | clipped
+    if stats is None:
+        return (cols, valid), ovf
+    stat_max(stats, "hw_out", _rows(valid))
+    return (cols, valid), ovf, _chunk_stats(stats, windows.window_valid)
 
 
 def run_plan_slide_tables(plan: Plan, view: SlideView,
                           pub_cols: Tuple[int, ...], rows_cap: int,
                           slides_per_window: int,
-                          kb: Optional[KnowledgeBase], env: Env):
+                          kb: Optional[KnowledgeBase], env: Env,
+                          with_stats: bool = False):
     """Upstream table producer, incremental: one chunk-level delta pass,
     emitting the span-tagged table (variable columns + the two span
     columns).  The sink's per-window interval test selects each window's
     rows, so the table is produced once per chunk, not once per window.
 
-    Returns ``((cols [rows_cap, k + 2], valid [rows_cap]), ovf [])``.
+    Returns ``((cols [rows_cap, k + 2], valid [rows_cap]), ovf [])``
+    (plus the chunk stats when ``with_stats``).
     """
-    cur = _delta_chain(plan, view, slides_per_window, kb, env)
+    stats: Stats = {} if with_stats else None
+    cur = _delta_chain(plan, view, slides_per_window, kb, env, stats=stats)
     nv = plan.num_vars
     span = (nv, nv + 1)
     # dedup over (variables, span): rows equal in both are interchangeable
@@ -459,29 +534,36 @@ def run_plan_slide_tables(plan: Plan, view: SlideView,
         algebra.project(cur, tuple(plan_out_vars(plan)) + span))
     cols, valid, clipped = _clip_table(emit, tuple(pub_cols) + span,
                                        rows_cap)
-    return (cols[0], valid[0]), (cur.overflow | emit.overflow | clipped)[0]
+    table = (cols[0], valid[0])
+    ovf = (cur.overflow | emit.overflow | clipped)[0]
+    if stats is None:
+        return table, ovf
+    stat_max(stats, "hw_out", _rows(valid))
+    return table, ovf, _chunk_stats(stats, None)
 
 
 def run_sink_windows(plan: Plan, windows: Windows,
                      tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
-                     kb: Optional[KnowledgeBase], env: Env):
+                     kb: Optional[KnowledgeBase], env: Env,
+                     with_stats: bool = False):
     """Split-sink twin of :func:`run_plan_windows`: the rewritten sink plan
     over the RAW windows, with the per-window upstream tables (leaves
     ``[W, rows, k]`` / ``[W, rows]``).  The finalize tail, and so the
     published bytes, are those of the unsplit path: upstream publication
     triples carry their window's max timestamp, so the raw window's ts is
     the augmented one's."""
-    return run_plan_windows(plan, windows, kb, env, tables)
+    return run_plan_windows(plan, windows, kb, env, tables, with_stats)
 
 
 def run_sink_slides(plan: Plan, view: SlideView,
                     tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                     slides_per_window: int, max_windows: int,
-                    kb: Optional[KnowledgeBase], env: Env):
+                    kb: Optional[KnowledgeBase], env: Env,
+                    with_stats: bool = False):
     """Split-sink twin of :func:`run_plan_slides`: the rewritten sink
     plan's delta pass over the chunk, joining chunk-level span-tagged
     upstream tables, then the per-window interval select and finalize.
     Shares :func:`run_plan_slides` so the set-to-stream tail cannot diverge
     from the recompute path."""
     return run_plan_slides(plan, view, slides_per_window, max_windows, kb,
-                           env, tables)
+                           env, tables, with_stats)

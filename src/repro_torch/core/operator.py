@@ -4,6 +4,9 @@ The operator owns a compiled plan, its pruned KB partition and the static
 window geometry.  ``process`` merges/orders input chunks, windows them,
 runs the engine over every window at once (or, in incremental mode, once
 over the chunk's slides) and publishes the constructed output stream.
+
+Every ``process*`` method takes ``with_stats``: True also returns the
+engine's chunk metrics (``repro_torch.obs.metrics``) as a last element.
 """
 from __future__ import annotations
 
@@ -60,12 +63,13 @@ class SCEPOperator:
         self.env = dict(env)
         self.config = config if config is not None else OperatorConfig()
 
-    def process_windows(self, windows: Windows):
+    def process_windows(self, windows: Windows, with_stats: bool = False):
         """Window-aligned engine step: ``[W, C]`` in -> ``[W, out_cap]`` out
         (the DAG runtime keeps upstream results in their window)."""
-        return run_plan_windows(self.plan, windows, self.kb, self.env)
+        return run_plan_windows(self.plan, windows, self.kb, self.env,
+                                with_stats=with_stats)
 
-    def process_slides(self, view: SlideView):
+    def process_slides(self, view: SlideView, with_stats: bool = False):
         """Slide-aligned engine step for incremental mode: the chunk runs
         once with delta state when the plan is delta-safe, else the
         overlapping windows are materialized and recomputed one by one;
@@ -74,52 +78,70 @@ class SCEPOperator:
         _, r = window_slides(cfg.window_capacity, cfg.window_step)
         if plan_supports_delta(self.plan):
             return run_plan_slides(self.plan, view, r, cfg.max_windows,
-                                   self.kb, self.env)
+                                   self.kb, self.env, with_stats=with_stats)
         windows = windows_from_slides(view, cfg.window_capacity,
                                       cfg.max_windows, cfg.window_step)
-        return self.process_windows(windows)
+        return self.process_windows(windows, with_stats)
 
     # -- split-sink surfaces (see the engine's split-sink section) -----------
     def process_window_tables(self, windows: Windows,
-                              pub_cols: Tuple[int, ...], rows_cap: int):
+                              pub_cols: Tuple[int, ...], rows_cap: int,
+                              with_stats: bool = False):
         """Table-producing twin of :meth:`process_windows`: the operator's
         final binding table per window instead of its triple publication,
         what the split aggregation sink joins directly."""
         return run_plan_window_tables(self.plan, windows, pub_cols, rows_cap,
-                                      self.kb, self.env)
+                                      self.kb, self.env, with_stats)
 
     def process_slide_tables(self, view: SlideView,
-                             pub_cols: Tuple[int, ...], rows_cap: int):
+                             pub_cols: Tuple[int, ...], rows_cap: int,
+                             with_stats: bool = False):
         """Incremental table producer: one chunk-level span-tagged table
         (the plan must be delta-safe; the split-sink builder checks)."""
         _, r = window_slides(self.config.window_capacity,
                              self.config.window_step)
         return run_plan_slide_tables(self.plan, view, pub_cols, rows_cap, r,
-                                     self.kb, self.env)
+                                     self.kb, self.env, with_stats)
 
-    def process_sink_windows(self, windows: Windows, tables):
+    def process_sink_windows(self, windows: Windows, tables,
+                             with_stats: bool = False):
         """Split-sink step over RAW windows and per-window upstream tables
         (``self.plan`` is the rewritten plan with BindingJoin steps)."""
-        return run_sink_windows(self.plan, windows, tables, self.kb, self.env)
+        return run_sink_windows(self.plan, windows, tables, self.kb, self.env,
+                                with_stats)
 
-    def process_sink_slides(self, view: SlideView, tables):
+    def process_sink_slides(self, view: SlideView, tables,
+                            with_stats: bool = False):
         """Split-sink step on the delta path: the sink's own chain runs once
         per chunk over span-tagged upstream tables, finalized per window."""
         cfg = self.config
         _, r = window_slides(cfg.window_capacity, cfg.window_step)
         return run_sink_slides(self.plan, view, tables, r, cfg.max_windows,
-                               self.kb, self.env)
+                               self.kb, self.env, with_stats)
 
-    def process(self, chunks: Sequence[TripleBatch]) -> Tuple[TripleBatch, torch.Tensor]:
-        """Process one round of input chunks; returns (output chunk, overflow[W])."""
+    def process(self, chunks: Sequence[TripleBatch], with_stats: bool = False):
+        """Process one round of input chunks; returns (output chunk,
+        overflow[W]), and the chunk stats when ``with_stats``."""
         cfg = self.config
         merged = merge_streams(chunks)                       # Aggregator
         if cfg.incremental:
             view = count_slides(merged, cfg.window_capacity, cfg.max_windows,
                                 cfg.window_step)
-            out_w, overflow = self.process_slides(view)
+            res = self.process_slides(view, with_stats)
         else:
             windows = count_windows(merged, cfg.window_capacity,
                                     cfg.max_windows, cfg.window_step)
-            out_w, overflow = self.process_windows(windows)  # engines
-        return publish_chunk(out_w, cfg.out_stream_cap), overflow
+            res = self.process_windows(windows, with_stats)  # engines
+        return (publish_chunk(res[0], cfg.out_stream_cap),) + tuple(res[1:])
+
+    # -- checkpoint surface (repro_torch.core.recovery) ------------------
+    def state(self) -> Dict[str, torch.Tensor]:
+        """Deep host copy of the operator's device state: the env tables
+        its steps read (closure sets).  The copy waits for the work that
+        writes them, so a checkpoint is a consistent cut."""
+        return {k: v.to("cpu", copy=True) for k, v in self.env.items()}
+
+    def restore_state(self, snap: Dict[str, torch.Tensor], device) -> None:
+        """Put a :meth:`state` copy back on ``device`` (the operator's
+        placed device), as tensors of its own."""
+        self.env = {k: v.to(device, copy=True) for k, v in snap.items()}

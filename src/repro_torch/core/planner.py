@@ -9,6 +9,8 @@
 * ``prune_kb_for``  — the "used KB" extraction per sub-query.
 * ``split_agg_plan`` — the aggregation sink rewritten to join upstream
   binding tables (the split sink) instead of decoding their triples.
+* ``explain_plan``  — a compiled plan's decisions as a JSON-ready artifact
+  (``RegisteredQuery.explain()``).
 
 Closure sets (subclass FILTER env, ``p+``/``p*`` path relations) are always
 computed through :mod:`repro_torch.kernels.closure` on the KB's device: the
@@ -29,8 +31,9 @@ import torch
 
 from . import query as Q
 from .engine import (
-    BindingJoin, FilterBoolStep, FilterInStep, FilterNumStep, KBJoin,
-    OptionalSteps, Plan, ScanJoin, Step, UnionSteps, plan_out_vars,
+    BindingJoin, DistinctStep, FilterBoolStep, FilterInStep, FilterNumStep,
+    KBJoin, OptionalSteps, Plan, ProjectStep, ScanJoin, Step, UnionSteps,
+    plan_out_vars,
 )
 from .kb import KBStats, KnowledgeBase, build_kb, host_rows, prune
 from .pattern import CompiledPattern, Slot, SlotMode
@@ -521,6 +524,134 @@ def plan_caps(plan: Plan) -> Dict[str, int]:
 
     return {"scan_cap": plan.scan_cap, "bind_cap": plan.bind_cap,
             "out_cap": plan.out_cap, "k_max": max_k(plan.steps)}
+
+
+def _render_slot(slot: Slot, plan: Plan, vocab: Optional[Vocab]) -> str:
+    if slot.mode == SlotMode.CONST:
+        cid = int(slot.const)
+        if CLOSURE_PRED_BASE <= cid < PRED_SPACE:
+            return "<closure#%d>" % (cid - CLOSURE_PRED_BASE)
+        return vocab.to_str(cid) if vocab is not None else "<%d>" % cid
+    name = (plan.var_names[slot.var] if slot.var < len(plan.var_names)
+            else "_%d" % slot.var)
+    return "?" + name
+
+
+def _render_pattern(cp: CompiledPattern, plan: Plan,
+                    vocab: Optional[Vocab]) -> str:
+    return " ".join(_render_slot(sl, plan, vocab) for sl in (cp.s, cp.p, cp.o))
+
+
+def _names(plan: Plan, cols: Sequence[int]) -> List[str]:
+    return [plan.var_names[c] if c < len(plan.var_names) else "_%d" % c
+            for c in cols]
+
+
+def _explain_steps(
+    steps: Sequence[Step], plan: Plan, kb_stats: Optional[KBStats],
+    vocab: Optional[Vocab],
+) -> List[Dict]:
+    out: List[Dict] = []
+    for step in steps:
+        if isinstance(step, ScanJoin):
+            out.append({
+                "step": "ScanJoin",
+                "pattern": _render_pattern(step.pat, plan, vocab),
+                "shared": _names(plan, step.shared),
+            })
+        elif isinstance(step, KBJoin):
+            entry: Dict = {
+                "step": "KBJoin",
+                "pattern": _render_pattern(step.pat, plan, vocab),
+                "method": step.method,
+            }
+            if step.method == "probe":
+                entry["k_max"] = step.k_max
+            cp = step.pat
+            if cp.s.mode != SlotMode.FREE:
+                entry["anchor"] = "s"
+            elif cp.o.mode != SlotMode.FREE:
+                entry["anchor"] = "o"
+            if kb_stats is not None and cp.p.mode == SlotMode.CONST:
+                stat = kb_stats.preds.get(int(cp.p.const))
+                if stat is None:
+                    entry["est_rows"], entry["est_fanout"] = 0, 0.0
+                else:
+                    entry["est_rows"] = int(stat.rows)
+                    fan = (stat.k_ps if cp.s.mode != SlotMode.FREE
+                           else stat.k_po if cp.o.mode != SlotMode.FREE
+                           else stat.rows)
+                    entry["est_fanout"] = float(fan)
+            out.append(entry)
+        elif isinstance(step, FilterNumStep):
+            out.append({
+                "step": "FilterNum",
+                "pattern": "?%s %s %s" % (
+                    plan.var_names[step.var], step.op,
+                    vocab.to_str(step.value_id) if vocab is not None
+                    else step.value_id),
+            })
+        elif isinstance(step, FilterBoolStep):
+            out.append({"step": "FilterBool", "pattern": repr(step.expr)})
+        elif isinstance(step, FilterInStep):
+            out.append({
+                "step": "FilterIn",
+                "pattern": "?%s in env[%s]" % (
+                    plan.var_names[step.var], step.set_name),
+            })
+        elif isinstance(step, OptionalSteps):
+            out.append({
+                "step": "Optional",
+                "shared": _names(plan, step.shared),
+                "sub": _explain_steps(step.sub, plan, kb_stats, vocab),
+            })
+        elif isinstance(step, UnionSteps):
+            out.append({
+                "step": "Union",
+                "left": _explain_steps(step.left, plan, kb_stats, vocab),
+                "right": _explain_steps(step.right, plan, kb_stats, vocab),
+            })
+        elif isinstance(step, BindingJoin):
+            out.append({
+                "step": "BindingJoin",
+                "source": step.source,
+                "cols": _names(plan, step.cols),
+                "shared": _names(plan, step.shared),
+                "replace": step.replace,
+            })
+        elif isinstance(step, DistinctStep):
+            out.append({"step": "Distinct"})
+        elif isinstance(step, ProjectStep):
+            out.append({"step": "Project", "pattern": ", ".join(
+                "?" + n for n in _names(plan, step.keep))})
+        else:
+            out.append({"step": type(step).__name__})
+    return out
+
+
+def explain_plan(
+    plan: Plan, kb_stats: Optional[KBStats] = None,
+    vocab: Optional[Vocab] = None,
+) -> Dict:
+    """The compiled plan's decisions as a JSON-ready artifact.
+
+    Per step: the rendered pattern, the chosen KB-access method and derived
+    ``k_max`` and — when ``kb_stats`` (from
+    :func:`repro_torch.core.kb.collect_kb_stats`) is supplied — the estimated
+    per-binding fan-out the cost model compared (``est_fanout``) and the
+    relation size (``est_rows``).  The step list order *is* the join order
+    the cost model committed to.  Pure host-side introspection: no step
+    runs.
+    """
+    return {
+        "plan": plan.name,
+        "var_names": list(plan.var_names),
+        "caps": plan_caps(plan),
+        "delta_capable": plan_supports_delta(plan),
+        "steps": _explain_steps(plan.steps, plan, kb_stats, vocab),
+        "construct_templates": len(plan.templates),
+    }
+
 
 
 # --------------------------------------------------------------------------

@@ -15,6 +15,12 @@
 
 :class:`~repro_torch.core.pipeline.PipelinedRuntime` runs the same stages
 as independently scheduled steps joined by channels.
+
+Each runtime takes an optional :class:`~repro_torch.obs.trace.Tracer`:
+then a ``"chunk"`` span (``mode`` in its meta) times every chunk, and with
+``TraceConfig.metrics`` the engine's chunk metrics fold into per-operator
+accumulators on the device (:meth:`op_metrics` reads them).  Untraced, a
+runtime calls nothing in :mod:`repro_torch.obs`.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs.metrics import finalize_stats, merge_stats
+from ..obs.trace import NULL_SPAN, Tracer
 from .kb import KnowledgeBase, collect_kb_stats, pad_to
 from .operator import OperatorConfig, SCEPOperator, publish_chunk
 from .engine import Plan
@@ -31,6 +39,7 @@ from .planner import (
     plan_supports_delta, prepare_env, prune_kb_for, split_agg_plan,
 )
 from .rdf import TripleBatch, Vocab
+from .recovery import empty_recovery_stats
 from .stream import merge_streams
 from .window import (
     SlideView, Windows, count_slides, count_windows, windows_from_slides,
@@ -212,40 +221,77 @@ def source_stage(merged: TripleBatch, config: RuntimeConfig,
 
 
 def upstream_stage(split: Optional[SplitSink], name: str, op: SCEPOperator,
-                   payload, max_windows: int):
+                   payload, max_windows: int, with_stats: bool = False):
     """One enrichment operator's step over a chunk's windows (or slide
-    view).  Returns ``(publication, overflow [max_windows])``: its binding
-    table under the split sink (per window, or chunk-level over a
-    ``SlideView`` when delta), else its output triples.  A delta table's
-    chunk-level flag is broadcast to the per-window convention every
-    overflow consumer expects."""
+    view).  Returns ``(publication, overflow [max_windows])``, and the
+    chunk stats when ``with_stats``: its binding table under the split sink
+    (per window, or chunk-level over a ``SlideView`` when delta), else its
+    output triples.  A delta table's chunk-level flag is broadcast to the
+    per-window convention every overflow consumer expects."""
     if split is None:
         if isinstance(payload, SlideView):
-            return op.process_slides(payload)
-        return op.process_windows(payload)
+            return op.process_slides(payload, with_stats)
+        return op.process_windows(payload, with_stats)
     spec = split.pub[name]
     if split.delta:
-        table, ovf = op.process_slide_tables(payload, spec.cols,
-                                             spec.slide_rows_cap)
-        return table, ovf.expand(max_windows)
-    return op.process_window_tables(payload, spec.cols, spec.rows_cap)
+        table, ovf, *stats = op.process_slide_tables(
+            payload, spec.cols, spec.slide_rows_cap, with_stats)
+        return (table, ovf.expand(max_windows), *stats)
+    return op.process_window_tables(payload, spec.cols, spec.rows_cap,
+                                    with_stats)
 
 
 def sink_stage(dag: OperatorDAG, split: Optional[SplitSink],
-               op: SCEPOperator, payload, inputs: Dict[str, Any]):
+               op: SCEPOperator, payload, inputs: Dict[str, Any],
+               with_stats: bool = False):
     """The aggregation operator's step.  The split sink joins the upstream
     tables over the raw windows (or the slide view, delta); otherwise the
     upstream output triples are appended to the very window that produced
-    them, in the final sub-query's declared input order, and decoded."""
+    them, in the final sub-query's declared input order, and decoded.
+    Returns ``(output triples [W, out_cap], overflow [W])``, and the chunk
+    stats when ``with_stats``."""
     if split is None:
         parts = [payload.triples] + [
             inputs[src] for src in dag.subqueries[dag.final].inputs
             if src != "stream"]
         aug = TripleBatch(*(torch.cat(cols, dim=-1) for cols in zip(*parts)))
-        return op.process_windows(Windows(aug, payload.window_valid))
+        return op.process_windows(Windows(aug, payload.window_valid),
+                                  with_stats)
     if split.delta:
-        return op.process_sink_slides(payload, inputs)
-    return op.process_sink_windows(payload, inputs)
+        return op.process_sink_slides(payload, inputs, with_stats)
+    return op.process_sink_windows(payload, inputs, with_stats)
+
+
+def dag_chunk(dag: OperatorDAG, split: Optional[SplitSink],
+              operators: Dict[str, SCEPOperator], config: RuntimeConfig,
+              chunk: TripleBatch, with_stats: bool = False):
+    """One chunk through every stage of the DAG, channel-free: the source
+    stage, each upstream operator, the sink, the publisher.  Returns
+    ``(published chunk, {operator: overflow [W]}, {operator: stats})``
+    (the stats dict is empty unless ``with_stats``)."""
+    final = dag.final
+    sink_in, op_in = source_stage(merge_streams([chunk]), config, split)
+    overflow: Dict[str, torch.Tensor] = {}
+    inputs: Dict[str, Any] = {}
+    stats: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name in dag.subqueries:
+        if name != final:
+            inputs[name], overflow[name], *st = upstream_stage(
+                split, name, operators[name], op_in, config.max_windows,
+                with_stats)
+            if st:
+                stats[name] = st[0]
+    out_w, overflow[final], *st = sink_stage(
+        dag, split, operators[final], sink_in, inputs, with_stats)
+    if st:
+        stats[final] = st[0]
+    return publish_chunk(out_w, config.out_stream_cap), overflow, stats
+
+
+def stage_span(tracer: Optional[Tracer], name: str, **meta):
+    """The span a runtime opens around a stage: the tracer's, or the null
+    span when untraced (which calls no function of the tracer's module)."""
+    return NULL_SPAN if tracer is None else tracer.span(name, **meta)
 
 
 class _OverflowAccumulator:
@@ -255,6 +301,10 @@ class _OverflowAccumulator:
     def __init__(self, names: Sequence[str], device):
         self._acc = {n: torch.zeros((), dtype=torch.int64, device=device)
                      for n in names}
+
+    def restore(self, mark: Dict[str, torch.Tensor]) -> None:
+        """Set the counts to a :meth:`mark` (a checkpoint's)."""
+        self._acc = dict(mark)
 
     def add(self, name: str, flags: torch.Tensor) -> None:
         self._acc[name] = self._acc[name] + flags.sum()
@@ -275,13 +325,18 @@ class DSCEPRuntime:
     """Executes a decomposed query DAG over chunked input streams."""
 
     def __init__(self, dag: OperatorDAG, kb: KnowledgeBase, vocab: Vocab,
-                 config: Optional[RuntimeConfig] = None):
+                 config: Optional[RuntimeConfig] = None,
+                 tracer: Optional[Tracer] = None):
         self.dag = dag
         self.config = config if config is not None else RuntimeConfig()
         self.vocab = vocab
         # the split sink (None keeps the augmented-window path)
         self.operators, self._split = build_dag(dag, kb, self.config)
         self._overflow = _OverflowAccumulator(self.operators, kb.device)
+        self.tracer = tracer
+        self._collect = bool(tracer is not None and tracer.config.metrics)
+        self._stats_acc: Dict[str, Dict[str, torch.Tensor]] = {
+            n: {} for n in self.operators}
 
     @property
     def sink_kind(self) -> str:
@@ -290,22 +345,16 @@ class DSCEPRuntime:
     def process_chunk(self, chunk: TripleBatch) -> Tuple[TripleBatch, Dict[str, torch.Tensor]]:
         """Push one stream chunk through the DAG; returns (final output,
         per-operator overflow flags [W])."""
-        cfg = self.config
-        final = self.dag.final
-        sink_in, op_in = source_stage(merge_streams([chunk]), cfg,
-                                      self._split)
-        overflow: Dict[str, torch.Tensor] = {}
-        inputs: Dict[str, Any] = {}
-        for name in self.dag.subqueries:
-            if name != final:
-                inputs[name], overflow[name] = upstream_stage(
-                    self._split, name, self.operators[name], op_in,
-                    cfg.max_windows)
-        out_w, overflow[final] = sink_stage(
-            self.dag, self._split, self.operators[final], sink_in, inputs)
+        with stage_span(self.tracer, "chunk", mode="single_program") as sp:
+            out, overflow, stats = dag_chunk(self.dag, self._split,
+                                             self.operators, self.config,
+                                             chunk, self._collect)
+            for name, st in stats.items():
+                merge_stats(self._stats_acc[name], st)
+            sp.fence(out)
         for name, flags in overflow.items():
             self._overflow.add(name, flags)
-        return publish_chunk(out_w, cfg.out_stream_cap), overflow
+        return out, overflow
 
     def process_stream(self, chunks: Sequence[TripleBatch]
                        ) -> Tuple[List[TripleBatch], Dict[str, int]]:
@@ -324,13 +373,29 @@ class DSCEPRuntime:
         tensors handed from one stage to the next within a chunk."""
         return {}
 
+    def op_metrics(self) -> Dict[str, Dict[str, int]]:
+        """Per-operator engine metrics, read from the device (empty unless
+        the runtime has a metrics-collecting tracer)."""
+        return {n: finalize_stats(a) for n, a in self._stats_acc.items() if a}
+
+    @property
+    def degraded(self) -> bool:
+        """No channels to route a chunk around in this mode."""
+        return False
+
+    def recovery_stats(self) -> Dict[str, Any]:
+        """The recovery surface's shape, inert: faults and recovery belong
+        to the pipelined runtime only."""
+        return empty_recovery_stats(False)
+
 
 class MonolithicRuntime:
     """Single-operator execution of the *whole* query against the *full*
     KB: the paper's Table-2 baseline (no decomposition, no pruning)."""
 
     def __init__(self, q, kb: KnowledgeBase,
-                 config: Optional[RuntimeConfig] = None):
+                 config: Optional[RuntimeConfig] = None,
+                 tracer: Optional[Tracer] = None):
         config = config if config is not None else RuntimeConfig()
         kb = augment_kb_with_closures(q, kb)
         plan = compile_query(
@@ -347,9 +412,16 @@ class MonolithicRuntime:
         self.operator = SCEPOperator(q.name, plan, kb, env,
                                      config.operator_config())
         self._overflow = _OverflowAccumulator([q.name], kb.device)
+        self.tracer = tracer
+        self._collect = bool(tracer is not None and tracer.config.metrics)
+        self._stats_acc: Dict[str, torch.Tensor] = {}
 
     def process_chunk(self, chunk: TripleBatch) -> Tuple[TripleBatch, torch.Tensor]:
-        out, ovf = self.operator.process([chunk])
+        with stage_span(self.tracer, "chunk", mode="monolithic") as sp:
+            out, ovf, *stats = self.operator.process([chunk], self._collect)
+            for st in stats:
+                merge_stats(self._stats_acc, st)
+            sp.fence(out)
         self._overflow.add(self.operator.name, ovf)
         return out, ovf
 
@@ -365,3 +437,16 @@ class MonolithicRuntime:
 
     def channel_stats(self) -> Dict[str, Dict[str, int]]:
         return {}
+
+    def op_metrics(self) -> Dict[str, Dict[str, int]]:
+        if not self._stats_acc:
+            return {}
+        return {self.operator.name: finalize_stats(self._stats_acc)}
+
+    @property
+    def degraded(self) -> bool:
+        """The baseline has no channels to degrade around."""
+        return False
+
+    def recovery_stats(self) -> Dict[str, Any]:
+        return empty_recovery_stats(False)

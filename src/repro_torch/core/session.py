@@ -14,9 +14,17 @@ plain PyTorch versions of the kernels on the host.
 ``monolithic``, ``single_program`` and ``pipelined`` produce bit-identical
 output streams, and so do sliding windows with and without incremental
 evaluation.  ``pipelined`` places the operators on devices (``placement``)
-and keeps up to ``channel_capacity`` chunks in flight between them.  Knobs
-of the reference that this port does not have yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; none is ignored.
+and keeps up to ``channel_capacity`` chunks in flight between them.
+
+``trace=True`` (or a :class:`~repro_torch.obs.trace.TraceConfig`) records
+spans and device-side engine metrics in every mode, read through
+``RegisteredQuery.last_stats``; ``RegisteredQuery.explain()`` reports the
+planner's decisions.  ``faults=`` (a seeded
+:class:`~repro_torch.core.faults.FaultPlan`) and ``recovery=`` (a
+:class:`~repro_torch.core.recovery.RecoveryConfig`) run the pipelined mode
+under injected faults and its recovery ladder.  ``mesh=``, the one knob of
+the reference this port does not have yet, raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -27,10 +35,14 @@ import torch
 
 from . import query as Q
 from ..launch.mesh import place_operators
-from .kb import KnowledgeBase
+from ..obs.report import attach_saturation
+from ..obs.trace import TraceConfig, Tracer, resolve_trace
+from .faults import FaultPlan
+from .kb import KnowledgeBase, collect_kb_stats
 from .pipeline import PipelinedRuntime
-from .planner import OperatorDAG, decompose
+from .planner import OperatorDAG, decompose, explain_plan, plan_caps
 from .rdf import TripleBatch, Vocab
+from .recovery import RecoveryConfig
 from .runtime import DSCEPRuntime, MonolithicRuntime, RuntimeConfig
 from .sparql import ParseInfo, parse_query_info, serialize_query
 
@@ -83,14 +95,24 @@ class ExecutionConfig:
     # an explicit {operator: device} dict, or None (as "single")
     placement: Union[str, Dict[str, Any], None] = "round_robin"
     channel_capacity: int = 4          # chunks in flight (pipelined)
+    # observability (repro_torch.obs): None/False = off, and the runtimes
+    # call nothing of it; True = the default TraceConfig (host spans and
+    # device-side engine metrics); or an explicit TraceConfig.  Read
+    # through RegisteredQuery.last_stats and RegisteredQuery.explain()
+    trace: Union[None, bool, TraceConfig] = None
+    # fault tolerance (pipelined mode only): ``faults`` is a seeded
+    # FaultPlan injected into the driver (chaos runs replay exactly);
+    # ``recovery`` tunes the checkpoint/retry/restart/degradation ladder
+    # (a FaultPlan alone implies the default RecoveryConfig).  Both None:
+    # the driver calls nothing of either module
+    faults: Optional[FaultPlan] = None
+    recovery: Optional[RecoveryConfig] = None
 
-    # reference knobs still to port: any non-default value raises
+    # the reference knob still to port: any non-default value raises
     mesh: Optional[Any] = None
-    trace: Any = None
-    faults: Any = None
-    recovery: Any = None
 
     def __post_init__(self):
+        resolve_trace(self.trace)     # validates the field's type
         if self.mode not in MODES:
             raise ValueError(
                 "unknown mode %r (expected one of %s)" % (self.mode, list(MODES)))
@@ -103,10 +125,21 @@ class ExecutionConfig:
                              % self.window_step)
         if self.mesh is not None:
             raise _not_ported("mesh=", "Sharded paths")
-        if self.trace:
-            raise _not_ported("trace=", "Observability")
-        if self.faults is not None or self.recovery is not None:
-            raise _not_ported("faults=/recovery=", "Faults and recovery")
+        if self.faults is not None and not isinstance(self.faults, FaultPlan):
+            raise TypeError(
+                "faults= takes a repro_torch.core.faults.FaultPlan, got %r"
+                % type(self.faults).__name__)
+        if self.recovery is not None and not isinstance(
+                self.recovery, RecoveryConfig):
+            raise TypeError(
+                "recovery= takes a repro_torch.core.recovery.RecoveryConfig, "
+                "got %r" % type(self.recovery).__name__)
+        if (self.faults is not None or self.recovery is not None) \
+                and self.mode != "pipelined":
+            raise ValueError(
+                "fault injection / recovery (faults=, recovery=) require "
+                "mode='pipelined': the monolithic and single-program modes "
+                "have no channel between stages to fail and recover")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -152,6 +185,8 @@ class RegisteredQuery:
         self.config = cfg
         self.mode = cfg.mode
         self.dag: Optional[OperatorDAG] = None
+        tcfg = resolve_trace(cfg.trace)
+        self.tracer: Optional[Tracer] = Tracer(tcfg) if tcfg else None
         self._runtime = self._build_runtime()
 
     @property
@@ -174,11 +209,12 @@ class RegisteredQuery:
                 "query %r touches the KB (GRAPH <kb> patterns) but the "
                 "Session has no kb= attached" % self.query.name)
         if self.mode == "monolithic":
-            return MonolithicRuntime(self.query, kb, cfg.runtime_config())
+            return MonolithicRuntime(self.query, kb, cfg.runtime_config(),
+                                     tracer=self.tracer)
         self.dag = decompose(self.query, self.session.vocab)
         if self.mode == "single_program":
             return DSCEPRuntime(self.dag, kb, self.session.vocab,
-                                cfg.runtime_config())
+                                cfg.runtime_config(), tracer=self.tracer)
         placement = cfg.placement
         if placement is None:
             placement = "single"
@@ -191,7 +227,9 @@ class RegisteredQuery:
                                         strategy=placement)
         return PipelinedRuntime(self.dag, kb, self.session.vocab,
                                 cfg.runtime_config(), placement=placement,
-                                channel_capacity=cfg.channel_capacity)
+                                channel_capacity=cfg.channel_capacity,
+                                tracer=self.tracer, faults=cfg.faults,
+                                recovery=cfg.recovery)
 
     @property
     def runtime(self):
@@ -252,6 +290,66 @@ class RegisteredQuery:
         """Per-edge channel statistics: filled in pipelined mode (the only
         mode with channels between operators), ``{}`` elsewhere."""
         return self._runtime.channel_stats()
+
+    # -- observability ------------------------------------------------------
+    @property
+    def last_stats(self) -> Dict[str, Any]:
+        """The observability surface, one shape in all three modes::
+
+            {
+              "query": ..., "mode": ...,
+              "overflow_totals": {op: windows clipped, ...},
+              "channels": {edge: {...}, ...},      # {} outside pipelined
+              "operators": {op: {"counters": ..., "caps": ...,
+                                 "saturation": ...}, ...},
+              "spans": {path: {"count", "first_s", "steady": {...}}, ...},
+              "recovery": {"enabled", "injected", "retries", ...},
+              "degraded": bool,
+            }
+
+        ``operators`` and ``spans`` fill in only under
+        ``ExecutionConfig(trace=...)``; ``recovery`` carries live counters
+        only under pipelined ``faults=``/``recovery=``.  Reading it reads
+        the device accumulators (a host sync).
+        """
+        ops: Dict[str, Any] = {}
+        for name, counters in self._runtime.op_metrics().items():
+            op = self.operators.get(name)
+            caps = plan_caps(op.plan) if op is not None else {}
+            ops[name] = attach_saturation(counters, caps)
+        return {
+            "query": self.query.name,
+            "mode": self.mode,
+            "overflow_totals": self._runtime.overflow_totals(),
+            "channels": self._runtime.channel_stats(),
+            "operators": ops,
+            "spans": self.tracer.stats() if self.tracer is not None else {},
+            "recovery": self._runtime.recovery_stats(),
+            "degraded": self._runtime.degraded,
+        }
+
+    def explain(self) -> Dict[str, Any]:
+        """The planner's decisions for this registration, per operator.
+
+        KB statistics are recomputed on the host from each operator's KB
+        slice (no step runs), so the estimates are the numbers the
+        ``kb_method="auto"`` cost model compared.
+        """
+        win_cap, win_step = self.window_geometry
+        operators: Dict[str, Any] = {}
+        for name, op in self.operators.items():
+            stats = collect_kb_stats(op.kb) if op.kb is not None else None
+            entry = explain_plan(op.plan, stats, self.session.vocab)
+            entry["kb_rows"] = stats.total_rows if stats is not None else 0
+            operators[name] = entry
+        return {
+            "query": self.query.name,
+            "mode": self.mode,
+            "kb_method": self.config.kb_method,
+            "incremental": self.config.incremental,
+            "window": {"capacity": win_cap, "step": win_step},
+            "operators": operators,
+        }
 
 
 class Session:

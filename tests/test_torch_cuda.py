@@ -640,6 +640,104 @@ def test_pipelined_across_cards_equals_single_program(card, q, incremental):
                for st in reg.channel_stats().values())
 
 
+# the spin kernel the observability and recovery tests wait on: ~0.1 s
+# at the H100's clocks
+SLEEP_CYCLES = 200_000_000
+
+
+@pytest.mark.gpu
+def test_fenced_span_covers_its_kernel(card):
+    """A fenced span lasts at least the CUDA-event time of the kernel
+    launched in it; an unfenced one returns while the kernel still runs."""
+    from repro_torch.obs.trace import TraceConfig, Tracer
+
+    x = torch.zeros(1, device=card)
+    for fence in (True, False):
+        tr = Tracer(TraceConfig(fence=fence))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with tr.span("sleep") as sp:
+            start.record()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            end.record()
+            sp.fence(x)
+        span_s = tr.stats()["sleep"]["first_s"]
+        end.synchronize()
+        kernel_s = start.elapsed_time(end) / 1e3
+        assert kernel_s > 0.02
+        if fence:
+            assert span_s >= kernel_s
+        else:
+            assert span_s < kernel_s / 2
+
+
+@pytest.mark.gpu
+def test_wait_until_ready_times_out_then_completes(card):
+    """The recovery ladder's timed wait: False within its budget while a
+    long kernel runs, then True once it is done."""
+    import time
+
+    from repro_torch.core.recovery import wait_until_ready
+
+    x = torch.zeros(1, device=card)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    assert wait_until_ready(x, 0.005) is False
+    assert time.perf_counter() - t0 < 0.05
+    assert wait_until_ready({"out": (x, None), "n": 1}, 30.0) is True
+    assert wait_until_ready(x.cpu(), 0.001) is True   # CPU tensors: ready
+
+
+@pytest.mark.gpu
+def test_traced_chaotic_pipelined_across_cards_equals_single_program(card):
+    """Pipelined CQuery1 over every visible card, traced and under a fault
+    schedule of all five kinds with a stage timeout: single_program's bytes
+    on one card, every event fired, the channels drained, spans for every
+    stage."""
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.core.recovery import RecoveryConfig
+    from repro_torch.core.session import ExecutionConfig, Session
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    vocab, kbd, chunks, texts = _session_world()
+    caps = dict(window_capacity=96, max_windows=4, bind_cap=1024,
+                scan_cap=128, out_cap=1024, intermediate_cap=512,
+                kb_method="auto")
+    want, want_ovf = Session(
+        ExecutionConfig(mode="single_program", device="cuda:0", **caps),
+        vocab=vocab, kb=kbd.kb).register(texts["cquery1"]).run(chunks)
+    plain = Session(ExecutionConfig(mode="pipelined", **caps), vocab=vocab,
+                    kb=kbd.kb).register(texts["cquery1"])
+    dag = plain.dag
+    up = [n for n in dag.subqueries if n != dag.final]
+    plan = FaultPlan((FaultEvent("corrupt_chunk", "ingest", 0),
+                      FaultEvent("stall_stage", dag.final, 0),
+                      FaultEvent("drop_payload", up[0], 1),
+                      FaultEvent("crash_stage", "source", 2),
+                      FaultEvent("duplicate_payload", "source", 2)))
+    reg = Session(ExecutionConfig(
+        mode="pipelined", trace=True, faults=plan,
+        recovery=RecoveryConfig(checkpoint_every=2, stage_timeout_s=30.0),
+        **caps), vocab=vocab, kb=kbd.kb).register(texts["cquery1"])
+    assert {d.index for d in reg.runtime.placement.values()} - {0}
+    got, ovf = reg.run(chunks)
+    assert ovf == want_ovf and not any(ovf.values())
+    assert len(got) == len(want) > 2
+    for a, b in zip(got, want):
+        _same(a, b)
+    st = reg.last_stats
+    assert st["recovery"]["injected"] == plan.counts()
+    assert st["recovery"]["restarts"] >= 2 and not st["degraded"]
+    assert all(c["size"] == 0 and c["overflows"] == 0
+               for c in st["channels"].values())
+    assert {p.split("/")[-1] for p in st["spans"]} == {"stage:source"} | {
+        "stage:%s" % n for n in reg.operators}
+    assert set(st["operators"]) == set(reg.operators)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["monolithic", "single_program"])
 def test_unfused_session_on_the_card_equals_the_cpu(card, mode):

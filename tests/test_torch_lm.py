@@ -372,7 +372,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 40
     for new in (("kernels", "ssd", "ops.py"), ("kernels", "ssd", "kernel.py"),
                 ("kernels", "ssd", "ref.py"), ("models", "mamba.py"),
-                ("configs", "mamba2_130m.py")):
+                ("configs", "mamba2_130m.py"), ("obs", "trace.py"),
+                ("obs", "metrics.py"), ("obs", "report.py"),
+                ("core", "faults.py"), ("core", "recovery.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):

@@ -264,14 +264,66 @@ def test_stream_generator_matches_run(pworld):
 
 @pytest.mark.parametrize("knob,item", [
     (dict(mesh=object()), "Sharded paths"),
-    (dict(trace=True), "Observability"),
-    (dict(faults=object()), "Faults and recovery"),
-    (dict(recovery=object()), "Faults and recovery"),
 ])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
     for mode in ("single_program", "pipelined"):
         with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
             ExecutionConfig(device="cpu", mode=mode, **knob)
+
+
+def _knob(name, pkg):
+    """A value of the trace/faults/recovery knobs, built by ``pkg``'s own
+    classes (``"port"`` or ``"ref"``)."""
+    from repro.core.faults import FaultEvent as RFE, FaultPlan as RFP
+    from repro.core.recovery import RecoveryConfig as RRC
+    from repro.obs.trace import TraceConfig as RTC
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.core.recovery import RecoveryConfig
+    from repro_torch.obs.trace import TraceConfig
+
+    port = pkg == "port"
+    return {
+        "plan": (FaultPlan((FaultEvent("crash_stage", "source", 0),)) if port
+                 else RFP((RFE("crash_stage", "source", 0),))),
+        "recovery": RecoveryConfig() if port else RRC(),
+        "trace_config": (TraceConfig(fence=False) if port
+                         else RTC(fence=False)),
+    }[name]
+
+
+@pytest.mark.parametrize("mode,knob,error", [
+    ("single_program", dict(trace="yes"), TypeError),
+    ("monolithic", dict(trace=1), TypeError),
+    ("pipelined", dict(faults="not a plan"), TypeError),
+    ("pipelined", dict(recovery="not a config"), TypeError),
+    ("monolithic", dict(faults="plan"), ValueError),
+    ("single_program", dict(recovery="recovery"), ValueError),
+    ("single_program", dict(faults="plan", recovery="recovery"), ValueError),
+    ("pipelined", dict(faults="plan", recovery="recovery",
+                       trace="trace_config"), None),
+    ("monolithic", dict(trace="trace_config"), None),
+    ("single_program", dict(trace=True), None),
+    ("pipelined", dict(trace=False), None),
+])
+def test_knob_validation_matches_the_reference(mode, knob, error):
+    """``trace=`` takes None, False, True or a TraceConfig; ``faults=`` a
+    FaultPlan and ``recovery=`` a RecoveryConfig, in pipelined mode only:
+    the port raises what the reference raises, or accepts what it
+    accepts."""
+    names = ("plan", "recovery", "trace_config")
+
+    def build(pkg):
+        kw = {k: (_knob(v, pkg) if v in names else v) for k, v in knob.items()}
+        if pkg == "port":
+            return ExecutionConfig(device="cpu", mode=mode, **kw)
+        return RConfig(mode=mode, **kw)
+
+    for pkg in ("ref", "port"):
+        if error is None:
+            build(pkg)
+        else:
+            with pytest.raises(error):
+                build(pkg)
 
 
 def test_device_cuda_without_a_card_raises():
