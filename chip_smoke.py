@@ -56,11 +56,12 @@ Phases (each prints its lines; any failure exits non-zero):
    have held two chunks or more at once (``depth_hw``) and popped every
    push; the four DSCEP kernels must launch in each mode's runs.  The GPU
    run of ``monolithic`` and ``single_program`` must equal a CPU run of the
-   port (plain versions) on all its chunks; ``pipelined`` is held to
-   ``single_program`` on the card, so it gets no CPU run of its own.  Each
-   configuration runs one warm-up chunk, then the chunks ``REPEATS`` times
-   (each pass must give the same bytes); chunks/s is the median pass, with
-   the spread, beside the configuration's peak device memory.
+   port (plain versions) on its first ``CPU_CHUNKS`` chunks; ``pipelined``
+   is held to ``single_program`` on the card, so it gets no CPU run of its
+   own.  Each configuration runs one warm-up chunk, then the chunks
+   ``REPEATS`` times (each pass must give the same bytes); chunks/s is the
+   median pass, with the spread, beside the configuration's peak device
+   memory.
 4. **Where the time goes**: a ``torch.profiler`` window over two chunks of
    CQuery1 (monolithic scan, monolithic auto, single_program auto,
    pipelined auto): device time by kernel and by PyTorch operator, and the
@@ -116,9 +117,27 @@ Phases (each prints its lines; any failure exits non-zero):
    polling CUDA events) and a crash past ``max_restarts=0`` (the chunk
    takes the channel-free fallback) must give the fault-free bytes too.
 
-Phases 3, 5, 6, 7, 8 and 9 each drive their path with the launch counters
-zeroed just before and read just after; each kernel of the path must have
-launched, and the JSON line's ``launches`` sums the six runs.
+10. **Multi-query serving**, on phase 3's world and caps:
+   ``serve_population(64)`` registered into one ``ServeEngine``
+   (``Session.serve``) and run over the stream, (a) under ``auto`` at the
+   default config with dedup, (b) the same without dedup, (c) under
+   ``scan`` with ``fuse_compaction=False``, where the prefix group and the
+   constant cohort run their batched programs (the match-matrix kernel).
+   Every query must publish the bytes of its own port ``Session`` on the
+   card (one session a distinct query body) with zero overflow; (a), (b)
+   and (c) must agree byte for byte, and (a)'s first chunk with the port's
+   engine on the CPU.  ``last_stats`` must report 23 distinct plans: all
+   singletons in (a), one prefix group of the two class plans and one
+   cohort of the 21 thresholds in (c).  (a) must launch ``descendants``
+   and the KB-join kernels its plans' EXPLAIN names; (c) ``match_matrix``.
+   It prints query-evaluations/s (queries x chunks over a pass, median of
+   ``REPEATS`` passes after a warm-up chunk) for each arm and for the
+   independent sessions, peak memory, and (a)'s device idle share over
+   two chunks.
+
+Phases 3, 5, 6, 7, 8, 9 and 10 each drive their path with the launch
+counters zeroed just before and read just after; each kernel of the path
+must have launched, and the JSON line's ``launches`` sums the seven runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -162,6 +181,8 @@ CAPS = dict(bind_cap=4096, scan_cap=1024, out_cap=4096,
             intermediate_cap=2048, out_stream_cap=32768)
 LIVE_ROWS = 425        # valid binding rows per window in phase 2's joins
 REPEATS = 3            # timed passes over the stream per configuration
+CPU_CHUNKS = 4         # phase 3's GPU == CPU gate: the first chunks only
+                       # (the CPU runs took ~290 s of the script at 8)
 
 # phase 5: sliding windows.  A chunk of SLIDE_CHUNK triples; each query's
 # (RANGE, STEP, max_windows) gives max_windows + R - 1 slides, which hold
@@ -220,6 +241,13 @@ PROFILE_ATTEMPTS = 4
 OBS_QUERIES = ("q15", "cquery1")
 CHAOS_SEED = 0         # FaultPlan.seeded draws one event of each kind
 STAGE_TIMEOUT_S = 30.0
+
+# phase 10: multi-query serving, on phase 3's world and caps.  64 standing
+# queries are the reference serving benchmark's claim point; they compile
+# to 23 distinct plans (2 class plans and 21 filter thresholds)
+SERVE_QUERIES = 64
+SERVE_DISTINCT = 23
+SERVE_METHOD_KERNELS = {"probe": "probe_compact", "scan": "join_compact"}
 
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
@@ -1163,10 +1191,10 @@ def phase_main(vocab, kbd, chunks, smi):
               for method in ("probe", "auto")]
     combos += [(q, "single_program", "scan") for q in QUERIES]
     for q, mode, method in combos:
-        res = run_session(vocab, kb_cpu, chunks, texts[q],
+        res = run_session(vocab, kb_cpu, chunks[:CPU_CHUNKS], texts[q],
                           exec_config(mode, method, "cpu"))
         if not same_outputs(res["outs"],
-                            results[(q, mode, method)]):
+                            results[(q, mode, method)][:CPU_CHUNKS]):
             fail("GPU != CPU for %s %s %s" % (q, mode, method))
         log("  %-14s %-14s %-5s GPU == CPU on %d chunks (CPU %.1f s)"
             % (q, mode, method, len(res["outs"]), res["run_s"][0]))
@@ -1629,6 +1657,227 @@ def phase_observability(vocab, kbd, rows, chunks, results, config_launches,
     return path_launches("phase 9 (observability and recovery)",
                          ("probe_compact", "closure_step", "descendants"),
                          smi)
+
+
+# --------------------------------------------------------------------------
+# phase 10: multi-query serving
+# --------------------------------------------------------------------------
+
+def kb_join_kernels(plan) -> set:
+    """The KB-join kernels of a plan's fused steps, as its EXPLAIN names
+    their methods (``probe`` the probe join, ``scan`` the scan join)."""
+    from repro_torch.core.planner import explain_plan
+
+    found = set()
+
+    def walk(x):
+        if isinstance(x, dict):
+            if x.get("step") == "KBJoin":
+                found.add(SERVE_METHOD_KERNELS[x["method"]])
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+
+    walk(explain_plan(plan))
+    return found
+
+
+def host_outputs(outs):
+    return {n: [tuple(c.cpu() for c in o) for o in os]
+            for n, os in outs.items()}
+
+
+def same_served(a, b) -> bool:
+    """Two ``{query: [output chunk, ...]}`` maps hold the same bytes."""
+    return set(a) == set(b) and all(same_outputs(a[n], b[n]) for n in a)
+
+
+def serve_arm(vocab, kb, chunks, texts, cfg, dedup=True):
+    """Register the population into one ServeEngine (plan time), run one
+    warm-up chunk, then the stream ``REPEATS`` times, each pass timed and
+    held to the first's bytes.  Outputs stay on the card."""
+    from repro_torch.core.session import Session
+
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Session(cfg, vocab=vocab, kb=kb).serve(dedup=dedup)
+    for t in texts:
+        eng.register(t)
+    sync()
+    plan_s = time.perf_counter() - t0
+    eng.process_chunk(chunks[0])
+    outs, run_s = None, []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        got, _ = eng.run(chunks)
+        sync()
+        run_s.append(time.perf_counter() - t0)
+        if outs is None:
+            outs = got
+        elif not same_served(got, outs):
+            fail("a repeated serving pass gave other bytes")
+    return {"eng": eng, "outs": outs, "plan_s": plan_s, "run_s": run_s,
+            "overflow": eng.overflow_totals(), "stats": eng.last_stats,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serve_rate(n_queries, n_chunks, run_s, peak_gb) -> str:
+    rates = sorted(n_queries * n_chunks / t for t in run_s)
+    return ("%.1f query-evaluations/s median of %d passes (%.1f-%.1f), "
+            "peak %.2f GB" % (rates[len(rates) // 2], len(rates), rates[0],
+                              rates[-1], peak_gb))
+
+
+def phase_serving(vocab, kbd, chunks, smi):
+    """Phase 10: ``serve_population(SERVE_QUERIES)`` in one ServeEngine,
+    (a) ``auto`` at the default config, (b) the same with dedup off, (c)
+    ``scan`` unfused (the batched programs); every query held to its own
+    session, the arms to each other and (a)'s first chunk to the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.session import Session
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.dscep_run import serve_population
+
+    texts = serve_population(SERVE_QUERIES)
+    names = [t.split()[2] for t in texts]
+    gpu_chunks = [c.to("cuda") for c in chunks]
+    n_chunks = len(gpu_chunks)
+    log("phase 10: serving %d standing queries (serve_population), %d "
+        "chunks, caps as phase 3, 1 warm-up chunk + %d timed passes per arm"
+        % (len(texts), n_chunks, REPEATS))
+    arms = (("a", "auto default, dedup", dict(method="auto"), True),
+            ("b", "auto default, no dedup", dict(method="auto"), False),
+            ("c", "scan unfused, dedup",
+             dict(method="scan", fuse_compaction=False), True))
+    res, arm_launches = {}, {}
+    _cuda.reset_launches()
+    for key, label, kw, dedup in arms:
+        kw = dict(kw)
+        cfg = exec_config("monolithic", kw.pop("method"), "cuda", **kw)
+        before = dict(_cuda.LAUNCHES)
+        r = res[key] = serve_arm(vocab, kbd.kb, gpu_chunks, texts, cfg,
+                                 dedup)
+        arm_launches[key] = _launch_delta(before)
+        st = r["stats"]
+        log("  (%s) %-22s plan %.3f s, %s; distinct plans %d, singletons %d, "
+            "prefix groups %s, cohorts %s, launches {%s} [%s]"
+            % (key, label, r["plan_s"],
+               serve_rate(len(texts), n_chunks, r["run_s"], r["peak_gb"]),
+               st["distinct_plans"], st["singletons"],
+               [len(g["queries"]) for g in st["prefix_groups"]],
+               st["batch_sizes"], _short(arm_launches[key]), smi))
+        if any(r["overflow"].values()):
+            fail("overflow in serving arm (%s): %s" % (key, r["overflow"]))
+        if sorted(r["outs"]) != sorted(names):
+            fail("serving arm (%s) did not publish every query" % key)
+    need = set().union(*(kb_join_kernels(u.plan)
+                         for u in res["a"]["eng"].units.values()))
+    need.add("descendants")
+    launches = path_launches("phase 10 (serving)",
+                             sorted(need | {"match_matrix"}), smi)
+
+    sa, sc = res["a"]["stats"], res["c"]["stats"]
+    if (sa["distinct_plans"], sa["singletons"], sa["prefix_groups"],
+            sa["cohorts"]) != (SERVE_DISTINCT, SERVE_DISTINCT, [], []):
+        fail("(a) schedule: %s" % {k: sa[k] for k in (
+            "distinct_plans", "singletons", "prefix_groups", "cohorts")})
+    if res["b"]["stats"]["distinct_plans"] != len(texts):
+        fail("(b) deduplicated with dedup off")
+    cls = sorted(g["queries"] for g in sc["prefix_groups"])
+    if (sc["distinct_plans"] != SERVE_DISTINCT or len(cls) != 1
+            or len(cls[0]) != 2 or sc["batch_sizes"] != [SERVE_DISTINCT - 2]
+            or not all(n.startswith("thr")
+                       for n in sc["cohorts"][0]["queries"])
+            or sc["singletons"]):
+        fail("(c) schedule: one prefix group of the two class plans and one "
+             "cohort of the %d thresholds expected, got %s"
+             % (SERVE_DISTINCT - 2, {k: sc[k] for k in (
+                 "distinct_plans", "prefix_groups", "batch_sizes",
+                 "singletons")}))
+    for k in sorted(need):
+        if arm_launches["a"][k] <= 0:
+            fail("kernel %s never launched in serving arm (a)" % k)
+    if arm_launches["c"]["match_matrix"] <= 0:
+        fail("match_matrix never launched in the batched programs of (c)")
+    log("  (a) launched %s (the KB joins' EXPLAIN methods); (c) launched "
+        "match_matrix %d times" % (sorted(need),
+                                   arm_launches["c"]["match_matrix"]))
+    for key in ("b", "c"):
+        if not same_served(res[key]["outs"], res["a"]["outs"]):
+            fail("serving arm (%s) != (a)" % key)
+    log("  (a) == (b) == (c) byte for byte, zero overflow")
+
+    # every query against its own port session on the card (one session a
+    # distinct query body), then all of them timed as independent sessions
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    body = [t.replace(n, "", 1) for t, n in zip(texts, names)]
+    sessions = {}
+    for t, b in zip(texts, body):
+        if b not in sessions:
+            sessions[b] = Session(exec_config("monolithic", "auto", "cuda"),
+                                  vocab=vocab, kb=kbd.kb).register(t)
+    served = host_outputs(res["a"]["outs"])
+    for b, reg in sessions.items():
+        outs, ovf = reg.run(gpu_chunks)
+        if any(ovf.values()):
+            fail("overflow in the independent session of %s" % reg.query.name)
+        own = [tuple(c.cpu() for c in o) for o in outs]
+        for n, bb in zip(names, body):
+            if bb == b and not same_outputs(served[n], own):
+                fail("served %s != its own session" % n)
+    for reg in sessions.values():
+        reg.run(gpu_chunks[:1])
+    run_s = []
+    for _ in range(REPEATS):
+        sync()
+        t0 = time.perf_counter()
+        for b in body:
+            sessions[b].run(gpu_chunks)
+        sync()
+        run_s.append(time.perf_counter() - t0)
+    log("  every served query == its own Session on the card (%d distinct "
+        "sessions); independent sessions: %s [%s]"
+        % (len(sessions), serve_rate(len(texts), n_chunks, run_s,
+                                     torch.cuda.max_memory_allocated() / 1e9),
+           smi))
+    del sessions, served
+
+    # (a)'s first chunk against the port's engine on the CPU
+    cpu_eng = Session(exec_config("monolithic", "auto", "cpu"), vocab=vocab,
+                      kb=kbd.kb.to("cpu")).serve()
+    for t in texts:
+        cpu_eng.register(t)
+    t0 = time.perf_counter()
+    cpu_out = cpu_eng.process_chunk(chunks[0])
+    first = {n: os[:1] for n, os in host_outputs(res["a"]["outs"]).items()}
+    if not same_served({n: [tuple(o)] for n, o in cpu_out.items()}, first):
+        fail("serving (a) GPU != CPU on the first chunk")
+    log("  (a) GPU == CPU engine on the first chunk (CPU %.1f s)"
+        % (time.perf_counter() - t0))
+    del cpu_eng, cpu_out
+
+    # (a)'s device idle share over two chunks
+    eng = res["a"]["eng"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        eng.process_chunk(gpu_chunks[1])
+        eng.process_chunk(gpu_chunks[2])
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(device_times(prof).values())
+    log("  profile (a), 2 chunks: wall %.1f ms, device busy %s [%s]"
+        % (wall_us / 1e3, "%.1f ms (idle share %.3f)"
+           % (busy / 1e3, max(0.0, 1 - busy / wall_us)) if busy > 0
+           else "not measured (no device event recorded)", smi))
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2364,9 +2613,11 @@ def main() -> int:
     obs_launches = phase_observability(vocab, kbd, rows, chunks, results,
                                        config_launches, smi)
     log("phase 9 done at %.1f s" % (time.time() - t_start))
+    serve_launches = phase_serving(vocab, kbd, chunks, smi)
+    log("phase 10 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
              + lm_launches[k] + mamba_launches[k] + obs_launches[k]
-             for k in launches}
+             + serve_launches[k] for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

@@ -11,6 +11,8 @@
   binding tables (the split sink) instead of decoding their triples.
 * ``explain_plan``  — a compiled plan's decisions as a JSON-ready artifact
   (``RegisteredQuery.explain()``).
+* ``plan_fingerprint`` / ``plan_shape`` / ``shared_prefix_len`` — the keys
+  the serving engine shares work by (``serve/engine.py``).
 
 Closure sets (subclass FILTER env, ``p+``/``p*`` path relations) are always
 computed through :mod:`repro_torch.kernels.closure` on the KB's device: the
@@ -37,7 +39,7 @@ from .engine import (
 )
 from .kb import KBStats, KnowledgeBase, build_kb, host_rows, prune
 from .pattern import CompiledPattern, Slot, SlotMode
-from .rdf import CLOSURE_PRED_BASE, PRED_SPACE, Vocab
+from .rdf import CLOSURE_PRED_BASE, NUM_BASE, PRED_SPACE, Vocab
 from .reasoner import (
     adjacency_from_edges, build_class_index, descendants, subclass_edges,
 )
@@ -79,9 +81,38 @@ def _kernel_reach_set(edges: Sequence[Tuple[int, int]], root: int,
     return {int(v) for v in ids[sel]}
 
 
+def closure_kb_key(q: Q.Query) -> Tuple:
+    """Everything :func:`augment_kb_with_closures` reads from ``q``: per
+    closure spec, in spec order (spec *i* owns ``CLOSURE_PRED_BASE + i``),
+    ``(pred, min_hops, start consts, end consts, anchor)``.  The constant
+    endpoints of the spec's uses are ``p*``'s extra reflexive pairs and
+    the roots of an anchored closure set; ``anchor`` is ``"end"`` (every
+    use ends in a constant), ``"start"`` (every use starts in one) or None
+    (the full reach matrix).  Queries with equal keys get byte-equal
+    augmented KBs; variable names are not part of it."""
+    key = []
+    for pid, min_hops in closure_path_specs(q):
+        uses = [it for it in q.where if isinstance(it, Q.PathClosure)
+                and (it.pred, it.min_hops) == (pid, min_hops)]
+        starts, ends = (tuple(sorted({int(t.id) for t in terms
+                                      if isinstance(t, Q.Const)}))
+                        for terms in ([u.start for u in uses],
+                                      [u.end for u in uses]))
+        if all(isinstance(u.end, Q.Const) for u in uses):
+            anchor = "end"
+        elif all(isinstance(u.start, Q.Const) for u in uses):
+            anchor = "start"
+        else:
+            anchor = None
+        key.append((pid, min_hops, starts, ends, anchor))
+    return tuple(key)
+
+
 def _closure_pairs(edges: Sequence[Tuple[int, int]], min_hops: int,
-                   uses: Sequence[Q.PathClosure], device) -> Set[Tuple[int, int]]:
-    """The pair relation ``{(x, y) : x pred^n y, n >= min_hops}``.
+                   starts: Sequence[int], ends: Sequence[int],
+                   anchor: Optional[str], device) -> Set[Tuple[int, int]]:
+    """The pair relation ``{(x, y) : x pred^n y, n >= min_hops}`` of one
+    :func:`closure_kb_key` entry.
 
     ``p*``'s zero-length pairs are reflexive over the predicate's edge-graph
     nodes plus the constant endpoints of the query's path expressions.  When
@@ -91,23 +122,16 @@ def _closure_pairs(edges: Sequence[Tuple[int, int]], min_hops: int,
     """
     pairs: Set[Tuple[int, int]] = set()
     if min_hops == 0:
-        refl = {x for e in edges for x in e}
-        for u in uses:
-            for t in (u.start, u.end):
-                if isinstance(t, Q.Const):
-                    refl.add(int(t.id))
+        refl = {x for e in edges for x in e} | set(starts) | set(ends)
         pairs |= {(x, x) for x in refl}
     if not edges:
         return pairs
 
-    const_end = all(isinstance(u.end, Q.Const) for u in uses)
-    const_start = all(isinstance(u.start, Q.Const) for u in uses)
-    if const_end or const_start:
+    if anchor is not None:
         # p+ composes one explicit edge onto the p* set: the first edge for
         # descendants (x -> z ->* root), the last for ancestors
-        anchor = "end" if const_end else "start"
-        roots = {int(getattr(u, anchor).id) for u in uses}
-        for root in sorted(roots):
+        const_end = anchor == "end"
+        for root in (ends if const_end else starts):
             star = _kernel_reach_set(edges, root, not const_end, device)
             if const_end:
                 if min_hops == 0:
@@ -136,18 +160,18 @@ def _closure_pairs(edges: Sequence[Tuple[int, int]], min_hops: int,
 
 def augment_kb_with_closures(q: Q.Query, kb: KnowledgeBase) -> KnowledgeBase:
     """Materialize every variable-length path of ``q`` as closure-pair rows
-    ``(x, CLOSURE_PRED_BASE + i, y)`` appended to the KB (on its device)."""
-    specs = closure_path_specs(q)
-    if not specs:
+    ``(x, CLOSURE_PRED_BASE + i, y)`` appended to the KB (on its device).
+    It reads ``q`` only through :func:`closure_kb_key`."""
+    key = closure_kb_key(q)
+    if not key:
         return kb
     rows = host_rows(kb)
     parts = [rows]
-    for i, (pid, min_hops) in enumerate(specs):
-        uses = [it for it in q.where if isinstance(it, Q.PathClosure)
-                and (it.pred, it.min_hops) == (pid, min_hops)]
+    for i, (pid, min_hops, starts, ends, anchor) in enumerate(key):
         m = rows[:, 1] == np.uint32(pid)
         edges = [(int(s), int(o)) for s, _, o in rows[m]]
-        pairs = _closure_pairs(edges, min_hops, uses, kb.device)
+        pairs = _closure_pairs(edges, min_hops, starts, ends, anchor,
+                               kb.device)
         arr = np.asarray(sorted(pairs), np.uint32).reshape(-1, 2)
         cp = np.full((len(arr), 1), CLOSURE_PRED_BASE + i, np.uint32)
         parts.append(np.concatenate([arr[:, :1], cp, arr[:, 1:]], axis=1))
@@ -524,6 +548,193 @@ def plan_caps(plan: Plan) -> Dict[str, int]:
 
     return {"scan_cap": plan.scan_cap, "bind_cap": plan.bind_cap,
             "out_cap": plan.out_cap, "k_max": max_k(plan.steps)}
+
+
+# --------------------------------------------------------------------------
+# plan sharing (the serving engine's keys, serve/engine.py)
+# --------------------------------------------------------------------------
+# * identical plans    — ``plan_fingerprint`` (the plan minus its name):
+#   equal fingerprints on the same (KB, env) publish identical outputs, so
+#   the serving engine evaluates one representative and fans it out;
+# * identical shapes   — ``plan_shape`` abstracts every constant (slot
+#   consts, filter literals, CONSTRUCT const ids, closure-set env keys)
+#   into positional markers: plans with equal shapes differ only in a
+#   ``uint32`` vector (``plan_consts``) and their env tensors, and
+#   ``bind_plan_consts`` rebuilds each from the representative;
+# * identical prefixes — ``shared_prefix_len`` finds the longest common
+#   leading step run of two plans, so a common KB-join prefix runs once
+#   and each query runs only its own suffix.
+
+def plan_fingerprint(plan: Plan) -> Tuple:
+    """Everything significant about a compiled plan except its name.  Two
+    plans with equal fingerprints, run against the same KB and env,
+    publish byte-identical streams: the serving layer's dedup key."""
+    return (plan.num_vars, plan.var_names, plan.steps, plan.templates,
+            plan.scan_cap, plan.bind_cap, plan.out_cap)
+
+
+def _map_plan_consts(plan: Plan, const_fn, set_fn) -> Plan:
+    """Rebuild ``plan`` with ``const_fn(value, ctx)`` applied to every
+    constant (``ctx`` is ``"slot"``, ``"filter"`` or ``"template"``) and
+    ``set_fn(name)`` to every :class:`FilterInStep` env key: the one walk
+    order shape, extraction and binding share, so they cannot disagree."""
+
+    def map_slot(sl: Slot) -> Slot:
+        if sl.mode != SlotMode.CONST:
+            return sl
+        return Slot(SlotMode.CONST, const=const_fn(sl.const, "slot"), var=-1)
+
+    def map_pat(cp: CompiledPattern) -> CompiledPattern:
+        return CompiledPattern(map_slot(cp.s), map_slot(cp.p), map_slot(cp.o))
+
+    def map_expr(expr: Tuple) -> Tuple:
+        if expr[0] == "cmp":
+            _, var, op, value_id = expr
+            return ("cmp", var, op, const_fn(value_id, "filter"))
+        if expr[0] == "not":
+            return ("not", map_expr(expr[1]))
+        return (expr[0],) + tuple(map_expr(a) for a in expr[1:])
+
+    def map_step(step: Step) -> Step:
+        if isinstance(step, ScanJoin):
+            return ScanJoin(map_pat(step.pat), step.shared)
+        if isinstance(step, KBJoin):
+            return dataclasses.replace(step, pat=map_pat(step.pat))
+        if isinstance(step, FilterNumStep):
+            return FilterNumStep(step.var, step.op,
+                                 const_fn(step.value_id, "filter"))
+        if isinstance(step, FilterBoolStep):
+            return FilterBoolStep(map_expr(step.expr))
+        if isinstance(step, FilterInStep):
+            return FilterInStep(step.var, set_fn(step.set_name))
+        if isinstance(step, OptionalSteps):
+            return OptionalSteps(tuple(map_step(s) for s in step.sub),
+                                 step.shared)
+        if isinstance(step, UnionSteps):
+            return UnionSteps(tuple(map_step(s) for s in step.left),
+                              tuple(map_step(s) for s in step.right))
+        return step
+
+    def map_tpl(spec: Tuple) -> Tuple:
+        kind, val = spec
+        if kind == "const":
+            return ("const", const_fn(val, "template"))
+        return spec
+
+    return dataclasses.replace(
+        plan,
+        steps=tuple(map_step(s) for s in plan.steps),
+        templates=tuple(tuple(map_tpl(spec) for spec in tpl)
+                        for tpl in plan.templates),
+    )
+
+
+def _is_term(value: int) -> bool:
+    return int(value) < NUM_BASE
+
+
+def _canonical_sets():
+    sets: Dict[str, str] = {}
+
+    def set_fn(name):
+        if name not in sets:
+            sets[name] = "__set%d" % len(sets)
+        return sets[name]
+
+    return set_fn
+
+
+def plan_shape(plan: Plan) -> Plan:
+    """The plan with every constant replaced by a positional marker and
+    every env key by a canonical ``__set%d`` name, name cleared: the
+    cohort key.  Filter-literal markers also carry the term-or-numeric
+    class, which selects the comparison's semantics."""
+    counter = [0]
+
+    def const_fn(value, ctx):
+        i = counter[0]
+        counter[0] += 1
+        if ctx == "filter":
+            return ("c%d" % i, _is_term(value))
+        return "c%d" % i
+
+    return dataclasses.replace(
+        _map_plan_consts(plan, const_fn, _canonical_sets()), name="")
+
+
+def plan_consts(plan: Plan) -> np.ndarray:
+    """The plan's constants as a ``uint32`` vector in ``plan_shape``'s walk
+    order: with the env tensors, all that tells apart two plans of one
+    shape."""
+    vals: List[int] = []
+
+    def const_fn(value, ctx):
+        vals.append(int(value))
+        return value
+
+    _map_plan_consts(plan, const_fn, lambda n: n)
+    return np.asarray(vals, np.uint32)
+
+
+def plan_set_names(plan: Plan) -> Tuple[str, ...]:
+    """FilterInStep env keys in first-appearance walk order: a cohort
+    member's env tensor for ``__set%d`` is its entry at index ``d``."""
+    names: List[str] = []
+
+    def set_fn(name):
+        if name not in names:
+            names.append(name)
+        return name
+
+    _map_plan_consts(plan, lambda v, c: v, set_fn)
+    return tuple(names)
+
+
+def bind_plan_consts(plan: Plan, const_vec) -> Plan:
+    """Substitute ``const_vec[i]`` (one row of a cohort's ``[Q, K]``
+    ``uint32`` matrix) for the plan's constants as host ints, renaming env
+    keys canonically.  A filter literal keeps the representative's
+    term-or-numeric class (part of the cohort shape): a value of the other
+    class raises."""
+    counter = [0]
+
+    def const_fn(value, ctx):
+        i = counter[0]
+        counter[0] += 1
+        v = int(const_vec[i])
+        if ctx == "filter" and _is_term(v) != _is_term(value):
+            raise ValueError(
+                "constant %d of plan %r is a %s literal; %d is not"
+                % (i, plan.name, "term" if _is_term(value) else "numeric", v))
+        return v
+
+    return _map_plan_consts(plan, const_fn, _canonical_sets())
+
+
+def shared_prefix_len(a: Plan, b: Plan) -> int:
+    """Longest common leading step run of two plans.  It binds the same
+    columns in both only when they agree on ``num_vars`` and capacities
+    (compilation is deterministic), which the serving engine checks."""
+    n = 0
+    for sa, sb in zip(a.steps, b.steps):
+        if sa != sb:
+            break
+        n += 1
+    return n
+
+
+def count_kb_joins(steps: Sequence[Step]) -> int:
+    """KB joins in a step sequence: the work prefix sharing saves, and
+    what decides whether a shared prefix is worth a program."""
+    total = 0
+    for s in steps:
+        if isinstance(s, KBJoin):
+            total += 1
+        elif isinstance(s, OptionalSteps):
+            total += count_kb_joins(s.sub)
+        elif isinstance(s, UnionSteps):
+            total += count_kb_joins(s.left) + count_kb_joins(s.right)
+    return total
 
 
 def _render_slot(slot: Slot, plan: Plan, vocab: Optional[Vocab]) -> str:

@@ -25,6 +25,11 @@ planner's decisions.  ``faults=`` (a seeded
 under injected faults and its recovery ladder.  ``mesh=``, the one knob of
 the reference this port does not have yet, raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+
+``Session.serve()`` returns a :class:`~repro_torch.serve.engine.ServeEngine`:
+a population of standing queries over the session's KB, sharing plans,
+KB-join prefixes and constant cohorts, each query publishing the bytes of
+its own session.
 """
 from __future__ import annotations
 
@@ -389,6 +394,14 @@ class Session:
 
     def unregister(self, name: str) -> None:
         del self.queries[name]
+
+    def serve(self, **opts):
+        """A :class:`~repro_torch.serve.engine.ServeEngine` over this
+        session's vocab, KB, config and device, for populations of
+        standing queries (``dedup=``, ``batch=``)."""
+        from ..serve.engine import ServeEngine
+
+        return ServeEngine(self, **opts)
 
     def register_file(self, path: str,
                       name: Optional[str] = None) -> RegisteredQuery:

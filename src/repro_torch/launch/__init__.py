@@ -1,1 +1,2 @@
-"""Deployment helpers of the PyTorch/CUDA port (operator placement)."""
+"""Deployment helpers of the PyTorch/CUDA port: operator placement
+(``mesh``) and the serving population (``dscep_run``)."""

@@ -1,1 +1,3 @@
-"""LM serving of the port: cached prefill and greedy decode (``lm.py``)."""
+"""Serving: multi-query SCEP serving (``engine``, ``batcher``) and LM
+prefill and greedy decode (``lm``)."""
+from . import batcher, engine, lm  # noqa: F401

@@ -551,6 +551,45 @@ def test_incremental_session_on_the_card_equals_the_cpu(card, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+def test_serving_engine_on_the_card_equals_the_cpu(card, fuse):
+    """``serve_population(9)`` in one ServeEngine: the fused kernels'
+    operators (``fuse=True``), or the prefix group and the cohort over the
+    match matrix (``fuse=False``), on the card byte for byte the CPU's."""
+    from repro_torch.core.session import ExecutionConfig, Session
+    from repro_torch.launch.dscep_run import serve_population
+
+    vocab, kbd, chunks, _ = _session_world()
+    texts = serve_population(9)
+    caps = dict(mode="monolithic", window_capacity=96, max_windows=4,
+                bind_cap=1024, scan_cap=128, out_cap=1024,
+                kb_method="scan" if not fuse else "auto",
+                fuse_compaction=fuse)
+    runs = {}
+    _cuda.reset_launches()
+    for dev in ("cuda", "cpu"):
+        eng = Session(ExecutionConfig(device=dev, **caps), vocab=vocab,
+                      kb=kbd.kb).serve()
+        for t in texts:
+            eng.register(t)
+        runs[dev] = eng.run(chunks) + (eng.last_stats,)
+    (gpu, gpu_ovf, gpu_st), (cpu, cpu_ovf, cpu_st) = runs["cuda"], runs["cpu"]
+    assert gpu_ovf == cpu_ovf and not any(cpu_ovf.values())
+    assert gpu_st["prefix_groups"] == cpu_st["prefix_groups"]
+    assert gpu_st["cohorts"] == cpu_st["cohorts"]
+    assert bool(cpu_st["cohorts"]) == (not fuse)
+    for name in cpu:
+        for a, b in zip(gpu[name], cpu[name]):
+            _same(a, b)
+    assert sum(int(o.valid.sum()) for os in cpu.values() for o in os) > 0
+    assert _cuda.LAUNCHES["descendants"] > 0
+    if fuse:
+        assert _cuda.LAUNCHES["probe_compact"] > 0
+    else:
+        assert _cuda.LAUNCHES["match_matrix"] > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("q", ["q15", "cquery1"])
 @pytest.mark.parametrize("incremental", [False, True])
 def test_pipelined_on_the_card_equals_single_program(card, q, incremental):

@@ -374,7 +374,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 ("kernels", "ssd", "ref.py"), ("models", "mamba.py"),
                 ("configs", "mamba2_130m.py"), ("obs", "trace.py"),
                 ("obs", "metrics.py"), ("obs", "report.py"),
-                ("core", "faults.py"), ("core", "recovery.py")):
+                ("core", "faults.py"), ("core", "recovery.py"),
+                ("serve", "engine.py"), ("serve", "batcher.py"),
+                ("launch", "dscep_run.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):
