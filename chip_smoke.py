@@ -56,12 +56,11 @@ Phases (each prints its lines; any failure exits non-zero):
    have held two chunks or more at once (``depth_hw``) and popped every
    push; the four DSCEP kernels must launch in each mode's runs.  The GPU
    run of ``monolithic`` and ``single_program`` must equal a CPU run of the
-   port (plain versions) on its first ``CPU_CHUNKS`` chunks; ``pipelined``
-   is held to ``single_program`` on the card, so it gets no CPU run of its
-   own.  Each configuration runs one warm-up chunk, then the chunks
-   ``REPEATS`` times (each pass must give the same bytes); chunks/s is the
-   median pass, with the spread, beside the configuration's peak device
-   memory.
+   port (plain versions) on all its chunks; ``pipelined`` is held to
+   ``single_program`` on the card, so it gets no CPU run of its own.  Each
+   configuration runs one warm-up chunk, then the chunks ``REPEATS`` times
+   (each pass must give the same bytes); chunks/s is the median pass, with
+   the spread, beside the configuration's peak device memory.
 4. **Where the time goes**: a ``torch.profiler`` window over two chunks of
    CQuery1 (monolithic scan, monolithic auto, single_program auto,
    pipelined auto): device time by kernel and by PyTorch operator, and the
@@ -181,8 +180,6 @@ CAPS = dict(bind_cap=4096, scan_cap=1024, out_cap=4096,
             intermediate_cap=2048, out_stream_cap=32768)
 LIVE_ROWS = 425        # valid binding rows per window in phase 2's joins
 REPEATS = 3            # timed passes over the stream per configuration
-CPU_CHUNKS = 4         # phase 3's GPU == CPU gate: the first chunks only
-                       # (the CPU runs took ~290 s of the script at 8)
 
 # phase 5: sliding windows.  A chunk of SLIDE_CHUNK triples; each query's
 # (RANGE, STEP, max_windows) gives max_windows + R - 1 slides, which hold
@@ -1191,10 +1188,10 @@ def phase_main(vocab, kbd, chunks, smi):
               for method in ("probe", "auto")]
     combos += [(q, "single_program", "scan") for q in QUERIES]
     for q, mode, method in combos:
-        res = run_session(vocab, kb_cpu, chunks[:CPU_CHUNKS], texts[q],
+        res = run_session(vocab, kb_cpu, chunks, texts[q],
                           exec_config(mode, method, "cpu"))
         if not same_outputs(res["outs"],
-                            results[(q, mode, method)][:CPU_CHUNKS]):
+                            results[(q, mode, method)]):
             fail("GPU != CPU for %s %s %s" % (q, mode, method))
         log("  %-14s %-14s %-5s GPU == CPU on %d chunks (CPU %.1f s)"
             % (q, mode, method, len(res["outs"]), res["run_s"][0]))
