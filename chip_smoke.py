@@ -133,10 +133,25 @@ Phases (each prints its lines; any failure exits non-zero):
    ``REPEATS`` passes after a warm-up chunk) for each arm and for the
    independent sessions, peak memory, and (a)'s device idle share over
    two chunks.
+11. **Sharded paths and the launcher**, on phase 3's world and caps:
+   (a) ``kb_join_sharded`` at phase 2's join shapes (the full KB's rows
+   in ``SHARDS`` blocks on cuda:0, and in one block a visible card),
+   ``scan`` and ``probe``: byte for byte the per-block oracle
+   (``kb_join_blocks_reference``) on the card and on the CPU, the row
+   sets and overflow of the unsharded join, each timed beside it; (b) Q15
+   and CQuery1 ``single_program`` ``auto`` with their windows sharded over
+   a data axis of ``SHARDS`` x cuda:0 and over ``make_host_mesh()``, and
+   ``scan`` over the first: phase 3's bytes with zero overflow, the
+   kernels of the method launched, chunks/s beside the unsharded
+   configuration run in the same phase; (c) the launcher's ``main``
+   (``LAUNCHER_WORLD``: CQuery1 under ``scan``, ``--fuse`` off, so the
+   match matrix) in the three modes and ``--serve 8`` with and without
+   dedup: equal ``done:`` counts, zero overflow.
 
-Phases 3, 5, 6, 7, 8, 9 and 10 each drive their path with the launch
-counters zeroed just before and read just after; each kernel of the path
-must have launched, and the JSON line's ``launches`` sums the seven runs.
+Phases 3, 5, 6, 7, 8, 9, 10 and 11 each drive their path with the launch
+counters zeroed just before and read just after (phase 11: before and
+after each of its runs); each kernel of the path must have launched, and
+the JSON line's ``launches`` sums the eight phases' path runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -151,6 +166,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -245,6 +261,19 @@ STAGE_TIMEOUT_S = 30.0
 SERVE_QUERIES = 64
 SERVE_DISTINCT = 23
 SERVE_METHOD_KERNELS = {"probe": "probe_compact", "scan": "join_compact"}
+
+# phase 11: sharded paths and the launcher.  (a) KB row shards at phase
+# 2's join shapes, n = SHARDS on cuda:0 and n = the visible card count;
+# (b) phase 3's Q15 and CQuery1 with their windows sharded over a data axis
+# of SHARDS x cuda:0 and over make_host_mesh(); (c) the launcher's main on a
+# world of its own flags, under scan (unfused by default: the match matrix).
+# The launcher's caps are the reference's (4 windows a chunk, scan_cap 512,
+# a 2048-triple output chunk), so its windows keep the default 256 triples
+SHARDS = 4
+LAUNCHER_WORLD = ["--query", "cquery1", "--method", "scan",
+                  "--artists", "20000", "--shows", "10000",
+                  "--filler", "120000", "--tweets", "2000"]
+LAUNCHER_SERVE = 8
 
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
@@ -1878,6 +1907,205 @@ def phase_serving(vocab, kbd, chunks, smi):
 
 
 # --------------------------------------------------------------------------
+# phase 11: sharded paths and the launcher
+# --------------------------------------------------------------------------
+
+def binding_rows(b) -> list:
+    """Each window's valid binding rows as a sorted list of tuples (host)."""
+    cols, valid = b.cols.cpu(), b.valid.cpu()
+    return [sorted(map(tuple, cols[w][valid[w]].tolist()))
+            for w in range(cols.shape[0])]
+
+
+def kb_mesh(devices):
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(np.array(devices, dtype=object), ("model",))
+
+
+def data_mesh(devices):
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(np.array(devices, dtype=object).reshape(len(devices), 1),
+                ("data", "model"))
+
+
+def launcher(argv):
+    """``dscep_run.main(argv)`` on the card: its return value, its report
+    lines and the host seconds it took (world generation included)."""
+    import io
+
+    from repro_torch.launch import dscep_run
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = dscep_run.main(argv)
+    sync()
+    return ret, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_sharded(vocab, kbd, chunks, results, smi):
+    """Phase 11: (a) ``kb_join_sharded`` against the per-block oracle on the
+    card and on the CPU and against the unsharded join, timed beside it;
+    (b) sharded ``single_program`` sessions against phase 3's bytes, timed
+    beside the unsharded configuration; (c) the launcher's ``main`` in the
+    three modes and ``--serve``.  Returns the launches of the three path
+    runs (counters zeroed before each, read after it)."""
+    from repro_torch.core import algebra, kb_dist
+    from repro_torch.core.kb import shard_rows
+    from repro_torch.core.pattern import CompiledPattern, Slot
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_host_mesh
+
+    total = {k: 0 for k in _cuda.LAUNCHES}
+
+    def path(name, needed, fn):
+        _cuda.reset_launches()
+        out = fn()
+        counts = path_launches(name, needed, smi)
+        for k in total:
+            total[k] += counts[k]
+        return out
+
+    # (a) the KB's rows sharded over a model axis
+    rng = np.random.default_rng(0)
+    pool = np.concatenate([kbd.artist_ids, kbd.show_ids]).astype(np.int64)
+    bind = _bindings(MAX_WINDOWS, CAPS["bind_cap"], 4, LIVE_ROWS, pool, rng)
+    bind_cpu = type(bind)(*(t.cpu() for t in bind))
+    pat = CompiledPattern(Slot.bound(0), Slot.const_(kbd.schema.rdf_type),
+                          Slot.free(1))
+    out_cap = CAPS["bind_cap"]
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    log("phase 11 (a): kb_join_sharded, W=%d M=%d (%d live rows a window) "
+        "N=%d, out_cap %d, ?ent rdf:type ?cls"
+        % (MAX_WINDOWS, CAPS["bind_cap"], LIVE_ROWS, kbd.kb.capacity, out_cap))
+    for label, devices in (("%d x cuda:0" % SHARDS, [cards[0]] * SHARDS),
+                           ("%d visible card(s)" % len(cards), cards)):
+        n, mesh = len(devices), kb_mesh(devices)
+        blocks = shard_rows(kbd.kb, n)
+        blocks_cpu = type(blocks)(*(c.cpu() for c in blocks))
+        for method in ("scan", "probe"):
+            kernel = SERVE_METHOD_KERNELS[method]
+            got = path("phase 11 (a) %s %s" % (label, method), (kernel,),
+                       lambda: kb_dist.kb_join_sharded(
+                           bind, blocks, pat, out_cap, mesh, method=method))
+            oracle = kb_dist.kb_join_blocks_reference(bind, blocks, pat,
+                                                      out_cap, n, method)
+            if _same_bindings(got, oracle) != 0.0:
+                fail("kb_join_sharded (%s, %s) != the block oracle on the "
+                     "card" % (label, method))
+            t0 = time.perf_counter()
+            oracle_cpu = kb_dist.kb_join_blocks_reference(
+                bind_cpu, blocks_cpu, pat, out_cap, n, method)
+            cpu_s = time.perf_counter() - t0
+            if _same_bindings(got, type(got)(*(
+                    t.cuda() for t in oracle_cpu))) != 0.0:
+                fail("kb_join_sharded (%s, %s) != the block oracle on the "
+                     "CPU" % (label, method))
+            whole = algebra.kb_join(bind, kbd.kb, pat, out_cap, method=method)
+            if (binding_rows(got) != binding_rows(whole)
+                    or not torch.equal(got.overflow, whole.overflow)
+                    or bool(got.overflow.any())):
+                fail("kb_join_sharded (%s, %s): row sets or overflow differ "
+                     "from the unsharded join" % (label, method))
+            ms = cuda_ms(lambda: kb_dist.kb_join_sharded(
+                bind, blocks, pat, out_cap, mesh, method=method))
+            whole_ms = cuda_ms(lambda: algebra.kb_join(
+                bind, kbd.kb, pat, out_cap, method=method))
+            log("  %-22s %-5s n=%d: == block oracle on the card and on the CPU "
+                "(CPU %.1f s), row sets == unsharded, %d matches, no overflow; "
+                "sharded %.4f ms, unsharded %.4f ms (%.2fx) [%s]"
+                % (label, method, n, cpu_s, int(got.valid.sum()), ms,
+                   whole_ms, whole_ms / ms, smi))
+
+    # (b) phase 3's sessions with their windows sharded over a data axis
+    texts = query_texts()
+    gpu_chunks = [c.to("cuda") for c in chunks]
+    host = make_host_mesh()
+    log("phase 11 (b): single_program, windows sharded over a data axis "
+        "(%s x cuda:0; make_host_mesh() %s), phase 3's world, caps and "
+        "chunks" % (SHARDS, host))
+    configs = [("auto", "unsharded", None),
+               ("auto", "%d x cuda:0" % SHARDS, data_mesh([cards[0]] * SHARDS)),
+               ("auto", "make_host_mesh()", host),
+               ("scan", "%d x cuda:0" % SHARDS, data_mesh([cards[0]] * SHARDS))]
+    for q in OBS_QUERIES:
+        for method, label, mesh in configs:
+            kw = {} if mesh is None else dict(mesh=mesh)
+            cfg = exec_config("single_program", method, "cuda", **kw)
+            repeats = REPEATS if method == "auto" else 1
+            if mesh is None:
+                res = run_session(vocab, kbd.kb, gpu_chunks, texts[q], cfg,
+                                  repeats)
+            else:
+                needed = (("join_compact",) if method == "scan" else
+                          ("probe_compact", "closure_step", "descendants"))
+                res = path("phase 11 (b) %s %s %s" % (q, method, label),
+                           needed, lambda: run_session(
+                               vocab, kbd.kb, gpu_chunks, texts[q], cfg,
+                               repeats))
+            if not same_outputs(res["outs"], results[(q, "single_program",
+                                                      method)]):
+                fail("sharded %s %s (%s) != phase 3's bytes"
+                     % (q, method, label))
+            if any(res["overflow"].values()):
+                fail("overflow in sharded %s %s (%s): %s"
+                     % (q, method, label, res["overflow"]))
+            log("  %-8s %-5s %-18s sink %-9s plan %.3f s, %s, == phase 3's "
+                "bytes, overflow 0 [%s]"
+                % (q, method, label, res["sink"], res["plan_s"],
+                   rate_text(res), smi))
+
+    # (c) the launcher
+    log("phase 11 (c): python -m repro_torch.launch.dscep_run %s"
+        % " ".join(LAUNCHER_WORLD))
+    done = {}
+    for extra in (["--mode", "monolithic"], ["--mode", "single_program"],
+                  ["--mode", "pipelined"], ["--serve", str(LAUNCHER_SERVE)],
+                  ["--serve", str(LAUNCHER_SERVE), "--no-dedup"]):
+        ret, lines, secs = path(
+            "phase 11 (c) %s" % " ".join(extra),
+            ("match_matrix", "closure_step", "descendants"),
+            lambda: launcher(LAUNCHER_WORLD + extra))
+        for line in lines:
+            if "chunk" in line or "done:" in line or "schedule" in line:
+                log("  | " + line)
+        ends = [ln for ln in lines if "] done:" in ln]
+        clipped = [ln for ln in lines
+                   if re.search(r"[1-9]\d* overflowed windows", ln)
+                   or ("per operator:" in ln and not ln.endswith("none"))]
+        if len(ends) != 1 or ret <= 0 or clipped:
+            fail("launcher %s: returned %s, %s" % (extra, ret, ends + clipped))
+        # done: counts, and each chunk's output count where the mode
+        # prints one (the stream cap must not have clipped a chunk)
+        per_chunk = [int(m.group(1)) for m in (
+            re.search(r"chunk \d+: (\d+) output triples", ln)
+            for ln in lines) if m]
+        if any(c >= 2048 for c in per_chunk):
+            fail("launcher %s: a chunk filled the output stream cap: %s"
+                 % (extra, per_chunk))
+        done[" ".join(extra)] = (ret, per_chunk)
+        log("  %-32s %d output triples in %.1f s (world included) [%s]"
+            % (" ".join(extra), ret, secs, smi))
+    modes = [v[0] for k, v in done.items() if k.startswith("--mode")]
+    serves = [v[0] for k, v in done.items() if k.startswith("--serve")]
+    if (len(set(modes)) != 1 or len(set(serves)) != 1
+            or done["--mode monolithic"][1] != done["--mode single_program"][1]):
+        fail("launcher done: or per-chunk counts differ: %s" % done)
+    log("  monolithic == single_program == pipelined (%d triples; per "
+        "chunk in the first two); --serve %d with and without dedup (%d "
+        "triples)"
+        % (modes[0], LAUNCHER_SERVE, serves[0]))
+    for k in ("join_compact", "probe_compact", "closure_step", "descendants",
+              "match_matrix"):
+        if total[k] <= 0:
+            fail("kernel %s never launched in phase 11" % k)
+    log("phase 11 launches: %s [%s]" % (json.dumps(total), smi))
+    return total
+
+
+# --------------------------------------------------------------------------
 # phase 2, continued: the attention kernels
 # --------------------------------------------------------------------------
 
@@ -2612,9 +2840,11 @@ def main() -> int:
     log("phase 9 done at %.1f s" % (time.time() - t_start))
     serve_launches = phase_serving(vocab, kbd, chunks, smi)
     log("phase 10 done at %.1f s" % (time.time() - t_start))
+    shard_launches = phase_sharded(vocab, kbd, chunks, results, smi)
+    log("phase 11 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
              + lm_launches[k] + mamba_launches[k] + obs_launches[k]
-             + serve_launches[k] for k in launches}
+             + serve_launches[k] + shard_launches[k] for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

@@ -311,17 +311,21 @@ def _chunk_stats(stats: Dict[str, torch.Tensor],
 
 def run_plan_windows(plan: Plan, windows: Windows,
                      kb: Optional[KnowledgeBase], env: Env,
-                     tables: Tables = None, with_stats: bool = False):
+                     tables: Tables = None, with_stats: bool = False,
+                     first_window: int = 0):
     """Run the plan over every window of the batch at once.
 
     Returns a ``[W, out_cap]``-leaf TripleBatch plus a ``[W]`` overflow
     flag (a set flag means capacities clipped that window), plus the chunk
-    stats when ``with_stats``.
+    stats when ``with_stats``.  ``first_window`` is the chunk's index of
+    the batch's first window (a data-axis slice's offset): output graph ids
+    number the chunk's windows, not the slice's.
     """
     w = windows.num_windows
     dev = windows.window_valid.device
     stats: Stats = {} if with_stats else None
-    graph_base = torch.arange(w, dtype=ID_DTYPE, device=dev) * plan.bind_cap
+    graph_base = torch.arange(first_window, first_window + w, dtype=ID_DTYPE,
+                              device=dev) * plan.bind_cap
     out, _, ovf = run_plan(plan, windows.triples, kb, env, graph_base, tables,
                            stats)
     out = out._replace(valid=out.valid & windows.window_valid[:, None])

@@ -6,6 +6,8 @@
   sorted on the host with numpy at plan time and moved to the device once.
 * ``prune`` — plan-time used-KB extraction by predicate/object signature.
 * ``pad_to`` — capacity padding (pads carry the max sort key).
+* ``shard_rows`` / ``row_block`` — the row-block layout a KB is divided
+  into across devices (``core.kb_dist``).
 
 Two access methods mirror the paper's two measured methods: ``scan``
 (C-SPARQL KB access: the whole attached slice per join) and ``probe``
@@ -261,6 +263,33 @@ def pad_to(kb: KnowledgeBase, capacity: int) -> KnowledgeBase:
         o_po=pad_col(kb.o_po, 0), key_po=pad_col(kb.key_po, _PAD_KEY),
         valid=pad_col(kb.valid, False),
     )
+
+
+def shard_rows(kb: KnowledgeBase, num_shards: int) -> KnowledgeBase:
+    """Reshape ``[N] -> [num_shards, N / num_shards]`` row blocks (padded
+    first when ``num_shards`` does not divide ``N``).
+
+    Both views are key-sorted, so a row block is a contiguous key range of
+    its view, and a search within one block stays correct.  Each view is
+    cut on its own: block ``i`` of the ``(p,s)`` view and block ``i`` of
+    the ``(p,o)`` view hold different triples, so a block is never rebuilt
+    from its triples (that would sort its ``(p,o)`` view anew).  The result
+    is a layout, not a KB a join takes: :func:`row_block` gives one block
+    as a KB of its own (``core.kb_dist`` joins against those).
+    """
+    cap = kb.capacity
+    if cap % num_shards:
+        kb = pad_to(kb, -(-cap // num_shards) * num_shards)
+    per = kb.capacity // num_shards
+    return KnowledgeBase(*(c.reshape(num_shards, per) for c in kb))
+
+
+def row_block(kb_blocks: KnowledgeBase, i: int) -> KnowledgeBase:
+    """Block ``i`` of a :func:`shard_rows` layout as a contiguous 1-D
+    :class:`KnowledgeBase`, with kernel words and a fence table of its own
+    (``fence_shift`` of the block's length).  A block may be all padding,
+    and shorter than a fence stride."""
+    return KnowledgeBase(*(c[i].contiguous() for c in kb_blocks))
 
 
 # --------------------------------------------------------------------------

@@ -63,11 +63,28 @@ class SCEPOperator:
         self.env = dict(env)
         self.config = config if config is not None else OperatorConfig()
 
-    def process_windows(self, windows: Windows, with_stats: bool = False):
+    def to(self, device) -> "SCEPOperator":
+        """This operator with its KB slice and env on ``device``: itself
+        when they are there already, else a copy (whose KB builds its
+        kernel words and fences there)."""
+        device = torch.device(device)
+        kb_dev = self.kb.device if self.kb is not None else None
+        if kb_dev in (None, device) and all(
+                v.device == device for v in self.env.values()):
+            return self
+        return SCEPOperator(
+            self.name, self.plan,
+            self.kb.to(device) if self.kb is not None else None,
+            {k: v.to(device) for k, v in self.env.items()}, self.config)
+
+    def process_windows(self, windows: Windows, with_stats: bool = False,
+                        first_window: int = 0):
         """Window-aligned engine step: ``[W, C]`` in -> ``[W, out_cap]`` out
-        (the DAG runtime keeps upstream results in their window)."""
+        (the DAG runtime keeps upstream results in their window);
+        ``first_window`` offsets a slice of a chunk's windows."""
         return run_plan_windows(self.plan, windows, self.kb, self.env,
-                                with_stats=with_stats)
+                                with_stats=with_stats,
+                                first_window=first_window)
 
     def process_slides(self, view: SlideView, with_stats: bool = False):
         """Slide-aligned engine step for incremental mode: the chunk runs

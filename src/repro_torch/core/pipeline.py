@@ -53,14 +53,13 @@ the driver calls nothing in those modules.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from collections import deque
 from typing import Any, Deque, Dict, Iterable, Iterator, List, Optional, Set, Tuple
 
 import torch
 
-from ..launch.mesh import place_operators
+from ..launch.mesh import on_device, place_operators
 from ..obs.metrics import finalize_stats, merge_stats
 from ..obs.trace import Tracer
 from . import channel
@@ -69,7 +68,7 @@ from .faults import (
     FaultInjector, FaultPlan, InjectedCrash, corrupt_batch, validate_chunk,
 )
 from .kb import KnowledgeBase
-from .operator import SCEPOperator, publish_chunk
+from .operator import publish_chunk
 from .planner import OperatorDAG
 from .rdf import ID_DTYPE, TripleBatch, Vocab
 from .recovery import (
@@ -99,14 +98,6 @@ def _flags(num_windows: int, device) -> torch.Tensor:
 
 def _to(tree, device):
     return tree_map(lambda t: t.to(device, non_blocking=True), tree)
-
-
-def _current(device: torch.device):
-    """Make ``device`` the current CUDA device for a stage's launches (a
-    no-op for the CPU)."""
-    if device.type != "cuda":
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
 
 
 def _if_valid(x: torch.Tensor, ok: bool) -> torch.Tensor:
@@ -142,11 +133,18 @@ class PipelinedRuntime:
                  channel_capacity: int = 4,
                  tracer: Optional[Tracer] = None,
                  faults: Optional[FaultPlan] = None,
-                 recovery: Optional[RecoveryConfig] = None):
+                 recovery: Optional[RecoveryConfig] = None,
+                 mesh=None):
         if channel_capacity < 2:
             raise ValueError(
                 "pipelining needs channel_capacity >= 2 (double buffering), "
                 "got %d" % channel_capacity)
+        if mesh is not None:
+            # window sharding belongs to DSCEPRuntime; per-operator channel
+            # buffers on one device would undo it here
+            raise NotImplementedError(
+                "PipelinedRuntime does not shard windows over a mesh; "
+                "pass placement= instead (or use DSCEPRuntime with mesh=)")
         self.dag = dag
         self.vocab = vocab
         self.config = cfg = config if config is not None else RuntimeConfig()
@@ -407,7 +405,7 @@ class PipelinedRuntime:
         while self._src_q and self._edge_room(src_edge):
             seq, chunk = self._src_q.popleft()
             with stage_span(tr, "stage:source") as sp, \
-                    _current(self._sink_dev):
+                    on_device(self._sink_dev):
                 sink_payload, op_payload = self._run_stage(
                     "source", seq, lambda: source_stage(
                         merge_streams([chunk]), cfg, self._split))
@@ -425,7 +423,7 @@ class PipelinedRuntime:
             op, dev = self.operators[name], self.placement[name]
             while q and self._edge_room(edge):
                 seq, payload = q.popleft()
-                with stage_span(tr, "stage:%s" % name) as sp, _current(dev):
+                with stage_span(tr, "stage:%s" % name) as sp, on_device(dev):
                     pub, ovf, *stats = self._run_stage(
                         name, seq, lambda: upstream_stage(
                             self._split, name, op, _to(payload, dev),
@@ -514,7 +512,7 @@ class PipelinedRuntime:
             "operator dispatch queues lag the window edge")
         seq = self._inflight_seqs[0] if self._inflight_seqs else -1
         with stage_span(self.tracer, "stage:%s" % self.final) as sp, \
-                _current(self._sink_dev):
+                on_device(self._sink_dev):
             out, overflow, *stats = self._run_stage(
                 self.final, seq, self._sink_impl, retryable=False)
             for st in stats:
@@ -730,11 +728,8 @@ class PipelinedRuntime:
         KB slice and env there.  Every pop of a real chunk is valid, so the
         output is the pipelined (and monolithic) bytes."""
         dev = self._sink_dev
-        ops = {n: op if self.placement[n] == dev else SCEPOperator(
-                   n, op.plan, op.kb.to(dev) if op.kb is not None else None,
-                   {k: v.to(dev) for k, v in op.env.items()}, op.config)
-               for n, op in self.operators.items()}
-        with _current(dev):
+        ops = {n: op.to(dev) for n, op in self.operators.items()}
+        with on_device(dev):
             out, overflow, _ = dag_chunk(self.dag, self._split, ops,
                                          self.config,
                                          self._retained[seq].to(dev))

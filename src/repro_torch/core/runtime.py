@@ -9,7 +9,10 @@
   over the raw windows (the split sink; incremental mode ships chunk-level
   span-tagged tables).  Otherwise the aggregator sees upstream output
   triples appended to the very window that produced them (the augmented
-  window) and decodes them.
+  window) and decodes them.  With a :class:`~repro_torch.launch.mesh.Mesh`
+  it shards each chunk's windows over the mesh's data axis, one slice a
+  device (:func:`sharded_chunk`), as the reference shards them over
+  devices; ``balance_windows`` pads a batch to the engine count.
 * :class:`MonolithicRuntime` — one operator, the whole query, the full KB
   (the paper's baseline).
 
@@ -29,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..launch.mesh import Mesh, on_device
 from ..obs.metrics import finalize_stats, merge_stats
 from ..obs.trace import NULL_SPAN, Tracer
 from .kb import KnowledgeBase, collect_kb_stats, pad_to
@@ -134,15 +138,16 @@ class SplitSink:
 
 
 def prepare_split_sink(dag: OperatorDAG, operators: Dict[str, SCEPOperator],
-                       config: RuntimeConfig) -> Optional[SplitSink]:
+                       config: RuntimeConfig,
+                       mesh: Optional[Mesh] = None) -> Optional[SplitSink]:
     """Try to split the aggregation sink of this DAG.
 
     Returns ``None`` (the caller keeps the augmented-window path) when the
     plan rewrite is outside the equivalent fragment
-    (:func:`~repro_torch.core.planner.split_agg_plan`), or when incremental
-    mode is asked for but a plan of the DAG cannot run the delta path
-    (mixing per-window tables with a delta sink would need a third table
-    format).
+    (:func:`~repro_torch.core.planner.split_agg_plan`), when a mesh shards
+    the windows (tables are not window-sharded), or when incremental mode
+    is asked for but a plan of the DAG cannot run the delta path (mixing
+    per-window tables with a delta sink would need a third table format).
 
     ``rows_cap`` mirrors the triple path's clipping: an upstream publishes
     ``templates-per-row * rows`` triples into ``out_cap``, so the decode
@@ -150,6 +155,8 @@ def prepare_split_sink(dag: OperatorDAG, operators: Dict[str, SCEPOperator],
     partial row decodes to nothing).  The delta table carries the whole
     chunk-level chain state, which ``bind_cap`` already bounds.
     """
+    if mesh is not None:
+        return None
     res = split_agg_plan(operators[dag.final].plan, dag)
     if res is None:
         return None
@@ -181,13 +188,14 @@ def sink_kind(split: Optional[SplitSink]) -> str:
     return "split-delta" if split.delta else "split"
 
 
-def build_dag(dag: OperatorDAG, kb: KnowledgeBase, config: RuntimeConfig
+def build_dag(dag: OperatorDAG, kb: KnowledgeBase, config: RuntimeConfig,
+              mesh: Optional[Mesh] = None
               ) -> Tuple[Dict[str, SCEPOperator], Optional[SplitSink]]:
     """The operators of a decomposed DAG and its split sink, if the rewrite
     applies.  The sink operator's plan is swapped for the rewritten one, so
     introspection reports the plan that runs."""
     operators = build_operators(dag, kb, config)
-    split = prepare_split_sink(dag, operators, config)
+    split = prepare_split_sink(dag, operators, config, mesh)
     if split is not None:
         operators[dag.final].plan = split.plan
     return operators, split
@@ -221,17 +229,20 @@ def source_stage(merged: TripleBatch, config: RuntimeConfig,
 
 
 def upstream_stage(split: Optional[SplitSink], name: str, op: SCEPOperator,
-                   payload, max_windows: int, with_stats: bool = False):
+                   payload, max_windows: int, with_stats: bool = False,
+                   first_window: int = 0):
     """One enrichment operator's step over a chunk's windows (or slide
     view).  Returns ``(publication, overflow [max_windows])``, and the
     chunk stats when ``with_stats``: its binding table under the split sink
     (per window, or chunk-level over a ``SlideView`` when delta), else its
     output triples.  A delta table's chunk-level flag is broadcast to the
-    per-window convention every overflow consumer expects."""
+    per-window convention every overflow consumer expects.
+    ``first_window`` offsets a data-axis slice of the windows (augmented
+    path only)."""
     if split is None:
         if isinstance(payload, SlideView):
             return op.process_slides(payload, with_stats)
-        return op.process_windows(payload, with_stats)
+        return op.process_windows(payload, with_stats, first_window)
     spec = split.pub[name]
     if split.delta:
         table, ovf, *stats = op.process_slide_tables(
@@ -243,7 +254,7 @@ def upstream_stage(split: Optional[SplitSink], name: str, op: SCEPOperator,
 
 def sink_stage(dag: OperatorDAG, split: Optional[SplitSink],
                op: SCEPOperator, payload, inputs: Dict[str, Any],
-               with_stats: bool = False):
+               with_stats: bool = False, first_window: int = 0):
     """The aggregation operator's step.  The split sink joins the upstream
     tables over the raw windows (or the slide view, delta); otherwise the
     upstream output triples are appended to the very window that produced
@@ -256,10 +267,37 @@ def sink_stage(dag: OperatorDAG, split: Optional[SplitSink],
             if src != "stream"]
         aug = TripleBatch(*(torch.cat(cols, dim=-1) for cols in zip(*parts)))
         return op.process_windows(Windows(aug, payload.window_valid),
-                                  with_stats)
+                                  with_stats, first_window)
     if split.delta:
         return op.process_sink_slides(payload, inputs, with_stats)
     return op.process_sink_windows(payload, inputs, with_stats)
+
+
+def dag_stages(dag: OperatorDAG, split: Optional[SplitSink],
+               operators: Dict[str, SCEPOperator], max_windows: int,
+               sink_in, op_in, with_stats: bool = False,
+               first_window: int = 0):
+    """Each upstream operator, then the sink, over one source stage's
+    payloads (``first_window``: the offset of a slice of the windows).
+    Returns ``(output triples [W, out_cap], {operator: overflow [W]},
+    {operator: stats})`` (the stats dict is empty unless ``with_stats``)."""
+    final = dag.final
+    overflow: Dict[str, torch.Tensor] = {}
+    inputs: Dict[str, Any] = {}
+    stats: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name in dag.subqueries:
+        if name != final:
+            inputs[name], overflow[name], *st = upstream_stage(
+                split, name, operators[name], op_in, max_windows, with_stats,
+                first_window)
+            if st:
+                stats[name] = st[0]
+    out_w, overflow[final], *st = sink_stage(
+        dag, split, operators[final], sink_in, inputs, with_stats,
+        first_window)
+    if st:
+        stats[final] = st[0]
+    return out_w, overflow, stats
 
 
 def dag_chunk(dag: OperatorDAG, split: Optional[SplitSink],
@@ -269,23 +307,91 @@ def dag_chunk(dag: OperatorDAG, split: Optional[SplitSink],
     stage, each upstream operator, the sink, the publisher.  Returns
     ``(published chunk, {operator: overflow [W]}, {operator: stats})``
     (the stats dict is empty unless ``with_stats``)."""
-    final = dag.final
     sink_in, op_in = source_stage(merge_streams([chunk]), config, split)
-    overflow: Dict[str, torch.Tensor] = {}
-    inputs: Dict[str, Any] = {}
-    stats: Dict[str, Dict[str, torch.Tensor]] = {}
-    for name in dag.subqueries:
-        if name != final:
-            inputs[name], overflow[name], *st = upstream_stage(
-                split, name, operators[name], op_in, config.max_windows,
-                with_stats)
-            if st:
-                stats[name] = st[0]
-    out_w, overflow[final], *st = sink_stage(
-        dag, split, operators[final], sink_in, inputs, with_stats)
-    if st:
-        stats[final] = st[0]
+    out_w, overflow, stats = dag_stages(dag, split, operators,
+                                        config.max_windows, sink_in, op_in,
+                                        with_stats)
     return publish_chunk(out_w, config.out_stream_cap), overflow, stats
+
+
+# --------------------------------------------------------------------------
+# window sharding over a mesh's data axis (intra-operator parallelism)
+# --------------------------------------------------------------------------
+
+def window_slices(num_windows: int, mesh: Mesh, axis: str = "data"
+                  ) -> List[Tuple[torch.device, int, int]]:
+    """``(device, start, stop)`` of each data-axis slice of a ``[W, ...]``
+    window batch: ``ceil(W / n)`` windows a slice, as a sharded axis is
+    split, so the last slices may be shorter or empty.  Each slice goes to
+    the first device of its position along ``axis``; the other axes
+    replicate, so each slice runs once."""
+    devices = mesh.devices_along(axis)
+    per = -(-num_windows // len(devices))
+    return [(d, min(i * per, num_windows), min((i + 1) * per, num_windows))
+            for i, d in enumerate(devices)]
+
+
+def shard_windows(windows: Windows, mesh: Mesh, axis: str = "data"
+                  ) -> List[Tuple[torch.device, int, Windows]]:
+    """Split a window batch into its data-axis slices: ``(device, index of
+    the slice's first window, slice on the device)`` (see
+    :func:`window_slices`).  Empty slices are left out, so no kernel
+    launches on a zero-size grid."""
+    return [(dev, lo, Windows(windows.triples.map(lambda c: c[lo:hi].to(dev)),
+                              windows.window_valid[lo:hi].to(dev)))
+            for dev, lo, hi in window_slices(windows.num_windows, mesh, axis)
+            if hi > lo]
+
+
+def balance_windows(stream: TripleBatch, num_engines: int,
+                    window_capacity: int, max_windows: int,
+                    window_step: Optional[int] = None) -> Windows:
+    """Straggler-aware packing: count windows (equal triple counts up to one
+    graph), padded with empty windows to a multiple of ``num_engines`` so
+    the data axis divides evenly."""
+    w = count_windows(stream, window_capacity, max_windows, window_step)
+    pad = -w.num_windows % num_engines
+    if pad:
+        w = Windows(
+            w.triples.map(lambda c: torch.cat(
+                [c, c.new_zeros((pad,) + tuple(c.shape[1:]))])),
+            torch.cat([w.window_valid, w.window_valid.new_zeros(pad)]))
+    return w
+
+
+def sharded_chunk(dag: OperatorDAG, replicas: Dict[torch.device,
+                                                   Dict[str, SCEPOperator]],
+                  config: RuntimeConfig, mesh: Mesh, axis: str,
+                  chunk: TripleBatch, with_stats: bool = False):
+    """One chunk with its windows sharded over ``axis``: every slice runs
+    the upstream operators and the (augmented-window) sink on its device,
+    from that device's operator replicas; the ``[W, out_cap]`` outputs and
+    ``[W]`` flags come back to the chunk's device in data order, and the
+    chunk is published there.  Windows run independently, and each slice
+    numbers its output graphs from its first window's index in the chunk,
+    so the bytes are the unsharded run's.  Per-slice stats merge as the
+    chunk's: counters add, high-water marks take the max."""
+    cfg = config
+    home = chunk.s.device
+    windows = count_windows(merge_streams([chunk]), cfg.window_capacity,
+                            cfg.max_windows, cfg.window_step)
+    outs: List[TripleBatch] = []
+    flags: Dict[str, List[torch.Tensor]] = {}
+    stats: Dict[str, Dict[str, torch.Tensor]] = {}
+    for dev, first, part in shard_windows(windows, mesh, axis):
+        with on_device(dev):
+            out_w, ovf, st = dag_stages(dag, None, replicas[dev],
+                                        cfg.max_windows, part, part,
+                                        with_stats, first)
+        outs.append(out_w.to(home))
+        for name, f in ovf.items():
+            flags.setdefault(name, []).append(f.to(home))
+        for name, s in st.items():
+            merge_stats(stats.setdefault(name, {}),
+                        {k: v.to(home) for k, v in s.items()})
+    out_w = TripleBatch(*(torch.cat(cols) for cols in zip(*outs)))
+    overflow = {name: torch.cat(f) for name, f in flags.items()}
+    return publish_chunk(out_w, cfg.out_stream_cap), overflow, stats
 
 
 def stage_span(tracer: Optional[Tracer], name: str, **meta):
@@ -322,16 +428,34 @@ class _OverflowAccumulator:
 
 
 class DSCEPRuntime:
-    """Executes a decomposed query DAG over chunked input streams."""
+    """Executes a decomposed query DAG over chunked input streams.
+
+    With a ``mesh``, each chunk's windows are sharded over its
+    ``data_axis`` (:func:`sharded_chunk`): every slice runs on its own
+    device, from replicas of the operators placed there once.  As in the
+    reference, a mesh keeps the augmented-window sink and evaluates
+    windows, not slides (``incremental`` has no effect on the path)."""
 
     def __init__(self, dag: OperatorDAG, kb: KnowledgeBase, vocab: Vocab,
                  config: Optional[RuntimeConfig] = None,
-                 tracer: Optional[Tracer] = None):
+                 tracer: Optional[Tracer] = None,
+                 mesh: Optional[Mesh] = None, data_axis: str = "data"):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh= takes a repro_torch.launch.mesh.Mesh, "
+                            "got %r" % type(mesh).__name__)
         self.dag = dag
         self.config = config if config is not None else RuntimeConfig()
         self.vocab = vocab
+        self.mesh = mesh
+        self.data_axis = data_axis
         # the split sink (None keeps the augmented-window path)
-        self.operators, self._split = build_dag(dag, kb, self.config)
+        self.operators, self._split = build_dag(dag, kb, self.config, mesh)
+        self._replicas: Dict[torch.device, Dict[str, SCEPOperator]] = {}
+        if mesh is not None:
+            for dev in mesh.devices_along(data_axis):
+                if dev not in self._replicas:
+                    self._replicas[dev] = {n: op.to(dev) for n, op
+                                           in self.operators.items()}
         self._overflow = _OverflowAccumulator(self.operators, kb.device)
         self.tracer = tracer
         self._collect = bool(tracer is not None and tracer.config.metrics)
@@ -346,9 +470,14 @@ class DSCEPRuntime:
         """Push one stream chunk through the DAG; returns (final output,
         per-operator overflow flags [W])."""
         with stage_span(self.tracer, "chunk", mode="single_program") as sp:
-            out, overflow, stats = dag_chunk(self.dag, self._split,
-                                             self.operators, self.config,
-                                             chunk, self._collect)
+            if self.mesh is None:
+                out, overflow, stats = dag_chunk(self.dag, self._split,
+                                                 self.operators, self.config,
+                                                 chunk, self._collect)
+            else:
+                out, overflow, stats = sharded_chunk(
+                    self.dag, self._replicas, self.config, self.mesh,
+                    self.data_axis, chunk, self._collect)
             for name, st in stats.items():
                 merge_stats(self._stats_acc[name], st)
             sp.fence(out)

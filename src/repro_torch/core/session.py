@@ -22,9 +22,11 @@ spans and device-side engine metrics in every mode, read through
 planner's decisions.  ``faults=`` (a seeded
 :class:`~repro_torch.core.faults.FaultPlan`) and ``recovery=`` (a
 :class:`~repro_torch.core.recovery.RecoveryConfig`) run the pipelined mode
-under injected faults and its recovery ladder.  ``mesh=``, the one knob of
-the reference this port does not have yet, raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+under injected faults and its recovery ladder.  ``mesh=`` (a
+:class:`~repro_torch.launch.mesh.Mesh`) shards each chunk's windows over
+its ``data_axis`` in ``single_program`` mode, one slice a device, with the
+bytes of the unsharded run; ``monolithic`` ignores it and ``pipelined``
+refuses it (that mode spreads operators through ``placement``).
 
 ``Session.serve()`` returns a :class:`~repro_torch.serve.engine.ServeEngine`:
 a population of standing queries over the session's KB, sharing plans,
@@ -53,12 +55,6 @@ from .sparql import ParseInfo, parse_query_info, serialize_query
 
 MODES = ("monolithic", "single_program", "pipelined")
 KB_METHODS = ("scan", "probe", "auto")
-
-
-def _not_ported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        "%s is not in the PyTorch port yet (ROADMAP.md queue 1: %s)"
-        % (knob, item))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +90,10 @@ class ExecutionConfig:
     fuse_compaction: bool = True
     mode: str = "single_program"       # monolithic | single_program | pipelined
     device: str = "cuda"               # where the KB, chunks and kernels run
+    # single_program mode: a launch.mesh.Mesh whose ``data_axis`` shards
+    # each chunk's windows, one slice a device (monolithic ignores it)
+    mesh: Optional[Any] = None
+    data_axis: str = "data"
     # pipelined mode: operator -> device.  A strategy name for
     # launch.mesh.place_operators ("round_robin" or "single", over every
     # visible card when ``device`` is "cuda", else over ``device`` alone),
@@ -113,9 +113,6 @@ class ExecutionConfig:
     faults: Optional[FaultPlan] = None
     recovery: Optional[RecoveryConfig] = None
 
-    # the reference knob still to port: any non-default value raises
-    mesh: Optional[Any] = None
-
     def __post_init__(self):
         resolve_trace(self.trace)     # validates the field's type
         if self.mode not in MODES:
@@ -128,8 +125,10 @@ class ExecutionConfig:
         if self.window_step is not None and self.window_step < 1:
             raise ValueError("window_step must be >= 1, got %d"
                              % self.window_step)
-        if self.mesh is not None:
-            raise _not_ported("mesh=", "Sharded paths")
+        if self.mode == "pipelined" and self.mesh is not None:
+            raise ValueError(
+                "pipelined mode distributes via placement=, not mesh= "
+                "(window sharding belongs to single_program mode)")
         if self.faults is not None and not isinstance(self.faults, FaultPlan):
             raise TypeError(
                 "faults= takes a repro_torch.core.faults.FaultPlan, got %r"
@@ -219,7 +218,8 @@ class RegisteredQuery:
         self.dag = decompose(self.query, self.session.vocab)
         if self.mode == "single_program":
             return DSCEPRuntime(self.dag, kb, self.session.vocab,
-                                cfg.runtime_config(), tracer=self.tracer)
+                                cfg.runtime_config(), tracer=self.tracer,
+                                mesh=cfg.mesh, data_axis=cfg.data_axis)
         placement = cfg.placement
         if placement is None:
             placement = "single"

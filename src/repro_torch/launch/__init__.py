@@ -1,2 +1,2 @@
-"""Deployment helpers of the PyTorch/CUDA port: operator placement
-(``mesh``) and the serving population (``dscep_run``)."""
+"""Deployment of the PyTorch/CUDA port: device meshes and operator
+placement (``mesh``), and the DSCEP launcher (``dscep_run``)."""

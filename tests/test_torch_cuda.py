@@ -679,6 +679,115 @@ def test_pipelined_across_cards_equals_single_program(card, q, incremental):
                for st in reg.channel_stats().values())
 
 
+def _sharded_join_world(seed=0):
+    """A 5000-row KB over ids 5000..5199 (predicates 1..3) and 8 windows of
+    256 binding rows (some dead), on the CPU."""
+    rng = np.random.default_rng(seed)
+    rows = np.stack([rng.integers(BASE, BASE + 200, 5000),
+                     rng.integers(1, 4, 5000),
+                     rng.integers(BASE, BASE + 200, 5000)], 1)
+    kb = pkb.kb_from_triples(rows.astype(np.uint32), capacity=5003)
+    cols = rng.integers(BASE, BASE + 200, size=(8, 256, 2))
+    bind = interop.bindings_from_arrays(cols, rng.random((8, 256)) < 0.8,
+                                        rng.random(8) < 0.25)
+    return kb, bind
+
+
+def _kb_sharded_equals_cpu(devices, method):
+    """``kb_join_sharded`` over a model axis of ``devices`` against the
+    same join over as many CPU copies, byte for byte, for both anchors."""
+    from repro_torch.core import kb_dist
+    from repro_torch.launch.mesh import Mesh
+
+    kb, bind = _sharded_join_world()
+    n = len(devices)
+    cpu_mesh = Mesh(np.array([torch.device("cpu")] * n, dtype=object),
+                    ("model",))
+    mesh = Mesh(np.array(devices, dtype=object), ("model",))
+    blocks = pkb.shard_rows(kb.to(devices[0]), n)
+    cpu_blocks = pkb.shard_rows(kb, n)
+    gpu_bind = Bindings(*(t.to(devices[0]) for t in bind))
+    for name in ("bound_const_free", "free_const_bound"):
+        pat = PATTERNS[name]
+        _cuda.reset_launches()
+        got = kb_dist.kb_join_sharded(gpu_bind, blocks, pat, 512 * n, mesh,
+                                      method=method)
+        key = "join_compact" if method == "scan" else "probe_compact"
+        assert _cuda.LAUNCHES[key] >= n
+        want = kb_dist.kb_join_sharded(bind, cpu_blocks, pat, 512 * n,
+                                       cpu_mesh, method=method)
+        assert got.cols.device == devices[0]
+        _same(got, want)
+        assert int(want.valid.sum()) > 0
+        placed = kb_dist.placed_blocks(blocks, mesh.devices_along("model"))
+        assert [b.device for b in placed] == list(devices)
+
+
+def _sharded_session_equals_unsharded(devices, q):
+    """Q15 / CQuery1 ``single_program`` with windows of 32 triples sharded
+    over a data axis of ``devices`` (every slice holds windows with results)
+    against the unsharded run on cuda:0."""
+    from repro_torch.core.session import ExecutionConfig, Session
+    from repro_torch.launch.mesh import Mesh
+
+    vocab, kbd, chunks, texts = _session_world()
+    caps = dict(window_capacity=32, max_windows=4, bind_cap=1024,
+                scan_cap=128, out_cap=1024, intermediate_cap=512,
+                kb_method="auto", device=str(devices[0]))
+    want, want_ovf = Session(ExecutionConfig(**caps), vocab=vocab,
+                             kb=kbd.kb).register(texts[q]).run(chunks)
+    mesh = Mesh(np.array(devices, dtype=object).reshape(len(devices), 1),
+                ("data", "model"))
+    reg = Session(ExecutionConfig(mesh=mesh, **caps), vocab=vocab,
+                  kb=kbd.kb).register(texts[q])
+    assert reg.runtime.sink_kind == "augmented"
+    _cuda.reset_launches()
+    got, ovf = reg.run(chunks)
+    assert _cuda.LAUNCHES["probe_compact"] > 0
+    assert ovf == want_ovf and not any(ovf.values())
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert sum(int(o.valid.sum()) for o in got) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["scan", "probe"])
+def test_kb_join_sharded_on_the_card_equals_the_cpu(card, method):
+    """Four row blocks of the KB, all on cuda:0."""
+    _kb_sharded_equals_cpu([torch.device("cuda", 0)] * 4, method)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q15", "cquery1"])
+def test_sharded_session_on_the_card_equals_unsharded(card, q):
+    """A data axis of four copies of cuda:0 (slices of one window)."""
+    _sharded_session_equals_unsharded([torch.device("cuda", 0)] * 4, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["scan", "probe"])
+def test_kb_join_sharded_across_cards_equals_the_cpu(card, method):
+    """One row block a visible card: each block's join launches on its
+    card, and the union comes back to cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    _kb_sharded_equals_cpu([torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())],
+                           method)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q15", "cquery1"])
+def test_sharded_session_across_cards_equals_unsharded(card, q):
+    """One window slice a visible card (three cards: slices 2, 2, 0)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    _sharded_session_equals_unsharded(
+        [torch.device("cuda", i) for i in range(torch.cuda.device_count())],
+        q)
+
+
 # the spin kernel the observability and recovery tests wait on: ~0.1 s
 # at the H100's clocks
 SLEEP_CYCLES = 200_000_000

@@ -376,7 +376,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 ("obs", "metrics.py"), ("obs", "report.py"),
                 ("core", "faults.py"), ("core", "recovery.py"),
                 ("serve", "engine.py"), ("serve", "batcher.py"),
-                ("launch", "dscep_run.py")):
+                ("launch", "dscep_run.py"), ("launch", "mesh.py"),
+                ("core", "kb_dist.py"), ("configs", "dscep.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):

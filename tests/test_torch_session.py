@@ -262,18 +262,9 @@ def test_stream_generator_matches_run(pworld):
     assert set(ovf) == set(reg.operators)
 
 
-@pytest.mark.parametrize("knob,item", [
-    (dict(mesh=object()), "Sharded paths"),
-])
-def test_unported_knobs_raise_naming_their_roadmap_item(knob, item):
-    for mode in ("single_program", "pipelined"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-            ExecutionConfig(device="cpu", mode=mode, **knob)
-
-
 def _knob(name, pkg):
-    """A value of the trace/faults/recovery knobs, built by ``pkg``'s own
-    classes (``"port"`` or ``"ref"``)."""
+    """A value of the trace/faults/recovery/mesh knobs, built by ``pkg``'s
+    own classes (``"port"`` or ``"ref"``)."""
     from repro.core.faults import FaultEvent as RFE, FaultPlan as RFP
     from repro.core.recovery import RecoveryConfig as RRC
     from repro.obs.trace import TraceConfig as RTC
@@ -282,6 +273,13 @@ def _knob(name, pkg):
     from repro_torch.obs.trace import TraceConfig
 
     port = pkg == "port"
+    if name == "mesh":
+        if port:
+            from repro_torch.launch.mesh import Mesh
+            return Mesh(np.array([torch.device("cpu")], dtype=object)
+                        .reshape(1, 1), ("data", "model"))
+        from repro.launch.mesh import make_host_mesh
+        return make_host_mesh()
     return {
         "plan": (FaultPlan((FaultEvent("crash_stage", "source", 0),)) if port
                  else RFP((RFE("crash_stage", "source", 0),))),
@@ -304,13 +302,17 @@ def _knob(name, pkg):
     ("monolithic", dict(trace="trace_config"), None),
     ("single_program", dict(trace=True), None),
     ("pipelined", dict(trace=False), None),
+    ("pipelined", dict(mesh="mesh"), ValueError),
+    ("monolithic", dict(mesh="mesh"), None),
+    ("single_program", dict(mesh="mesh", data_axis="data"), None),
 ])
 def test_knob_validation_matches_the_reference(mode, knob, error):
     """``trace=`` takes None, False, True or a TraceConfig; ``faults=`` a
-    FaultPlan and ``recovery=`` a RecoveryConfig, in pipelined mode only:
-    the port raises what the reference raises, or accepts what it
-    accepts."""
-    names = ("plan", "recovery", "trace_config")
+    FaultPlan and ``recovery=`` a RecoveryConfig, in pipelined mode only;
+    ``mesh=`` is refused in pipelined mode (placement= spreads it) and
+    ignored by monolithic: the port raises what the reference raises, or
+    accepts what it accepts."""
+    names = ("plan", "recovery", "trace_config", "mesh")
 
     def build(pkg):
         kw = {k: (_knob(v, pkg) if v in names else v) for k, v in knob.items()}
