@@ -9,8 +9,9 @@ Phases (each prints its lines; any failure exits non-zero):
    ``nvcc`` (one process per source, all started together), print the
    card's name and power limit, each kernel's registers and spills, and
    the count of ``HGMMA`` (``wgmma``) instructions in the SASS of the bf16
-   flash kernel and of the bf16 SSD passes that multiply (``cuobjdump
-   -sass``; none in any instantiation fails the run).
+   flash kernel (5 instantiations: head dims 16, 32, 64, 80, 128) and of
+   the bf16 SSD passes that multiply (4 each) (``cuobjdump -sass``; none
+   in any instantiation, or another count of them, fails the run).
 2. **Kernels against their plain versions, on the card**: the scan join,
    the probe join, the match matrix, the closure squaring step and the
    fused descendants step, each held byte for byte (tolerance 0: the
@@ -36,7 +37,13 @@ Phases (each prints its lines; any failure exits non-zero):
    tile, D 16 to 128, groups 1, 3, 6), float32 within 1e-4 and bfloat16
    within 2e-2 + 1e-2 relative; a bf16 call must reach only the ``wgmma``
    kernel and an f32 call only the SIMT kernel, each timed; one decode
-   call must put exactly one ``decode_`` kernel on the profiler;
+   call must put exactly one ``decode_`` kernel on the profiler; head dim
+   80 (H2O-Danube's 32/8 heads): flash at the lane prefill of phase 12's
+   longest prompt (Tq 4600 over a 4672-row lane, window 4096) and decode
+   attention with a window (a tick of 8 ragged lanes, window below and
+   above the length, length 0, lengths past S, one-row lanes), both
+   dtypes, each bf16 shape timed beside SDPA with the same boolean mask
+   (the JSON rows' ``shapes``);
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
@@ -147,11 +154,31 @@ Phases (each prints its lines; any failure exits non-zero):
    (``LAUNCHER_WORLD``: CQuery1 under ``scan``, ``--fuse`` off, so the
    match matrix) in the three modes and ``--serve 8`` with and without
    dedup: equal ``done:`` counts, zero overflow.
+12. **The continuous batcher** (``serve.lm.ContinuousBatcher`` over
+   ``launch.serve.make_slot_fns``: queued requests prefilled into free
+   lanes of a per-sequence cache, every tick decoding all lanes in one
+   fixed-shape step, finished lanes reused) at full width with random
+   bf16 weights: (a) H2O-Danube-1.8B (24 layers, 32/8 heads of 80,
+   window 4096), 8 slots of 4672 rows, 24 requests of 256-4600 ids (4
+   past the window), 8-48 new tokens; (b) OLMo-1B, 8 slots, 24 requests
+   of 256-2048 ids; (c) Mamba2-130M, 4 slots, 12 requests.  Gates: every
+   request drains; flash launches = layers x requests, decode launches =
+   layers x ticks (every tick decodes), SSD launches = layers x requests
+   in (c), nothing else; the lane logits of 6 requests of (a) (2 past the
+   window) and 4 of (b), recorded by wrapping the two callables, within
+   LM_BF16_FACTOR times the bf16-vs-f32 difference of the single-sequence
+   path (a batch-1 cache with a shared length fed the same ids; max and
+   mean), and the ids equal to its argmax wherever its top-2 gap exceeds
+   that bound; the card equal to the CPU on f32 copies at 2 layers of (a)
+   and (b) (3 slots, 5 requests, equal ids, logits within 2e-3).  It
+   prints generated tokens/s, ticks, peak memory and the idle share over
+   8 ticks of busy lanes.
 
-Phases 3, 5, 6, 7, 8, 9, 10 and 11 each drive their path with the launch
-counters zeroed just before and read just after (phase 11: before and
-after each of its runs); each kernel of the path must have launched, and
-the JSON line's ``launches`` sums the eight phases' path runs.
+Phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 each drive their path with the
+launch counters zeroed just before and read just after (phases 11 and
+12: before and after each of their runs); each kernel of the path must
+have launched, and the JSON line's ``launches`` sums the nine phases'
+path runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -275,6 +302,26 @@ LAUNCHER_WORLD = ["--query", "cquery1", "--method", "scan",
                   "--filler", "120000", "--tweets", "2000"]
 LAUNCHER_SERVE = 8
 
+# phase 12: the continuous batcher at full width (random bf16 weights):
+# (arch, slots, requests, prompt ids (lo, hi), prompts past the window,
+# new ids (lo, hi), lane rows, teacher-forced requests (past the window))
+BATCH_WORLDS = (
+    ("h2o-danube-1.8b", 8, 24, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("olmo-1b", 8, 24, (256, 2048), 0, (8, 48), 2112, (4, 0)),
+    ("mamba2-130m", 4, 12, (256, 2048), 0, (8, 48), 2112, (0, 0)),
+)
+BATCH_SEED = 12
+# the card-against-CPU gate: float32 copies at 2 layers, 3 slots, 5
+# requests of 64-160 ids, 4 new tokens each, logits within LM_CPU_TOL
+BATCH_CPU = dict(layers=2, slots=3, requests=5, prompt=(64, 160), new=4)
+PROFILE_TICKS = 8
+# phase 2's head-dim-80 shapes: H2O-Danube's lane prefill (the longest
+# prompt over a lane of DANUBE_MAX_LEN rows) and a tick over 8 lanes
+DANUBE_WINDOW = 4096
+DANUBE_PROMPT_MAX = 4600
+DANUBE_MAX_LEN = 4672
+DANUBE_TICK_LENGTHS = [4601, 257, 4649, 2001, 4098, 1001, 3501, 300]
+
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
 # phase 3 also runs the pipelined runtime (phase 5 under auto incremental)
@@ -301,10 +348,11 @@ KERNEL_SYMBOLS = {"join_compact": "scan_join",   # count + scatter kernels
                   # ssd_state_scan_kernel, ssd_output_kernel
                   "ssd": "ssd_"}
 
-# the bf16 kernels whose every instantiation must hold HGMMA, by source
+# the bf16 kernels whose every instantiation must hold HGMMA, by source,
+# with their instantiations' count (flash: head dims 16, 32, 64, 80, 128)
 TENSOR_CORE_KERNELS = {
-    "attention": ("flash_attention_wgmma_kernel",),
-    "ssd": ("ssd_chunk_state_wgmma_kernel", "ssd_output_wgmma_kernel")}
+    "attention": {"flash_attention_wgmma_kernel": 5},
+    "ssd": {"ssd_chunk_state_wgmma_kernel": 4, "ssd_output_wgmma_kernel": 4}}
 
 
 def log(msg: str) -> None:
@@ -474,14 +522,36 @@ class KernelRecord:
         self.bound_by = None
         self.library_ms = None
         self.cases = 0
+        self.shapes = []       # more timed shapes: the same keys a case
 
     def row(self, launches):
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "launches": launches,
-                "max_abs_err": self.err, "ms": self.ms,
-                "launch_ms": self.launch_ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": self.bound_by, "library_ms": self.library_ms}
+        row = {"name": self.name, "route": "cuda", "source": self.source,
+               "replaces": self.replaces, "launches": launches,
+               "max_abs_err": self.err, "ms": self.ms,
+               "launch_ms": self.launch_ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": self.bound_by, "library_ms": self.library_ms}
+        if self.shapes:
+            row["shapes"] = self.shapes
+        return row
+
+    def time_case(self, tag, fn, plain, library, bound, smi):
+        """Time one more shape of the kernel: the wrapper (CUDA events), its
+        launches alone (``torch.profiler``), the plain version, the library
+        call (or None) and the bound ``(ms, by)``."""
+        ms = cuda_ms(fn)
+        alone = launch_ms(fn, self.symbol)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        lib_ms = cuda_ms(library) if library is not None else None
+        self.shapes.append({"case": tag, "ms": ms, "launch_ms": alone,
+                            "plain_ms": plain_ms, "bound_ms": bound[0],
+                            "bound_by": bound[1], "library_ms": lib_ms})
+        log("  %-16s %s: wrapper %.4f ms, launches alone %s, plain %.4f ms, "
+            "library %s, bound %.5f ms (%s) [%s]"
+            % (self.name, tag, ms, "%.4f ms" % alone if alone is not None
+               else "not measured", plain_ms,
+               "%.4f ms" % lib_ms if lib_ms is not None else "none",
+               bound[0], bound[1], smi))
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_CORE_OPS_PER_S):
@@ -2252,6 +2322,8 @@ def phase_attention(smi):
         ("group 8 D 128", 2, 16, 2, 1000, 128, [1000, 517]),
         ("group 12 (two head groups) D 64", 2, 24, 2, 300, 64, [300, 171]),
         ("B 1 S 32768", 1, hq, hk, 32768, d, [32768]),
+        ("olmo tick, group 1 D 128, 8 ragged lanes", 8, 16, 16, 2112, 128,
+         [2049, 300, 1, 2112, 1500, 257, 800, 2000]),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for tag, cb, chq, chk, cs, cd, lengths in decode_cases:
@@ -2294,8 +2366,92 @@ def phase_attention(smi):
     rec.bound_ms, rec.bound_by = _bound(
         2 * (2 * b * hk * length * d + 2 * q.numel()) + 4 * b,
         4.0 * d * b * hq * length, BF16_PEAK_OPS_PER_S)
+    del q, k, v
+    phase_attention_d80(recs, record, gen, smi)
     sync()
     return recs
+
+
+def _window_mask(lengths, s, window, device):
+    """``[B, 1, 1, S]``: the rows ``[max(0, len - window), min(len, S))``
+    decode attention reads (SDPA's boolean mask for the same function)."""
+    kpos = torch.arange(s, device=device)[None, :]
+    lens = lengths.long()[:, None]
+    return ((kpos < lens) & (kpos >= lens - window))[:, None, None, :]
+
+
+def phase_attention_d80(recs, record, gen, smi):
+    """Head dim 80 (H2O-Danube, 32/8 heads) and the windowed decode: the
+    kernels against their plain versions in both dtypes; the bf16 case of
+    each shape timed beside SDPA with the same mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    hq, hk, d, w = 32, 8, 80, DANUBE_WINDOW
+    tq, tk = DANUBE_PROMPT_MAX, DANUBE_MAX_LEN
+    rec = recs["flash_attention"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((1, hq, tq, d), dtype, gen)
+        k = _randn((1, hk, tk, d), dtype, gen)
+        v = _randn((1, hk, tk, d), dtype, gen)
+        record("flash_attention", "danube lane prefill Tq %d Tk %d D 80 "
+               "window %d %s" % (tq, tk, w, str(dtype)[6:]),
+               fa_ops.flash_attention(q, k, v, True, w, 0),
+               fa_ref.attention_ref(q, k, v, True, w, 0), dtype)
+    qpos = torch.arange(tq, device="cuda")[:, None]
+    kpos = torch.arange(tk, device="cuda")[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - w)
+    pairs = _live_pairs(tq, tk, True, w, 0)
+    rec.time_case(
+        "danube lane prefill, B 1, 32/8 heads, Tq %d, Tk %d, D 80, window "
+        "%d, bf16 (library: SDPA, boolean window mask)" % (tq, tk, w),
+        lambda: fa_ops.flash_attention(q, k, v, True, w, 0),
+        lambda: fa_ref.attention_ref(q, k, v, True, w, 0),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        _bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+               4.0 * d * hq * pairs, BF16_PEAK_OPS_PER_S), smi)
+    del q, k, v, mask
+
+    # (tag, b, s, window, lengths): lengths[b] - 1 is the query's position
+    rec = recs["decode_attention"]
+    cases = [
+        ("danube tick, 8 ragged lanes", 8, tk, w, DANUBE_TICK_LENGTHS),
+        ("window < len", 4, tk, w, [4600, 4097, 4672, 4200]),
+        ("window >= len", 2, tk, w, [4096, 100]),
+        ("len 0", 2, 1000, 16, [0, 17]),
+        ("lengths past S", 3, 300, 100, [301, 350, 410]),
+        ("ragged lanes, one row", 8, tk, w,
+         [256, 4600, 1, 64, 4161, 65, 2000, 4672]),
+    ]
+    for tag, cb, cs, cw, lengths in cases:
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn((cb, hq, 1, d), dtype, gen)
+            k = _randn((cb, hk, cs, d), dtype, gen)
+            v = _randn((cb, hk, cs, d), dtype, gen)
+            got = da_ops.decode_attention(q, k, v, lens, cw)
+            record("decode_attention", "D 80 window %d, %s %s"
+                   % (cw, tag, str(dtype)[6:]), got,
+                   da_ref.decode_attention_ref(q, k, v, lens, cw), dtype)
+            if bool((got[lens == 0] != 0).any()):
+                fail("decode_attention: a length-0 row is not 0")
+        live = sum(max(0, min(n, cs) - max(0, n - cw)) for n in lengths)
+        mask = _window_mask(lens, cs, cw, "cuda")
+        rec.time_case(
+            "D 80, 32/8 heads, window %d, %s: B %d, S %d, %d live rows, "
+            "bf16 (library: SDPA over S, boolean mask)" % (cw, tag, cb, cs,
+                                                          live),
+            lambda: da_ops.decode_attention(q, k, v, lens, cw),
+            lambda: da_ref.decode_attention_ref(q, k, v, lens, cw),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   enable_gqa=True),
+            _bound(2 * (2 * hk * d * live + 2 * q.numel()) + 4 * cb,
+                   4.0 * d * hq * live, BF16_PEAK_OPS_PER_S), smi)
 
 
 # --------------------------------------------------------------------------
@@ -2769,6 +2925,273 @@ def phase_mamba(smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the continuous batcher at full width
+# --------------------------------------------------------------------------
+
+def batch_requests(vocab, n, lo, hi, past, window, new_lo, new_hi, seed):
+    """``n`` (prompt, max_new) pairs from a seeded generator: prompt lengths
+    in [lo, hi], ``past`` of them past ``window``, max_new in [new_lo,
+    new_hi]."""
+    rng = np.random.default_rng(seed)
+    if past:
+        lens = np.concatenate([rng.integers(lo, window + 1, n - past),
+                               rng.integers(window + 1, hi + 1, past)])
+        rng.shuffle(lens)
+    else:
+        lens = rng.integers(lo, hi + 1, n)
+    news = rng.integers(new_lo, new_hi + 1, n)
+    return [(rng.integers(0, vocab, int(t)).astype(np.int32), int(m))
+            for t, m in zip(lens, news)]
+
+
+def run_batcher(model, requests, slots, max_len, record=()):
+    """Drain ``requests`` through ``ContinuousBatcher`` over
+    ``launch.serve.make_slot_fns``: ``(ids by request, logits [n, Vp] f32
+    by request for the requests in record, ticks, decode calls, seconds)``.
+    The callables are wrapped to record lane logits (on the device) and to
+    count the decode calls; request r is the r-th admitted (FIFO)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    prefill, decode = launch.make_slot_fns(model, max_len)
+    logits = {rid: [] for rid in record}
+    admitted, calls = [], [0]
+    batcher = None
+
+    def prefill_rec(tokens, cache, slot):
+        out, cache = prefill(tokens, cache, slot)
+        if len(admitted) in logits:
+            logits[len(admitted)].append(out[0].float())
+        admitted.append(slot)
+        return out, cache
+
+    def decode_rec(tokens, cache):
+        out, cache = decode(tokens, cache)
+        calls[0] += 1
+        for i in batcher.active():
+            rid = batcher.slots[i].request.rid
+            if rid in logits:
+                logits[rid].append(out[i].float())
+        return out, cache
+
+    batcher = serve.ContinuousBatcher(slots, prefill_rec, decode_rec)
+    for rid, (prompt, new) in enumerate(requests):
+        batcher.submit(serve.Request(rid, prompt, new))
+    cache = lm.init_cache(model.cfg, slots, max_len, model.device,
+                          per_seq=True)
+    sync()
+    t0 = time.perf_counter()
+    cache, ticks = batcher.run_until_drained(cache)
+    sync()
+    secs = time.perf_counter() - t0
+    if batcher.queue or batcher.active() or \
+            len(batcher.completed) != len(requests):
+        fail("the batcher left %d queued, %d active, %d of %d completed"
+             % (len(batcher.queue), len(batcher.active()),
+                len(batcher.completed), len(requests)))
+    ids = {r.rid: r.generated for r in batcher.completed}
+    return (ids, {k: torch.stack(v) for k, v in logits.items()}, ticks,
+            calls[0], secs)
+
+
+def gate_batched(model, requests, ids, logits, label):
+    """Gate 3: the batcher's lane logits against the single-sequence path
+    (a batch-1 cache with a shared length: the prompt, then the batcher's
+    own ids one at a time), teacher-forced.  The tolerance is phase 7's: at
+    most LM_BF16_FACTOR times the in-run difference between bf16 and an
+    f32 copy on the same ids (single path), in the largest and the mean
+    difference; and the batcher's ids equal the single path's argmax
+    wherever its top-2 gap exceeds that bound."""
+    v = model.cfg.vocab_size
+    f32 = as_f32(model, "cuda")
+    stats = dict(d_max=0.0, d_sum=0.0, n_max=0.0, n_sum=0.0, n=0)
+    singles = {}
+    for rid, got in logits.items():
+        prompt = torch.from_numpy(requests[rid][0].astype(np.int64))[None]
+        prompt = prompt.cuda()
+        tok = torch.tensor([ids[rid]], dtype=torch.int64, device="cuda")
+        max_len = prompt.shape[1] + tok.shape[1]
+        single = teacher_forced(model, prompt, tok, max_len)[0, :, :v]
+        noise = (single - teacher_forced(f32, prompt, tok, max_len)[
+            0, :, :v]).abs()
+        diff = (got[:, :v] - single).abs()
+        stats["d_max"] = max(stats["d_max"], float(diff.max()))
+        stats["n_max"] = max(stats["n_max"], float(noise.max()))
+        stats["d_sum"] += float(diff.double().sum())
+        stats["n_sum"] += float(noise.double().sum())
+        stats["n"] += diff.numel()
+        singles[rid] = single
+    del f32
+    bound = LM_BF16_FACTOR * stats["n_max"]
+    d_mean, n_mean = stats["d_sum"] / stats["n"], stats["n_sum"] / stats["n"]
+    checked = 0
+    for rid, single in singles.items():
+        top = single.topk(2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > bound
+        want = single.argmax(-1).cpu()
+        got_ids = torch.tensor(ids[rid])
+        sure = sure.cpu()
+        checked += int(sure.sum())
+        if not torch.equal(got_ids[sure], want[sure]):
+            fail("%s: the batcher's ids leave the single path's argmax where "
+                 "its top-2 gap exceeds %.4g (request %d)" % (label, bound,
+                                                             rid))
+    log("  gate 3, batcher against the single-sequence path (%s, bf16, "
+        "teacher-forced, %d requests, %d positions): max |diff| %.4g, mean "
+        "%.4g; bf16 against f32 (single path): max %.4g, mean %.4g; "
+        "tolerance %gx those; ids equal its argmax at the %d positions "
+        "whose top-2 gap exceeds %.4g"
+        % (label, len(logits), stats["n"] // v, stats["d_max"], d_mean,
+           stats["n_max"], n_mean, LM_BF16_FACTOR, checked, bound))
+    if not (stats["d_max"] <= bound and d_mean <= LM_BF16_FACTOR * n_mean):
+        fail("%s: the batcher moves the logits more than %gx what bf16 "
+             "itself does" % (label, LM_BF16_FACTOR))
+
+
+def gate_batched_cpu(arch, smi):
+    """Gate 4: the batcher on the card == on the CPU, float32 copies at
+    BATCH_CPU["layers"] layers and full width: equal ids, lane logits
+    within LM_CPU_TOL (TF32 off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    c = BATCH_CPU
+    cfg = dataclasses.replace(get_config(arch), num_layers=c["layers"])
+    model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    f32, cpu = as_f32(model, "cuda"), as_f32(model, "cpu")
+    del model
+    reqs = batch_requests(cfg.vocab_size, c["requests"], *c["prompt"], 0,
+                          None, c["new"], c["new"], BATCH_SEED + 1)
+    max_len = c["prompt"][1] + c["new"] + 4
+    every = range(c["requests"])
+    t0 = time.time()
+    with torch.no_grad():
+        ids_g, log_g, ticks_g, _, _ = run_batcher(f32, reqs, c["slots"],
+                                                  max_len, every)
+        ids_c, log_c, ticks_c, _, _ = run_batcher(cpu, reqs, c["slots"],
+                                                  max_len, every)
+    v = cfg.vocab_size
+    err = max(float((log_g[r].cpu() - log_c[r])[:, :v].abs().max())
+              for r in every)
+    log("  gate 4, card against CPU (%s, f32, %d layers, TF32 off, %d slots, "
+        "%d requests of %d-%d ids, %d new tokens): max |logit diff| %.3g "
+        "(tol %g), ticks %d / %d, ids of request 0 %s / %s, %.1f s [%s]"
+        % (arch, c["layers"], c["slots"], c["requests"], c["prompt"][0],
+           c["prompt"][1], c["new"], err, LM_CPU_TOL, ticks_g, ticks_c,
+           ids_g[0], ids_c[0], time.time() - t0, smi))
+    if not err <= LM_CPU_TOL:
+        fail("%s: the batcher's card logits leave the CPU's: %g > %g"
+             % (arch, err, LM_CPU_TOL))
+    if ids_g != ids_c or ticks_g != ticks_c:
+        fail("%s: the batcher drains other ids on the card and the CPU"
+             % arch)
+
+
+def profile_ticks(model, requests, slots, max_len, kernels, smi):
+    """The device's idle share over PROFILE_TICKS ticks with every lane
+    busy (the first ``slots`` prompts admitted, each to run past the
+    window of ticks)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    batcher = serve.ContinuousBatcher(slots, *launch.make_slot_fns(
+        model, max_len))
+    for rid in range(slots):
+        batcher.submit(serve.Request(rid, requests[rid][0],
+                                     PROFILE_TICKS + 4))
+    state = {"cache": lm.init_cache(model.cfg, slots, max_len, model.device,
+                                    per_seq=True)}
+    state["cache"], _ = batcher.step(state["cache"])     # admits every lane
+
+    def ticks():
+        for _ in range(PROFILE_TICKS):
+            state["cache"], _ = batcher.step(state["cache"])
+
+    profiled("%d ticks of %d busy lanes" % (PROFILE_TICKS, slots), ticks,
+             kernels, smi)
+
+
+def phase_batcher(smi):
+    """Phase 12: requests queued, each prefilled into a free lane of a
+    per-sequence cache, every tick decoding all lanes in one fixed-shape
+    step, finished lanes reused; at full width, random bf16 weights."""
+    from repro_torch.kernels import _cuda
+
+    total = {k: 0 for k in _cuda.LAUNCHES}
+    for (arch, slots, n, (lo, hi), past, (new_lo, new_hi), max_len,
+         (forced, forced_past)) in BATCH_WORLDS:
+        cfg, model, n_params, made_s = make_lm(arch)
+        window = cfg.swa_window
+        reqs = batch_requests(cfg.vocab_size, n, lo, hi, past, window,
+                              new_lo, new_hi, BATCH_SEED)
+        lens = [len(p) for p, _ in reqs]
+        log("phase 12: %s, %d layers, d_model %d, %s, %.3f B parameters, "
+            "made in %.1f s; %d slots of %d rows, %d requests, prompts %d-%d "
+            "ids (%d past the window %s), %d-%d new [%s]"
+            % (arch, cfg.num_layers, cfg.d_model, cfg.dtype, n_params / 1e9,
+               made_s, slots, max_len, n, min(lens), max(lens),
+               sum(t > (window or 1 << 30) for t in lens), window,
+               min(m for _, m in reqs), max(m for _, m in reqs), smi))
+        with torch.no_grad():                                  # warm-up
+            run_batcher(model, [(p[:64], 2) for p, _ in reqs[:2]], slots,
+                        max_len)
+        if window:
+            record = ([i for i, t in enumerate(lens) if t <= window][
+                :forced - forced_past]
+                + [i for i, t in enumerate(lens) if t > window][:forced_past])
+        else:
+            record = list(range(forced))
+        mamba = cfg.layer_pattern[0].mixer == "mamba"
+        kernels = ("ssd",) if mamba else ("flash_attention",
+                                          "decode_attention")
+
+        # the main path, through the entry points, counted
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        with torch.no_grad():
+            ids, logits, ticks, calls, secs = run_batcher(model, reqs, slots,
+                                                          max_len, record)
+        launches = path_launches("phase 12 (%s batcher)" % arch, kernels, smi)
+        layers = cfg.num_layers
+        want = ({"ssd": layers * n} if mamba else
+                {"flash_attention": layers * n,
+                 "decode_attention": layers * calls})
+        for k, cnt in launches.items():
+            if cnt != want.get(k, 0):
+                fail("%s launched %d times on the %s batcher, expected %d"
+                     % (k, cnt, arch, want.get(k, 0)))
+        if calls != ticks:
+            fail("%d of %d ticks decoded" % (calls, ticks))
+        for rid, got in ids.items():
+            if not (1 <= len(got) <= reqs[rid][1] and
+                    all(0 <= t < cfg.vocab_size for t in got)):
+                fail("request %d drained %s" % (rid, got))
+        toks = sum(len(g) for g in ids.values())
+        log("  drained %d requests in %d ticks (%d decode steps of %d "
+            "lanes), %d generated tokens in %.3f s: %.1f generated tokens/s "
+            "(prefills of %d prompt ids included; lane logits recorded for "
+            "%d requests), peak %.2f GB [%s]"
+            % (n, ticks, calls, slots, toks, secs, toks / secs, sum(lens),
+               len(record), torch.cuda.max_memory_allocated() / 1e9, smi))
+        for k in total:
+            total[k] += launches[k]
+        with torch.no_grad():
+            if record:
+                gate_batched(model, reqs, ids, logits, arch)
+            profile_ticks(model, reqs, slots, max_len, kernels, smi)
+        del model, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not mamba:
+            gate_batched_cpu(arch, smi)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2797,13 +3220,13 @@ def main() -> int:
                 log("  ptxas %s: %s" % (name, line.strip()))
     for src, kernels in TENSOR_CORE_KERNELS.items():
         counts = hgmma_count(str(paths[src]))
-        for kern in kernels:
+        for kern, n in kernels.items():
             hgmma = {fn: c for fn, c in counts.items() if kern in fn}
             for fn, c in sorted(hgmma.items()):
                 log("  sass %s: %d HGMMA in %s" % (src, c, fn))
-            if len(hgmma) != 4 or not all(hgmma.values()):
-                fail("%s's SASS does not hold HGMMA in each of its 4 "
-                     "instantiations: %s" % (kern, hgmma))
+            if len(hgmma) != n or not all(hgmma.values()):
+                fail("%s's SASS does not hold HGMMA in each of its %d "
+                     "instantiations: %s" % (kern, n, hgmma))
 
     vocab, kbd, rows, chunks = make_world()
 
@@ -2842,9 +3265,12 @@ def main() -> int:
     log("phase 10 done at %.1f s" % (time.time() - t_start))
     shard_launches = phase_sharded(vocab, kbd, chunks, results, smi)
     log("phase 11 done at %.1f s" % (time.time() - t_start))
+    batch_launches = phase_batcher(smi)
+    log("phase 12 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
              + lm_launches[k] + mamba_launches[k] + obs_launches[k]
-             + serve_launches[k] + shard_launches[k] for k in launches}
+             + serve_launches[k] + shard_launches[k] + batch_launches[k]
+             for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

@@ -3,9 +3,10 @@
 One :class:`ModelConfig` describes a decoder LM: dense / MoE / SSM /
 hybrid stacks with GQA/MLA/SWA attention, M-RoPE, multi-codebook heads.
 The schema is the whole of the reference's, so a configuration compares
-field for field; the port runs dense GQA stacks and attention-free
-Mamba-2 (SSD) stacks of it (``models/``), and the rest raises
-``NotImplementedError`` where it is used.
+field for field; the port runs dense GQA stacks (sliding windows and the
+non-parametric LayerNorm included) and attention-free Mamba-2 (SSD)
+stacks of it (``models/``), and the rest raises ``NotImplementedError``
+where it is used.
 """
 from __future__ import annotations
 
@@ -181,9 +182,7 @@ NOT_PORTED = {
     "qwen2-vl-7b": "Other LM architectures",
     "deepseek-v2-236b": "Other LM architectures",
     "mixtral-8x22b": "Other LM architectures",
-    "h2o-danube-1.8b": "Other LM architectures",
     "minicpm3-4b": "Other LM architectures",
-    "olmo-1b": "Other LM architectures",
     "musicgen-large": "Other LM architectures",
 }
 
@@ -196,7 +195,8 @@ def register(name: str):
 
 
 def _register_all() -> None:
-    from . import mamba2_130m, qwen2_1_5b  # noqa: F401  (register themselves)
+    from . import (  # noqa: F401  (register themselves)
+        h2o_danube_1_8b, mamba2_130m, olmo_1b, qwen2_1_5b)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -82,7 +82,8 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
     ``lm_head``, and ``blocks/sub0/{nm, nf, attn/*, mlp/*}`` (attention
     stacks) or ``blocks/sub0/{nm, mamba/*}`` (Mamba-2 stacks), stacked on a
-    leading layer axis, which is unstacked here.  The port keeps the
+    leading layer axis, which is unstacked here.  A norm without weights
+    (OLMo's) has no ``nm``, ``nf`` or ``final_norm`` leaf.  The port keeps the
     reference's weight layouts, so nothing is transposed; values are cast
     to ``cfg.dtype``, except Mamba's ``A_log``, ``D`` and ``dt_bias``, which
     the reference keeps in float32."""
@@ -98,21 +99,26 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     def t(a, dt=dtype):
         return _param(a, dt, device)
 
+    def opt(tree, name, i=None):
+        if name not in tree:
+            return None
+        return t(tree[name] if i is None else tree[name][i])
+
     sub = params["blocks"]["sub0"]
     blocks = []
     for i in range(cfg.num_layers):
         if "mamba" in sub:
             mm = sub["mamba"]
-            blocks.append(Block(t(sub["nm"][i]), Mamba(*(
+            blocks.append(Block(opt(sub, "nm", i), Mamba(*(
                 t(mm[n][i], torch.float32 if n in FLOAT32_LEAVES else dtype)
                 for n in LEAVES))))
             continue
         at, ml = sub["attn"], sub["mlp"]
-        bias = [t(at[n][i]) if n in at else None for n in ("bq", "bk", "bv")]
+        bias = [opt(at, n, i) for n in ("bq", "bk", "bv")]
         blocks.append(Block(
-            t(sub["nm"][i]),
+            opt(sub, "nm", i),
             Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")), *bias),
-            t(sub["nf"][i]),
+            opt(sub, "nf", i),
             MLP(*(t(ml[n][i]) for n in ("wi", "wg", "wo")))))
-    head = t(params["lm_head"]) if "lm_head" in params else None
-    return LM(cfg, t(params["embed"]), blocks, t(params["final_norm"]), head)
+    return LM(cfg, t(params["embed"]), blocks, opt(params, "final_norm"),
+              opt(params, "lm_head"))

@@ -12,7 +12,15 @@
 //   src/repro/kernels/decode_attention/kernel.py  decode_attention_pallas
 //     (_decode_kernel: one query row per (batch, query head), the cache
 //      swept block by block along a sequential grid axis, blocks at or past
-//      lengths[b] skipped)
+//      lengths[b] skipped).  The port's decode kernel also takes a sliding
+//      window, each sequence's first live row max(0, lengths[b] - window):
+//      the reference sends a windowed one-token step to flash attention,
+//      which here would spend a 128-row query tile on one row.
+//
+// Head dims 16, 32, 64, 80 and 128 (80: H2O-Danube).  The bf16 flash kernel
+// pads D to a multiple of 64 columns, the bf16 decode kernel its shared
+// rows to whole groups of 8 16-byte chunks, the f32 decode kernel a row's
+// D/4 lanes to a power of two (D = 80: 12 of 32 lanes idle).
 //
 // Layouts are the reference's: q [B, Hq, Tq, D], k and v [B, Hk, Tk, D],
 // out [B, Hq, Tq, D], contiguous, in float32 or bfloat16.  Query head h
@@ -78,9 +86,10 @@
 // up to 8 query heads of one KV head, so each cache row is read once per 8
 // heads (GQA groups above 8 take more blocks).  One block per (batch, KV
 // head) would put 8 blocks on 132 SMs at B=4, so the live rows are cut into
-// nsplit splits of whole 64-row tiles (the wrapper picks nsplit: about two
-// blocks per SM, at most a cluster of 8), and the nsplit blocks of a (batch,
-// KV head) form one thread-block cluster.  Each block streams its split's K
+// nsplit splits of whole 64-row tiles from the window's first tile (the
+// wrapper picks nsplit: about two blocks per SM, at most a cluster of 8),
+// and the nsplit blocks of a (batch, KV head) form one thread-block
+// cluster; rows below the window's start in its first tile are masked.  Each block streams its split's K
 // and V tiles, in their dtype, through a ring of 3-6 stages in shared
 // memory with 16-byte cp.async copies, so the next tiles are in flight while
 // one is consumed; each warp keeps its own running max, sum and accumulator
@@ -349,9 +358,11 @@ constexpr int kWgThreads = kWgConsumers + kWgProducers;
 // Shared memory of the bf16 kernel.  Every tile is stored as DP/64 column
 // blocks of 64 bf16 (128 bytes a row) in the layout wgmma's 128-byte
 // swizzle reads: row r at r * 128 bytes, its 16-byte chunk c at
-// (c ^ r % 8) * 16.  Head dims below 64 are zero-padded to 64 columns.
+// (c ^ r % 8) * 16.  Head dims are zero-padded up to a multiple of 64
+// columns (D < 64 to 64, D = 80 to 128: 1.6x the shared memory and P V's
+// columns of D = 80, its Q K^T taking only the 5 live k-steps).
 template <int D> struct WgSmem {
-  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int Q = (DP / 64) * kWgBM * 128;     // bytes of Q
   static constexpr int KV = (DP / 64) * kWgBN * 128;    // one K or V tile
   static constexpr int bars = Q + 4 * KV;               // 8 mbarriers
@@ -438,6 +449,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              int window, int q_offset, float scale) {
   using S = WgSmem<D>;
   constexpr int DP = S::DP;
+  constexpr int KQ = (D + 15) / 16;      // Q K^T's k-steps: the live columns
   extern __shared__ __align__(1024) uint8_t wg_smem[];
   const uint32_t sQ = (smem_u32(wg_smem) + 1023u) & ~1023u;
   const uint32_t sK = sQ + S::Q;                 // 2 stages of K
@@ -545,7 +557,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     mbar_wait(fullk + 8 * st, round & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
+    for (int kk = 0; kk < KQ; ++kk)
       wgmma_ss_n128(s,
                     sw128_desc(qw + (kk / 4) * kWgBM * 128 + (kk % 4) * 32, 16),
                     sw128_desc(ks + (kk / 4) * kWgBN * 128 + (kk % 4) * 32, 16),
@@ -614,13 +626,19 @@ constexpr int kDecHeads = 8;           // query heads a block holds
 constexpr int kDecMaxSplit = 8;        // cluster size (the portable most)
 constexpr int kDecRingBytes = 196608;  // most shared memory the ring takes
 
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
 // A lane owns one 16-byte chunk of a cache row (N elements); LPR lanes hold
-// a row, a warp RPW rows at once, and the block's GROUPS row groups take
-// RPG rows each of a TILE-row tile.  NS ring stages of one K and one V tile,
-// in the input dtype.
+// a row (LIVE of them a chunk each: D = 80 has 20 live lanes of 32, the
+// shuffle reductions needing a power of two), a warp RPW rows at once, and
+// the block's GROUPS row groups take RPG rows each of a TILE-row tile.  NS
+// ring stages of one K and one V tile, in the input dtype.
 template <int D> struct Dec {
   static constexpr int N = 4;                     // floats a 16-byte chunk
-  static constexpr int LPR = D / N;
+  static constexpr int LIVE = D / N;
+  static constexpr int LPR = pow2_ceil(LIVE);
   static constexpr int RPW = 32 / LPR;
   static constexpr int GROUPS = kDecWarps * RPW;
   static constexpr int TILE = GROUPS > 64 ? GROUPS : 64;
@@ -711,6 +729,18 @@ __device__ __forceinline__ void decode_merge(const float* wm, const float* wl,
   cluster.sync();
 }
 
+// The live cache rows [lo, len) of a sequence whose query sits at position
+// lengths[b] - 1: len clamped to [0, S]; with a window (> 0), lo = lengths[b]
+// - window (the reference's kpos > qpos - window), taken from the unclamped
+// length, in [0, len].
+__device__ __forceinline__ void live_rows(int length, int S, int window,
+                                          int& len, int& lo) {
+  len = min(max(length, 0), S);
+  lo = window > 0 ? (int)min(max((long long)length - window, 0LL),
+                             (long long)len)
+                  : 0;
+}
+
 // grid (nsplit, Hk * hgroups, B), cluster (nsplit, 1, 1): block `split` of
 // the cluster reads its share of the first lengths[b] cache rows of KV head
 // hk for up to kDecHeads query heads; the cluster's blocks then merge their
@@ -721,7 +751,8 @@ decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ lengths, float* __restrict__ o,
-                        int Hq, int Hk, int S, int hgroups, float qscale) {
+                        int Hq, int Hk, int S, int window, int hgroups,
+                        float qscale) {
   using C = Dec<D>;
   constexpr int N = C::N, H8 = kDecHeads;
   namespace cg = cooperative_groups;
@@ -739,12 +770,15 @@ decode_attention_kernel(const float* __restrict__ q,
   const int ng = min(H8, G - hg * H8);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = warp * C::RPW + lane / C::LPR, sub = lane % C::LPR;
+  const bool lane_live = sub < C::LIVE;     // the lane holds a chunk of D
 
-  // the split: a share of whole tiles of the live rows
-  const int len = min(max(lengths[b], 0), S);
-  const int tiles = (len + C::TILE - 1) / C::TILE;
+  // the split: a share of whole tiles of the live rows [lo, len)
+  int len, lo;
+  live_rows(lengths[b], S, window, len, lo);
+  const int t0 = lo / C::TILE;
+  const int tiles = len > lo ? (len + C::TILE - 1) / C::TILE - t0 : 0;
   const int per = (tiles + nsplit - 1) / nsplit;
-  const int k0 = split * per * C::TILE;
+  const int k0 = (t0 + split * per) * C::TILE;
   const int k1 = min(k0 + per * C::TILE, len);
   const int ntiles = k0 < k1 ? (k1 - k0 + C::TILE - 1) / C::TILE : 0;
   const float* kb = k + ((size_t)b * Hk + hk) * S * D;
@@ -770,7 +804,7 @@ decode_attention_kernel(const float* __restrict__ q,
   float qr[H8][N];
 #pragma unroll
   for (int h = 0; h < H8; ++h) {
-    if (h < ng) {
+    if (h < ng && lane_live) {
       Vec<float>::load(q + ((size_t)b * Hq + h0 + h) * D + sub * N, qr[h]);
     } else {
 #pragma unroll
@@ -797,14 +831,17 @@ decode_attention_kernel(const float* __restrict__ q,
     cp_async_commit();
     const uint8_t* ks = dec_smem + (it % C::NS) * C::STAGE;
     const uint8_t* vs = ks + C::TILE * C::ROW;
+    // the tile's live rows: [nlo, nk) (rows below the window's start too)
     const int nk = min(C::TILE, k1 - (k0 + it * C::TILE));
+    const int nlo = max(lo - (k0 + it * C::TILE), 0);
 
     float s[C::RPG][H8];
 #pragma unroll
     for (int i = 0; i < C::RPG; ++i) {
-      float kf[N];
-      Vec<float>::load(reinterpret_cast<const float*>(
-                       ks + (grp + i * C::GROUPS) * C::ROW + sub * 16), kf);
+      float kf[N] = {0.f, 0.f, 0.f, 0.f};
+      if (lane_live)
+        Vec<float>::load(reinterpret_cast<const float*>(
+                         ks + (grp + i * C::GROUPS) * C::ROW + sub * 16), kf);
 #pragma unroll
       for (int h = 0; h < H8; ++h) {
         float a = 0.f;
@@ -829,7 +866,8 @@ decode_attention_kernel(const float* __restrict__ q,
       float mx = kNegInf;
 #pragma unroll
       for (int i = 0; i < C::RPG; ++i)
-        if (grp + i * C::GROUPS < nk) mx = fmaxf(mx, s[i][h]);
+        if (grp + i * C::GROUPS < nk && grp + i * C::GROUPS >= nlo)
+          mx = fmaxf(mx, s[i][h]);
       const float m_new = fmaxf(m[h], mx);
       if (m_new > m[h]) {              // rescale only when the max moved
         const float alpha = fast_exp2(m[h] - m_new);
@@ -840,8 +878,8 @@ decode_attention_kernel(const float* __restrict__ q,
       }
 #pragma unroll
       for (int i = 0; i < C::RPG; ++i) {
-        const float p =
-            grp + i * C::GROUPS < nk ? fast_exp2(s[i][h] - m_new) : 0.f;
+        const int r = grp + i * C::GROUPS;
+        const float p = r < nk && r >= nlo ? fast_exp2(s[i][h] - m_new) : 0.f;
         s[i][h] = p;
         l[h] += p;
       }
@@ -849,10 +887,11 @@ decode_attention_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < C::RPG; ++i) {
       const int r = grp + i * C::GROUPS;
-      if (r >= nk) continue;           // stale shared memory: never read
-      float vf[N];
-      Vec<float>::load(
-          reinterpret_cast<const float*>(vs + r * C::ROW + sub * 16), vf);
+      if (r >= nk || r < nlo) continue;  // stale shared memory: never read
+      float vf[N] = {0.f, 0.f, 0.f, 0.f};
+      if (lane_live)
+        Vec<float>::load(
+            reinterpret_cast<const float*>(vs + r * C::ROW + sub * 16), vf);
 #pragma unroll
       for (int h = 0; h < H8; ++h) {
         if (h >= ng) continue;
@@ -886,7 +925,7 @@ decode_attention_kernel(const float* __restrict__ q,
   float* wm = reinterpret_cast<float*>(dec_smem);     // [warp][head]
   float* wl = wm + kDecWarps * H8;                    // [warp][head]
   float* wacc = wl + kDecWarps * H8;                  // [warp][head][D]
-  if (lane < C::LPR) {
+  if (lane < C::LPR && lane_live) {
 #pragma unroll
     for (int h = 0; h < H8; ++h) {
       if (h >= ng) continue;
@@ -957,8 +996,11 @@ constexpr int kDecMmaThreads = 128;
 
 template <int D> struct DecMma {
   static constexpr int TILE = 64;
-  static constexpr int ROW = D * 2;                 // bytes a row
-  static constexpr int CPR = ROW / 16;              // 16-byte chunks a row
+  static constexpr int CPR = D * 2 / 16;            // 16-byte chunks a row
+  // a row in shared memory: whole groups of 8 chunks once it has 8 or more,
+  // so that c ^ (r & 7) stays inside it (D = 80: 10 chunks in 16)
+  static constexpr int SCPR = CPR >= 8 ? (CPR + 7) / 8 * 8 : CPR;
+  static constexpr int ROW = SCPR * 16;             // bytes a row
   static constexpr int STAGE = 2 * TILE * ROW;
   static constexpr int NS = kDecRingBytes / STAGE < 6 ? kDecRingBytes / STAGE
                                                       : 6;
@@ -969,8 +1011,8 @@ template <int D> struct DecMma {
   static constexpr int bytes = SCRATCH + PART;
   // the swizzled byte offset of chunk c of row r
   __device__ static uint32_t at(int r, int c) {
-    const int sw = CPR >= 8 ? (r & 7) : CPR == 4 ? ((r >> 1) & 3)
-                                                 : ((r >> 2) & 1);
+    const int sw = SCPR >= 8 ? (r & 7) : SCPR == 4 ? ((r >> 1) & 3)
+                                                   : ((r >> 2) & 1);
     return r * ROW + ((c ^ sw) << 4);
   }
 };
@@ -982,7 +1024,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ v,
                             const int* __restrict__ lengths,
                             __nv_bfloat16* __restrict__ o, int Hq, int Hk,
-                            int S, int hgroups, float qscale) {
+                            int S, int window, int hgroups, float qscale) {
   using C = DecMma<D>;
   constexpr int KS = D / 16, H8 = kDecHeads, TILE = C::TILE;
   namespace cg = cooperative_groups;
@@ -1001,10 +1043,12 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
 
-  const int len = min(max(lengths[b], 0), S);
-  const int tiles = (len + TILE - 1) / TILE;
+  int len, lo;
+  live_rows(lengths[b], S, window, len, lo);
+  const int t0 = lo / TILE;
+  const int tiles = len > lo ? (len + TILE - 1) / TILE - t0 : 0;
   const int per = (tiles + nsplit - 1) / nsplit;
-  const int k0 = split * per * TILE;
+  const int k0 = (t0 + split * per) * TILE;
   const int k1 = min(k0 + per * TILE, len);
   const int ntiles = k0 < k1 ? (k1 - k0 + TILE - 1) / TILE : 0;
   const __nv_bfloat16* kb = k + ((size_t)b * Hk + hk) * S * D;
@@ -1055,7 +1099,9 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     const uint32_t ks = ring + (it % C::NS) * C::STAGE;
     const uint32_t vs = ks + TILE * C::ROW;
+    // the tile's live rows: [nlo, nk) (rows below the window's start too)
     const int nk = min(TILE, k1 - (k0 + it * TILE));
+    const int nlo = max(lo - (k0 + it * TILE), 0);
 
     // S = Q K^T over the warp's 16 rows: two n-tiles of 8 rows
     float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -1073,8 +1119,8 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         sacc[nt][e] *= qscale;
-        if (16 * warp + 8 * nt + 2 * tig + e < nk)
-          mx = fmaxf(mx, sacc[nt][e]);
+        const int r = 16 * warp + 8 * nt + 2 * tig + e;
+        if (r < nk && r >= nlo) mx = fmaxf(mx, sacc[nt][e]);
       }
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
@@ -1094,8 +1140,8 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        p[nt][e] = 16 * warp + 8 * nt + 2 * tig + e < nk
-                       ? fast_exp2(sacc[nt][e] - m_new) : 0.f;
+        const int r = 16 * warp + 8 * nt + 2 * tig + e;
+        p[nt][e] = r < nk && r >= nlo ? fast_exp2(sacc[nt][e] - m_new) : 0.f;
         l_run += p[nt][e];
       }
     const uint32_t pa0 = pack_bf16(p[0][0], p[0][1]);
@@ -1149,7 +1195,7 @@ template <int D> struct DecodeKernel<__nv_bfloat16, D> {
 template <typename T, int D>
 int decode_launch(const void* q, const void* k, const void* v,
                   const void* lengths, void* o, int B, int Hq, int Hk, int S,
-                  int nsplit, float qscale, cudaStream_t stream) {
+                  int nsplit, int window, float qscale, cudaStream_t stream) {
   using K = DecodeKernel<T, D>;
   const int hgroups = (Hq / Hk + kDecHeads - 1) / kDecHeads;
   if (nsplit < 1 || nsplit > kDecMaxSplit || B > 65535 ||
@@ -1181,7 +1227,7 @@ int decode_launch(const void* q, const void* k, const void* v,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, K::fn(), (const T*)q, (const T*)k,
                            (const T*)v, (const int*)lengths, (T*)o, Hq, Hk,
-                           S, hgroups, qscale);
+                           S, window, hgroups, qscale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1207,6 +1253,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 16: FLASH(L, 16);    \
     case 32: FLASH(L, 32);    \
     case 64: FLASH(L, 64);    \
+    case 80: FLASH(L, 80);    \
     case 128: FLASH(L, 128);  \
     default: return kBadShape; \
   }
@@ -1216,24 +1263,26 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 #undef FLASH
 }
 
-// out[b, h] = attention of q[b, h] over the first lengths[b] cache rows, in
-// one launch: nsplit (1..8) blocks of a cluster per (batch, KV head, group
-// of 8 query heads).  dtype 0: float32, 1: bfloat16.
+// out[b, h] = attention of q[b, h] over the cache rows [lo, min(lengths[b],
+// S)), lo = max(0, lengths[b] - window) with a window (> 0), else 0, in one
+// launch: nsplit (1..8) blocks of a cluster per (batch, KV head, group of 8
+// query heads).  dtype 0: float32, 1: bfloat16.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* lengths, void* o, int B, int Hq,
                             int Hk, int S, int D, int dtype, int nsplit,
-                            float qscale, void* stream) {
+                            int window, float qscale, void* stream) {
   if (B == 0 || Hq == 0) return 0;
   if (Hk < 1 || Hq % Hk) return kBadShape;
   cudaStream_t s = (cudaStream_t)stream;
 #define DEC(T, DD)                                                        \
   return decode_launch<T, DD>(q, k, v, lengths, o, B, Hq, Hk, S, nsplit,  \
-                              qscale, s)
+                              window, qscale, s)
 #define DEC_D(T)             \
   switch (D) {               \
     case 16: DEC(T, 16);     \
     case 32: DEC(T, 32);     \
     case 64: DEC(T, 64);     \
+    case 80: DEC(T, 80);     \
     case 128: DEC(T, 128);   \
     default: return kBadShape; \
   }

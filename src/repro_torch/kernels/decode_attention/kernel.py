@@ -1,8 +1,10 @@
 """CUDA wrapper for the decode-attention kernel (``kernels/csrc/attention.cu``).
 
 Replaces ``src/repro/kernels/decode_attention/kernel.py``'s
-``decode_attention_pallas``.  The kernel is bound by reading the live K
-and V rows once.  It is one launch: the live rows of a (batch, KV head) are
+``decode_attention_pallas``, which takes the first ``lengths[b]`` rows;
+the port's kernel also takes a sliding window (the sequence's first live
+row ``max(0, lengths[b] - window)``), which the reference sends to flash
+attention.  The kernel is bound by reading the live K and V rows once.  It is one launch: the live rows of a (batch, KV head) are
 cut into ``nsplit`` splits, one block each, and the splits form a
 thread-block cluster that merges their softmax states in shared memory
 (see the source's header).
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -36,7 +38,7 @@ def _lib():
     lib = _cuda.library("attention")
     if "decode" not in _READY:
         lib.decode_attention_launch.argtypes = (
-            [P] * 5 + [I] * 7 + [ctypes.c_float, P])
+            [P] * 5 + [I] * 8 + [ctypes.c_float, P])
         lib.decode_attention_launch.restype = I
         _READY.add("decode")
     return lib
@@ -60,9 +62,14 @@ def cluster_splits(blocks: int, s: int, sms: int) -> int:
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
+                          lengths: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
     """``q [B, Hq, 1, D]``, ``k, v [B, Hk, S, D]``, ``lengths [B]`` int32
-    -> ``[B, Hq, 1, D]``."""
+    -> ``[B, Hq, 1, D]``.  Lengths past S count as S; a window (at least
+    1) starts each sequence at row ``max(0, lengths[b] - window)``."""
+    if window is not None and window < 1:
+        raise ValueError("decode_attention: a window holds at least one row, "
+                         "got %d" % window)
     check_inputs(q, k, v, "decode_attention")
     _cuda.require(lengths, torch.int32, 1, "decode_attention lengths")
     b, hq, tq, d = q.shape
@@ -77,6 +84,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.check(_lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), b, hq, hk, s, d, DTYPES[q.dtype], nsplit,
-        LOG2E / math.sqrt(d), _cuda.stream_of(q)), "decode_attention")
+        int(window or 0), LOG2E / math.sqrt(d), _cuda.stream_of(q)),
+        "decode_attention")
     _cuda.count_launch("decode_attention")
     return out

@@ -23,7 +23,7 @@ import torch
 from .. import _cuda
 from .._cuda import I, P
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LOG2E = 1.4426950408889634
 _READY = set()

@@ -1,2 +1,3 @@
 """Deployment of the PyTorch/CUDA port: device meshes and operator
-placement (``mesh``), and the DSCEP launcher (``dscep_run``)."""
+placement (``mesh``), the DSCEP launcher (``dscep_run``) and the LM
+serving launcher (``serve``)."""

@@ -1,22 +1,39 @@
-"""GQA attention (QKV bias, RoPE) with and without a KV cache.
+"""GQA attention (QKV bias, RoPE, sliding windows) with and without a KV
+cache.
 
 The cache of one layer is ``{"k": [B, Hk, S, D], "v": [B, Hk, S, D],
-"len": int}``: heads before positions, so the kernels read it where it
-lies (the reference keeps ``[B, S, Hk, D]`` and transposes per call).  The
-length is one host integer shared by the batch: the port runs eagerly, so
-the cached prefill knows it and takes the flash kernel with ``q_offset``
-set.  :func:`gqa_forward` writes the new rows into the cache tensors in
-place.
+"len"}``: heads before positions, so the kernels read it where it lies
+(the reference keeps ``[B, S, Hk, D]`` and transposes per call).  ``len``
+is either one host integer shared by the batch, or, for the continuous
+batcher's slot lanes (``per_seq``), an int32 ``[B]`` tensor on the
+cache's device.  :func:`gqa_forward` writes the new rows into the cache
+tensors in place.
 
-:func:`_sdpa` keeps the reference's dispatch (``models/attention.py``
-``_sdpa``): one new token, causal, no window -> decode attention over the
-first ``len + 1`` cache rows; any other attention -> flash attention with
-``q_offset = len``.  CUDA tensors take the kernels, CPU tensors their plain
-versions.  MLA and per-sequence cache lengths raise.
+* **Shared length.**  The cached prefill knows the length on the host and
+  takes the flash kernel with ``q_offset`` set; the T new rows go at
+  ``len`` and must fit.
+* **Per-sequence lengths.**  The T new rows of lane b go at ``len[b]``,
+  the start clamped to ``[0, S - T]`` as JAX's ``dynamic_update_slice``
+  clamps it (the reference advances every lane by T each step, idle lanes
+  too, so an idle lane's length can pass S: it neither raises nor writes
+  past the end).  One indexed copy a tensor writes every lane, with no
+  host read: a one-token step never reads the lengths back.  T > 1 (not
+  used by the batcher) runs the flash kernel once per lane with that
+  lane's ``q_offset``, which reads the lengths to the host once.
+
+:func:`_sdpa` dispatches: one new token, causal -> decode attention over
+the cache rows ``[max(0, len + 1 - window), len + 1)`` (the reference's
+mask ``kpos > qpos - window`` with ``qpos = len``), with or without a
+window; any other attention -> flash attention with ``q_offset = len``.
+The reference's Pallas dispatch sends a windowed one-token step to flash
+attention (``models/attention.py`` ``_sdpa``); the port takes decode
+attention there too, since flash would spend a 128-row query tile on one
+row.  The function computed is the same.  CUDA tensors take the kernels,
+CPU tensors their plain versions.  MLA raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -60,18 +77,27 @@ def init_attention(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-          window: Optional[int], q_offset: int) -> torch.Tensor:
+          window: Optional[int],
+          q_offset: Union[int, torch.Tensor]) -> torch.Tensor:
     """``q [B, Hq, T, D]`` against ``k, v [B, Hk, S, D]``; query row ``i``
-    at absolute position ``q_offset + i``."""
+    of sequence b at absolute position ``q_offset + i``, ``q_offset`` an
+    int or an int32 ``[B]`` tensor (one per sequence)."""
     b, _, t, _ = q.shape
-    if t == 1 and causal and window is None:
-        # one query row against the cache: its valid length is the
-        # just-written position + 1
-        lengths = torch.full((b,), q_offset + 1, dtype=torch.int32,
-                             device=q.device)
-        return da_ops.decode_attention(q, k, v, lengths)
-    return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset)
+    per_seq = torch.is_tensor(q_offset)
+    if t == 1 and causal:
+        # one query row against the cache: the rows up to the just-written
+        # position, the window's start taken from the same length
+        lengths = (q_offset + 1 if per_seq else
+                   torch.full((b,), q_offset + 1, dtype=torch.int32,
+                              device=q.device))
+        return da_ops.decode_attention(q, k, v, lengths, window)
+    if not per_seq:
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+    return torch.cat([
+        fa_ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                               causal=causal, window=window, q_offset=off)
+        for i, off in enumerate(q_offset.tolist())])
 
 
 def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -79,8 +105,8 @@ def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``x [B, T, d]`` at ``positions [B, T]`` -> ``(out [B, T, d],
     cache)``.  With a cache, the T new key/value rows are written at
-    ``cache["len"]`` in place, and the returned cache holds the same
-    tensors with ``len + T``."""
+    ``cache["len"]`` (per lane for per-sequence lengths) in place, and the
+    returned cache holds the same tensors with ``len + T``."""
     check_attention(cfg)
     b, t, _ = x.shape
     hd, hq, hk = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -97,14 +123,22 @@ def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         new_cache = None
     else:
         idx = cache["len"]
-        if not isinstance(idx, int):
-            raise not_ported("per-sequence cache lengths",
-                             "LM continuous batching")
-        if idx + t > cache["k"].shape[2]:
-            raise ValueError("the cache holds %d rows; %d + %d do not fit"
-                             % (cache["k"].shape[2], idx, t))
-        cache["k"][:, :, idx:idx + t] = k
-        cache["v"][:, :, idx:idx + t] = v
+        s = cache["k"].shape[2]
+        if torch.is_tensor(idx):
+            if t > s:
+                raise ValueError("the cache holds %d rows; %d new rows do "
+                                 "not fit" % (s, t))
+            rows = idx.clamp(0, s - t)[:, None].long() + torch.arange(
+                t, device=idx.device)
+            lane = torch.arange(b, device=idx.device)[:, None]
+            cache["k"][lane, :, rows] = k.transpose(1, 2)
+            cache["v"][lane, :, rows] = v.transpose(1, 2)
+        else:
+            if idx + t > s:
+                raise ValueError("the cache holds %d rows; %d + %d do not fit"
+                                 % (s, idx, t))
+            cache["k"][:, :, idx:idx + t] = k
+            cache["v"][:, :, idx:idx + t] = v
         out = _sdpa(q, cache["k"], cache["v"], causal=True,
                     window=cfg.swa_window, q_offset=idx)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + t}
@@ -115,9 +149,14 @@ def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 def gqa_cache_shape(cfg: ModelConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device="cpu",
                     per_seq: bool = False) -> Dict:
-    """An empty cache of one layer: zeros ``[batch, Hk, max_len, D]``."""
-    if per_seq:
-        raise not_ported("per-sequence cache lengths", "LM continuous batching")
+    """An empty cache of one layer: zeros ``[batch, Hk, max_len, D]``,
+    length 0 (an int32 ``[batch]`` tensor of zeros with ``per_seq``)."""
     shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": seq_lengths(batch, device) if per_seq else 0}
+
+
+def seq_lengths(batch: int, device) -> torch.Tensor:
+    """Per-sequence cache lengths, all 0: int32 ``[batch]`` on ``device``."""
+    return torch.zeros((batch,), dtype=torch.int32, device=device)

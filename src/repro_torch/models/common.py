@@ -1,4 +1,5 @@
-"""Shared model primitives: RMSNorm, RoPE, the dense projection, init.
+"""Shared model primitives: RMSNorm, the non-parametric LayerNorm, RoPE,
+the dense projection, init.
 
 Rounding follows the reference: norms and RoPE compute in float32 and
 round back to the input's dtype; :func:`dense` casts the weight to the
@@ -65,6 +66,29 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     if weight is not None:
         out = out * weight.float()
     return out.to(x.dtype)
+
+
+def layer_norm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's LayerNorm without scale or bias: the mean and the population
+    variance of the last axis, in float32."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+NORMS = ("rmsnorm", "layernorm_nonparam")
+
+
+def apply_norm(kind: str, x: torch.Tensor,
+               weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """The configuration's norm: ``rmsnorm`` (with ``weight``) or
+    ``layernorm_nonparam`` (no weight)."""
+    if kind == "rmsnorm":
+        return rms_norm(x, weight)
+    if kind == "layernorm_nonparam":
+        return layer_norm_nonparam(x)
+    raise ValueError(kind)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

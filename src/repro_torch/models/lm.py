@@ -3,17 +3,23 @@ forward, decode cache, decode step.
 
 The reference scans over stacked layer weights; here the stack is a
 Python loop over :class:`Block` modules (the port runs eagerly).  A block
-is a mixer (GQA attention or Mamba-2) and, where the layer pattern has
-one, a dense FFN.  Weights keep the reference's layouts
-(``interop.lm_params_from_arrays`` carries the reference's parameters
-in).  MoE, Mamba-1, hybrid patterns, codebook heads, vision/audio
-frontends, MLA and M-RoPE raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+is a mixer (GQA attention, sliding-window or not, or Mamba-2) and, where
+the layer pattern has one, a dense FFN, each behind the configuration's
+norm (RMSNorm with a weight, or OLMo's non-parametric LayerNorm, which
+has none: the block and the model then carry no ``nm``/``nf``/
+``final_norm``, as the reference's parameter tree has none).  Weights
+keep the reference's layouts (``interop.lm_params_from_arrays`` carries
+the reference's parameters in).  MoE, Mamba-1, hybrid patterns, codebook
+heads, vision/audio frontends, MLA and M-RoPE raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
-The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len": int}``
+The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len"}``
 for attention stacks and ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, S,
-P], "len": int}`` for Mamba-2 stacks; :func:`decode_step` writes the new
-state into it and advances ``len`` in place.
+P], "len"}`` for Mamba-2 stacks; ``len`` is one host int shared by the
+batch, or, with ``per_seq`` (the continuous batcher's slot lanes), an
+int32 ``[B]`` tensor on the cache's device.  :func:`decode_step` takes
+each sequence's positions from its own length, writes the new state into
+the cache and advances ``len`` in place.
 """
 from __future__ import annotations
 
@@ -25,9 +31,10 @@ from torch import nn
 from ..configs.base import LayerSpec, ModelConfig, not_ported
 from .attention import (
     Attention, check_attention, gqa_cache_shape, gqa_forward, init_attention,
+    seq_lengths,
 )
 from .common import (
-    dtype_of, normal_param, ones_param, resolve_device, rms_norm,
+    NORMS, apply_norm, dtype_of, normal_param, ones_param, resolve_device,
 )
 from .mamba import (
     Mamba, check_mamba, init_mamba, mamba2_forward, mamba_cache_shape,
@@ -57,55 +64,61 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.num_codebooks or cfg.frontend is not None:
         raise not_ported("codebook heads and frontends (%s)" % cfg.name,
                          "Other LM architectures")
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in NORMS:
         raise not_ported("norm %r (%s)" % (cfg.norm, cfg.name),
                          "Other LM architectures")
     check_attention(cfg)
 
 
+def _weight(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
+    return None if t is None else nn.Parameter(t, requires_grad=False)
+
+
 class Block(nn.Module):
     """norm -> mixer (attention or Mamba-2) -> residual, then, where the
     layer has an FFN, norm -> MLP -> residual.  The mixer is ``attn`` or
-    ``mamba``, as in the reference's parameter tree."""
+    ``mamba``, as in the reference's parameter tree; the norm weights
+    ``nm``, ``nf`` are None for a norm without weights."""
 
-    def __init__(self, nm: torch.Tensor, mixer: Union[Attention, Mamba],
+    def __init__(self, nm: Optional[torch.Tensor],
+                 mixer: Union[Attention, Mamba],
                  nf: Optional[torch.Tensor] = None, mlp: Optional[MLP] = None):
         super().__init__()
-        self.nm = nn.Parameter(nm, requires_grad=False)
+        self.nm = _weight(nm)
         self.kind = "attn" if isinstance(mixer, Attention) else "mamba"
         setattr(self, self.kind, mixer)
         if mlp is not None:
-            self.nf = nn.Parameter(nf, requires_grad=False)
+            self.nf = _weight(nf)
         self.mlp = mlp
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None):
-        hn = rms_norm(h, self.nm)
+        hn = apply_norm(cfg.norm, h, self.nm)
         if self.kind == "attn":
             out, new_cache = gqa_forward(self.attn, cfg, hn, positions, cache)
         else:
             out, new_cache = mamba2_forward(self.mamba, cfg, hn, cache)
         h = h + out
         if self.mlp is not None:
-            h = h + self.mlp(rms_norm(h, self.nf))
+            h = h + self.mlp(apply_norm(cfg.norm, h, self.nf))
         return h, new_cache
 
 
 class LM(nn.Module):
-    """Embedding ``[Vp, d]``, the blocks, the final norm and the head (tied
-    to the embedding, or ``lm_head [d, Vp]``)."""
+    """Embedding ``[Vp, d]``, the blocks, the final norm's weight (None
+    for a norm without weights) and the head (tied to the embedding, or
+    ``lm_head [d, Vp]``)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
-                 blocks: List[Block], final_norm: torch.Tensor,
+                 blocks: List[Block], final_norm: Optional[torch.Tensor],
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
-        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.lm_head = (None if lm_head is None
-                        else nn.Parameter(lm_head, requires_grad=False))
+        self.final_norm = _weight(final_norm)
+        self.lm_head = _weight(lm_head)
 
     @property
     def device(self) -> torch.device:
@@ -115,27 +128,29 @@ class LM(nn.Module):
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device="cuda") -> LM:
     """Random weights with the reference's distributions: normal scaled by
-    ``1/sqrt(fan_in)``, the embedding and untied head by 0.02, norms 1,
-    biases 0 (Mamba's own in ``mamba.init_mamba``).  ``generator`` must
-    live on ``device``."""
+    ``1/sqrt(fan_in)``, the embedding and untied head by 0.02, RMSNorm
+    weights 1 (the non-parametric LayerNorm has none), biases 0 (Mamba's
+    own in ``mamba.init_mamba``).  ``generator`` must live on
+    ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     d, vp = cfg.d_model, cfg.padded_vocab
+
+    def norm():
+        return ones_param((d,), dev, dtype) if cfg.norm == "rmsnorm" else None
+
     embed = normal_param((vp, d), generator, dev, dtype, scale=0.02)
     if is_mamba(cfg):
-        blocks = [Block(ones_param((d,), dev, dtype),
-                        init_mamba(cfg, generator, dev, dtype))
+        blocks = [Block(norm(), init_mamba(cfg, generator, dev, dtype))
                   for _ in range(cfg.num_layers)]
     else:
-        blocks = [Block(ones_param((d,), dev, dtype),
-                        init_attention(cfg, generator, dev, dtype),
-                        ones_param((d,), dev, dtype),
-                        init_mlp(d, cfg.d_ff, generator, dev, dtype))
+        blocks = [Block(norm(), init_attention(cfg, generator, dev, dtype),
+                        norm(), init_mlp(d, cfg.d_ff, generator, dev, dtype))
                   for _ in range(cfg.num_layers)]
     head = (None if cfg.tie_embeddings
             else normal_param((d, vp), generator, dev, dtype, scale=0.02))
-    return LM(cfg, embed, blocks, ones_param((d,), dev, dtype), head)
+    return LM(cfg, embed, blocks, norm(), head)
 
 
 def lm_logits(model: LM, h: torch.Tensor) -> torch.Tensor:
@@ -159,7 +174,7 @@ def forward_hidden(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     positions = _positions(h.shape[0], h.shape[1], 0, h.device)
     for blk in model.blocks:
         h, _ = blk(model.cfg, h, positions)
-    return rms_norm(h, model.final_norm)
+    return apply_norm(model.cfg.norm, h, model.final_norm)
 
 
 def forward(model: LM, tokens: torch.Tensor) -> torch.Tensor:
@@ -171,20 +186,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                per_seq: bool = False) -> Dict:
     """An empty cache, length 0: zeros ``[L, batch, Hk, max_len, D]`` for
     keys and values, or, for Mamba-2 stacks (which ``max_len`` does not
-    size), each layer's conv tail and SSM state.  One length is shared by
-    the batch (``per_seq`` raises)."""
+    size), each layer's conv tail and SSM state.  One host length is shared
+    by the batch, or, with ``per_seq``, each sequence (slot lane) has its
+    own: an int32 ``[batch]`` tensor on ``device`` (Mamba-2 lanes carry one
+    too, for uniformity)."""
     check_supported(cfg)
     dev, dtype = resolve_device(device), dtype_of(cfg.dtype)
-    if per_seq:
-        raise not_ported("per-sequence cache lengths", "LM continuous batching")
     n = cfg.num_layers
+    length = seq_lengths(batch, dev) if per_seq else 0
     if is_mamba(cfg):
         one = mamba_cache_shape(cfg, batch, dtype, dev)
         return {"conv": one["conv"][None].repeat(n, 1, 1, 1),
-                "ssm": one["ssm"][None].repeat(n, 1, 1, 1, 1), "len": 0}
+                "ssm": one["ssm"][None].repeat(n, 1, 1, 1, 1), "len": length}
     one = gqa_cache_shape(cfg, batch, max_len, dtype, dev)
     return {"k": one["k"][None].repeat(n, 1, 1, 1, 1),
-            "v": one["v"][None].repeat(n, 1, 1, 1, 1), "len": 0}
+            "v": one["v"][None].repeat(n, 1, 1, 1, 1), "len": length}
 
 
 def _layer_cache(cache: Dict, i: int) -> Dict:
@@ -196,18 +212,24 @@ def _layer_cache(cache: Dict, i: int) -> Dict:
 
 def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,
                 last_only: bool = False) -> torch.Tensor:
-    """New tokens ``[B, T]`` at positions ``cache["len"] + [0, T)`` ->
-    logits ``[B, T, Vp]`` (``[B, Vp]`` of the last position with
-    ``last_only``).  Writes the T new key/value rows (or the new conv tail
-    and SSM state) of every layer into ``cache`` and advances
-    ``cache["len"]`` by T, in place."""
+    """New tokens ``[B, T]`` at positions ``cache["len"] + [0, T)`` (each
+    sequence from its own length with ``per_seq``) -> logits ``[B, T, Vp]``
+    (``[B, Vp]`` of the last position with ``last_only``).  Writes the T
+    new key/value rows (or the new conv tail and SSM state) of every layer
+    into ``cache`` and advances ``cache["len"]`` by T, in place; a
+    one-token step reads no per-sequence length back to the host."""
     h = torch.nn.functional.embedding(tokens, model.embed)
+    b, t = h.shape[:2]
     start = cache["len"]
-    positions = _positions(h.shape[0], h.shape[1], start, h.device)
+    if torch.is_tensor(start):
+        positions = start[:, None].long() + torch.arange(t, device=h.device)
+    else:
+        positions = _positions(b, t, start, h.device)
     for i, blk in enumerate(model.blocks):
         h, _ = blk(model.cfg, h, positions, _layer_cache(cache, i))
-    cache["len"] = start + h.shape[1]
+    cache["len"] = start + t
     if last_only:
         h = h[:, -1:]
-    logits = lm_logits(model, rms_norm(h, model.final_norm))
+    logits = lm_logits(model,
+                       apply_norm(model.cfg.norm, h, model.final_norm))
     return logits[:, 0] if last_only else logits

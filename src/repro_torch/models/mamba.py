@@ -13,7 +13,9 @@ The three branches of the reference's ``mamba2_forward``:
 The cache of one layer is ``{"conv": [B, K-1, C]`` in the model dtype
 (the causal conv's last K-1 inputs, C = d_inner + 2·G·S), ``"ssm": [B, H,
 S, P]`` float32``}``; :func:`mamba2_forward` writes the new tail and
-state into those tensors in place.  Mamba-1 (Jamba) raises
+state into those tensors in place.  The continuous batcher's slot lanes
+are the batch rows; its launcher zeroes a lane before the lane's prefill
+(``launch/serve.py``), so that prefill's SSD scan runs from a zero state.  Mamba-1 (Jamba) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""LM serving: cached prefill, one-token decode steps, batched generation.
+"""LM serving: cached prefill, one-token decode steps, batched generation
+and the continuous batcher.
 
 ``prefill`` consumes the whole prompt into an empty cache and projects
 only the last position through the head; ``step`` feeds one token per
@@ -9,15 +10,28 @@ Mamba-2 stacks the prefill runs the SSD kernel from the cached state and
 a step the one-token recurrence.
 
 :func:`generate` runs on the card unless ``device="cpu"`` is passed, and
-raises when it is asked for the card and none is visible.  The reference's
-continuous batcher (per-sequence cache lengths) is not ported yet
-(``ROADMAP.md`` queue 1: LM continuous batching).
+raises when it is asked for the card and none is visible.
+
+:class:`ContinuousBatcher` owns ``num_slots`` decode lanes of one cache
+with per-sequence lengths (``lm.init_cache(per_seq=True)``): queued
+requests claim free lanes (a prefill each), every tick decodes all lanes
+in one fixed-shape step, and finished sequences release their lanes.  Its
+``(prefill_one, decode_all)`` callables come from
+``launch.serve.make_slot_fns``.  The lifecycle is the reference's
+(``serve/lm.py``), with one difference: each lane's positions come from
+its own cache length, where the reference's batcher passes ``len(prompt)
++ 1`` after the prefill as the position of the token stored at
+``len(prompt)`` (its every decoded token is rotated one position ahead of
+its cache row; ``ROADMAP.md`` queue 3).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import lm
@@ -76,3 +90,102 @@ def generate(model: lm.LM, prompt, max_new: int,
         tok = sample_token(step(tok[:, None], cache), generator, temperature)
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+# --------------------------------------------------------------------------
+# continuous batcher (slot lanes of one per-sequence cache)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # [T] int32
+    max_new: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass
+class SlotState:
+    request: Optional[Request] = None
+    pos: int = 0                  # the lane's next cache row
+
+
+class ContinuousBatcher:
+    """Host-side slot manager around ``(prefill_one, decode_all)``:
+
+    * ``prefill_one(tokens [1, T], cache, slot) -> (logits [1, Vp],
+      cache)`` fills lane ``slot`` with a prompt;
+    * ``decode_all(tokens [num_slots, 1], cache) -> (logits [num_slots,
+      Vp], cache)`` advances every lane by one token, each at its own
+      cache length.
+
+    A caller may wrap either.  A tick admits queued requests into free
+    lanes, then decodes all lanes (idle ones fed token 0, as the
+    reference's); the next ids are the argmax on the device, read to the
+    host once a tick.  A request is done at ``max_new`` ids or at
+    ``eos_id``."""
+
+    def __init__(self, num_slots: int, prefill_fn: Callable,
+                 decode_fn: Callable, eos_id: int = -1):
+        self.num_slots = num_slots
+        self.slots = [SlotState() for _ in range(num_slots)]
+        self.queue: Deque[Request] = deque()
+        self.prefill_fn = prefill_fn
+        self.decode_fn = decode_fn
+        self.eos_id = eos_id
+        self.completed: List[Request] = []
+
+    # -- request lifecycle -------------------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s.request is None:
+                return i
+        return None
+
+    def _admit(self, cache: Dict) -> Dict:
+        while self.queue:
+            slot = self._free_slot()
+            if slot is None:
+                return cache
+            req = self.queue.popleft()
+            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64))[None]
+            logits, cache = self.prefill_fn(tokens, cache, slot)
+            req.generated.append(int(torch.argmax(logits[0])))
+            self.slots[slot] = SlotState(req, pos=len(req.prompt))
+        return cache
+
+    def active(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s.request is not None]
+
+    # -- one engine tick -----------------------------------------------------
+    def step(self, cache: Dict) -> Tuple[Dict, bool]:
+        cache = self._admit(cache)
+        act = self.active()
+        if not act:
+            return cache, False
+        tokens = np.zeros((self.num_slots, 1), np.int64)
+        for i in act:
+            tokens[i, 0] = self.slots[i].request.generated[-1]
+        logits, cache = self.decode_fn(torch.from_numpy(tokens), cache)
+        nxt = torch.argmax(logits, dim=-1).tolist()
+        for i in act:
+            s = self.slots[i]
+            tok = int(nxt[i])
+            s.request.generated.append(tok)
+            s.pos += 1
+            if tok == self.eos_id or len(s.request.generated) >= s.request.max_new:
+                s.request.done = True
+                self.completed.append(s.request)
+                self.slots[i] = SlotState()
+        return cache, True
+
+    def run_until_drained(self, cache: Dict, max_ticks: int = 10_000):
+        ticks = 0
+        while (self.queue or self.active()) and ticks < max_ticks:
+            cache, _ = self.step(cache)
+            ticks += 1
+        return cache, ticks

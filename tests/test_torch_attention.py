@@ -7,7 +7,10 @@ versions (float32, on the CPU).
   0``, query and key lengths off the kernel's 64-row tiles;
 * the port's plain decode attention against the reference's
   ``decode_attention`` (interpret) and ``decode_attention_ref``, with
-  lengths from 0 to S;
+  lengths from 0 to S; head dim 80 (H2O-Danube) in both kernels;
+* the port's windowed plain decode attention against the reference's
+  masked ``_sdpa`` (``impl="xla"``, per-sequence ``q_offset``): windows
+  below and above the length, lengths past S, ragged lanes;
 * the CPU dispatch of the public wrappers, the CUDA wrappers' refusal of
   CPU tensors, and the decode kernel's split of the cache.
 
@@ -24,6 +27,7 @@ from repro.kernels.decode_attention import ops as r_da_ops
 from repro.kernels.decode_attention import ref as r_da_ref
 from repro.kernels.flash_attention import ops as r_fa_ops
 from repro.kernels.flash_attention import ref as r_fa_ref
+from repro.models import attention as r_attn
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.decode_attention import kernel as p_da_kernel
 from repro_torch.kernels.decode_attention import ops as p_da_ops
@@ -60,6 +64,8 @@ FLASH_CASES = {
     "g6_offset_prefill": (1, 6, 1, 21, 72, 32, True, None, 40),
     "g1_offset_ragged": (2, 2, 2, 9, 30, 64, True, None, 17),
     "g2_noncausal": (1, 4, 2, 16, 24, 16, False, None, 0),
+    "g4_d80_window": (1, 8, 2, 40, 40, 80, True, 16, 0),
+    "g1_d80_offset_ragged": (2, 2, 2, 11, 30, 80, True, None, 19),
 }
 
 
@@ -92,6 +98,7 @@ DECODE_CASES = {
     "g3": (2, 6, 2, 100, 16, [37, 100]),
     "g6": (2, 12, 2, 72, 32, [72, 5]),
     "g2_d64": (4, 4, 2, 48, 64, [0, 17, 31, 48]),
+    "g4_d80": (3, 8, 2, 40, 80, [0, 17, 40]),
 }
 
 
@@ -166,3 +173,48 @@ def test_decode_cluster_splits_fill_the_card(blocks):
     assert 1 <= n <= p_da_kernel.MAX_SPLIT
     assert n == p_da_kernel.MAX_SPLIT or blocks * n >= 2 * sms
     assert n == 1 or blocks * (n - 1) < 2 * sms
+
+
+# (b, hq, hk, s, d, window, lengths): the query of sequence b at position
+# lengths[b] - 1.  Every row keeps a live key: where none is left (length
+# 0, or a length past S + window - 1) the port writes 0, as the
+# reference's Pallas kernels do, while its masked _sdpa averages every row
+WINDOW_DECODE_CASES = {
+    "window_below_len": (3, 8, 2, 40, 80, 16, [40, 17, 30]),
+    "window_above_len": (2, 6, 2, 40, 16, 64, [40, 9]),
+    "past_s": (3, 4, 2, 24, 32, 16, [25, 30, 39]),
+    "ragged_lanes_window1": (4, 8, 2, 48, 16, 1, [1, 48, 20, 33]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_DECODE_CASES))
+def test_windowed_decode_plain_matches_reference_sdpa(case):
+    """Decode attention with a window: the rows [max(0, len - window),
+    min(len, S)), against the reference's masked attention at per-sequence
+    query positions len - 1 (the continuous batcher's step)."""
+    b, hq, hk, s, d, window, lengths = WINDOW_DECODE_CASES[case]
+    q, k, v = _qkv(b, hq, hk, 1, s, d, seed=s + window)
+    lens = np.asarray(lengths, np.int32)
+    got = p_da_ref.decode_attention_ref(*_t(q, k, v), torch.from_numpy(lens),
+                                        window)
+    want = r_attn._sdpa(*(jnp.asarray(a.transpose(0, 2, 1, 3))
+                          for a in (q, k, v)), causal=True, window=window,
+                        q_offset=jnp.asarray(lens - 1), impl="xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).transpose(
+        0, 2, 1, 3), **TOL)
+    via_ops = p_da_ops.decode_attention(*_t(q, k, v), torch.from_numpy(lens),
+                                        window)
+    assert torch.equal(via_ops, got)
+
+
+def test_windowed_decode_with_no_live_row_is_zero():
+    """Length 0, and a length past S + window - 1 (an idle lane far past
+    the cache's end): no live row, so 0."""
+    q, k, v = _qkv(3, 4, 2, 1, 20, 80, seed=4)
+    got = p_da_ref.decode_attention_ref(*_t(q, k, v),
+                                        torch.tensor([0, 20, 28]), 8)
+    assert torch.all(got[0] == 0) and torch.all(got[2] == 0)
+    assert not torch.all(got[1] == 0)
+    with pytest.raises(ValueError, match="at least one row"):
+        p_da_kernel.decode_attention_cuda(
+            *_t(q, k, v), torch.tensor([1, 1], dtype=torch.int32), 0)

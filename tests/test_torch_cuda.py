@@ -923,6 +923,13 @@ FLASH_CASES = {
     "noncausal_tq129_tk65_g1_d128": (1, 2, 2, 129, 65, 128, False, None, 0),
     "noncausal_window30_offset64_g6_d64": (1, 6, 1, 127, 191, 64, False, 30,
                                            64),
+    # head dim 80 (H2O-Danube: 32/8 heads): D padded to 128 columns in the
+    # bf16 kernel; the danube prefill crosses its 4096-row window
+    "danube_prefill_window4096_d80": (1, 32, 8, 4600, 4672, 80, True, 4096,
+                                      0),
+    "tq129_window100_offset33_g4_d80": (2, 8, 2, 129, 333, 80, True, 100,
+                                        33),
+    "noncausal_g1_d80": (1, 2, 2, 70, 150, 80, False, None, 0),
 }
 # (b, hq, hk, s, d, lengths)
 DECODE_CASES = {
@@ -938,6 +945,20 @@ DECODE_CASES = {
     "g8": (2, 16, 2, 1000, 128, [1000, 517]),
     "g12_two_head_groups": (2, 24, 2, 300, 64, [300, 171]),
     "b1_s32768": (1, 12, 2, 32768, 128, [32768]),
+    "g4_d80": (3, 32, 8, 4672, 80, [4672, 1, 2300]),
+}
+# (b, hq, hk, s, d, window, lengths): the query at lengths[b] - 1, live rows
+# [max(0, lengths[b] - window), min(lengths[b], S))
+WINDOW_DECODE_CASES = {
+    "window_below_len_d80": (4, 32, 8, 4672, 80, 4096, [4600, 4097, 4672,
+                                                        4200]),
+    "window_above_len_d80": (2, 32, 8, 4672, 80, 4096, [4096, 100]),
+    "len0_d80": (2, 32, 8, 1000, 80, 16, [0, 17]),
+    "past_s_d80": (3, 32, 8, 300, 80, 100, [301, 350, 410]),
+    "ragged_lanes_d80": (8, 32, 8, 4672, 80, 4096,
+                         [256, 4600, 1, 64, 4161, 65, 2000, 4672]),
+    "window_mid_tile_g6_d128": (2, 12, 2, 2112, 128, 70, [2080, 1000]),
+    "window1_g3_d64": (2, 6, 2, 300, 64, 1, [300, 5]),
 }
 
 
@@ -978,6 +999,23 @@ def test_decode_attention_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["decode_attention"] == before + 1
     want = p_da_ref.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
+    assert torch.all(got[lens == 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(WINDOW_DECODE_CASES))
+def test_windowed_decode_attention_kernel_matches_plain(card, case, dtype):
+    b, hq, hk, s, d, window, lengths = WINDOW_DECODE_CASES[case]
+    q, k, v = (t.to(card) for t in _qkv((b, hq, 1, d), (b, hk, s, d), dtype,
+                                         seed=s + window))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = _cuda.LAUNCHES["decode_attention"]
+    got = p_da_ops.decode_attention(q, k, v, lens, window)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decode_attention"] == before + 1
+    want = p_da_ref.decode_attention_ref(q, k, v, lens, window)
     torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
     assert torch.all(got[lens == 0] == 0)
 
@@ -1243,3 +1281,112 @@ def test_two_layer_mamba_generation_kernel_matches_plain(card):
     diff = (kern - plain)[..., :v].abs()
     assert float(diff.max()) <= 2 * float(noise.max())
     assert float(diff.mean()) <= 2 * float(noise.mean())
+
+
+# --------------------------------------------------------------------------
+# per-sequence caches and the continuous batcher
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 3])
+def test_per_sequence_gqa_forward_on_the_card_equals_the_cpu(card, t):
+    """One H2O-Danube layer at full width (32/8 heads of 80, window 4096),
+    float32, over a per-sequence cache whose lanes sit below, across and
+    past the window and past the cache's end: the card's output and cache
+    equal the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as p_attn
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    layer = p_attn.init_attention(cfg, gen, "cpu", torch.float32)
+    s = 4672
+    lens = torch.tensor([0, 3000, 4500, 4700], dtype=torch.int32)
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy(rng.standard_normal((4, t, cfg.d_model)).astype(
+        np.float32))
+    kv = torch.from_numpy(rng.standard_normal(
+        (4, cfg.num_kv_heads, s, 80)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        one = p_attn.gqa_cache_shape(cfg, 4, s, torch.float32, dev,
+                                     per_seq=True)
+        one["k"].copy_(kv.to(dev))
+        one["v"].copy_((0.5 * kv).to(dev))
+        one["len"].copy_(lens.to(dev))
+        lay = copy.deepcopy(layer).to(dev)
+        pos = (lens[:, None].long() + torch.arange(t)).to(dev)
+        out, new = p_attn.gqa_forward(lay, cfg, x.to(dev), pos, one)
+        outs[str(dev)] = (out.cpu(), new["k"].cpu(), new["v"].cpu(),
+                          new["len"].cpu())
+    # 2e-3: RoPE at positions up to 4700 turns by angles whose float32 ulp
+    # is 4.9e-4 rad, and the card's sin/cos round them otherwise than the
+    # CPU's (1e-4 failed by 5.6e-4 on an H100); the LM gates' CPU tolerance
+    got, want = outs[str(card)], outs["cpu"]
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=2e-3)
+    assert got[3].tolist() == (lens + t).tolist()
+
+
+def _batched(model, requests, slots, max_len):
+    """The continuous batcher over ``requests`` ((prompt, max_new) pairs):
+    the ids of each request and the logits of every lane it decoded in."""
+    from repro_torch.launch import serve as p_launch
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    prefill, decode = p_launch.make_slot_fns(model, max_len)
+    logits = {i: [] for i in range(len(requests))}
+    admitted = []                      # requests are admitted in rid order
+    batcher = None
+
+    def prefill_rec(tokens, cache, slot):
+        out, cache = prefill(tokens, cache, slot)
+        logits[len(admitted)].append(out[0].float().cpu())
+        admitted.append(slot)
+        return out, cache
+
+    def decode_rec(tokens, cache):
+        out, cache = decode(tokens, cache)
+        for i in batcher.active():
+            logits[batcher.slots[i].request.rid].append(out[i].float().cpu())
+        return out, cache
+
+    batcher = p_serve.ContinuousBatcher(slots, prefill_rec, decode_rec)
+    for rid, (prompt, new) in enumerate(requests):
+        batcher.submit(p_serve.Request(rid, prompt, new))
+    cache = p_lm.init_cache(model.cfg, slots, max_len, model.device,
+                            per_seq=True)
+    _, ticks = batcher.run_until_drained(cache)
+    ids = {r.rid: r.generated for r in batcher.completed}
+    return ids, {k: torch.stack(v) for k, v in logits.items()}, ticks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmo-1b"])
+def test_two_layer_batcher_on_the_card_equals_the_cpu(card, arch):
+    """The continuous batcher at full width, 2 layers, float32, 3 slots and
+    5 requests: the card's ids equal the CPU's, its lane logits within
+    2e-3 (``chip_smoke.LM_CPU_TOL``), and every request's prefill and every
+    tick launch the attention kernels once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as p_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32")
+    model = p_lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    requests = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32), 4)
+                for n in rng.integers(64, 161, 5)]
+    _cuda.reset_launches()
+    ids, logits, ticks = _batched(copy.deepcopy(model).to(card), requests, 3,
+                                  168)
+    assert _cuda.LAUNCHES["flash_attention"] == 2 * len(requests)
+    assert _cuda.LAUNCHES["decode_attention"] == 2 * ticks
+    cpu_ids, cpu_logits, cpu_ticks = _batched(model, requests, 3, 168)
+    assert ids == cpu_ids and ticks == cpu_ticks
+    for rid in ids:
+        torch.testing.assert_close(logits[rid][..., :cfg.vocab_size],
+                                   cpu_logits[rid][..., :cfg.vocab_size],
+                                   rtol=0, atol=2e-3)

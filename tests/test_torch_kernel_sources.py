@@ -147,3 +147,22 @@ def test_a_shared_header_change_rebuilds_every_source(tmp_path, monkeypatch):
         f.write("\n// changed\n")
     after = {n: _cuda._lib_path(n) for n in _cuda.SOURCES}
     assert all(before[n] != after[n] for n in _cuda.SOURCES)
+
+
+@pytest.mark.parametrize("launcher", ["int flash_attention_launch(",
+                                      "int decode_attention_launch("])
+def test_attention_launchers_take_every_head_dim(launcher):
+    """Each launcher's switch instantiates every head dim the wrappers
+    accept (80 for H2O-Danube among them), and nothing else."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    body = _body(_source("attention.cu"), launcher)
+    cases = sorted(int(d) for d in re.findall(r"case (\d+):", body))
+    assert cases == sorted(fa_kernel.HEAD_DIMS) and 80 in cases
+
+
+def test_decode_kernels_take_the_window():
+    text = _source("attention.cu")
+    for kernel in ("decode_attention_kernel(", "decode_attention_mma_kernel("):
+        assert "live_rows(lengths[b], S, window, len, lo)" in _body(text,
+                                                                   kernel)

@@ -1,5 +1,7 @@
 """PyTorch port vs the JAX reference: Qwen2-1.5B generation at the
-reference's smoke size (``smoke_variant``, float32, on the CPU).
+reference's smoke size (``smoke_variant``, float32, on the CPU), and the
+dense stacks H2O-Danube-1.8B (sliding window, head dim 80 at full width)
+and OLMo-1B (non-parametric LayerNorm, tied head).
 
 The same parameters (numpy, from a seed, in the reference's nested
 layout) and token ids feed both packages:
@@ -13,7 +15,10 @@ layout) and token ids feed both packages:
   teacher-forced logits of the prefill and every step;
 * ``lm_params_from_arrays`` on every leaf; the device checks and the
   errors of what is not ported; and that no module of the port (nor
-  ``chip_smoke.py``) imports JAX or the JAX package.
+  ``chip_smoke.py``) imports JAX or the JAX package;
+* for danube and olmo: the configuration and ``param_counts`` field for
+  field, ``layer_norm_nonparam``, ``forward`` (danube across its smoke
+  window of 16), ``decode_step`` and ``lm_params_from_arrays``.
 
 The reference's ``generate(impl="pallas")`` is never called: its prefill
 runs inside a ``fori_loop``, where ``attention.py`` calls ``int()`` on the
@@ -23,6 +28,7 @@ float32 sums taken in another order.
 """
 import ast
 import dataclasses
+import functools
 import os
 
 import jax
@@ -121,7 +127,8 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
-    assert registered() == ("mamba2-130m", "qwen2-1.5b")
+    assert registered() == ("h2o-danube-1.8b", "mamba2-130m", "olmo-1b",
+                            "qwen2-1.5b")
     full = get_config("qwen2-1.5b")
     assert full.padded_vocab == 152064
     assert round(full.param_counts()["total"] / 1e9, 2) == 1.54
@@ -135,9 +142,13 @@ def test_other_archs_name_their_roadmap_item(arch):
         get_config(arch)
 
 
-def test_unported_model_features_raise(cfg):
-    with pytest.raises(NotImplementedError, match="LM continuous batching"):
-        p_lm.init_cache(cfg, 2, 8, device="cpu", per_seq=True)
+def test_unported_model_features_raise(cfg, rcfg):
+    # per-sequence caches are ported: the reference's shapes, int32 lengths
+    ours = p_lm.init_cache(cfg, 2, 8, device="cpu", per_seq=True)
+    ref = r_lm.init_cache(rcfg, 2, 8, per_seq=True)["sub0"]["attn"]
+    assert ours["len"].dtype == torch.int32 and ours["len"].tolist() == [0, 0]
+    assert ref["len"].shape == (cfg.num_layers, 2)
+    assert tuple(ours["k"].transpose(2, 3).shape) == ref["k"].shape
     mla = dataclasses.replace(cfg, mla=p_base.MLAConfig(kv_lora_rank=32))
     with pytest.raises(NotImplementedError, match="Other LM architectures"):
         p_lm.init_model(mla, device="cpu")
@@ -377,9 +388,117 @@ def test_port_imports_neither_jax_nor_the_reference():
                 ("core", "faults.py"), ("core", "recovery.py"),
                 ("serve", "engine.py"), ("serve", "batcher.py"),
                 ("launch", "dscep_run.py"), ("launch", "mesh.py"),
-                ("core", "kb_dist.py"), ("configs", "dscep.py")):
+                ("core", "kb_dist.py"), ("configs", "dscep.py"),
+                ("launch", "serve.py"), ("configs", "h2o_danube_1_8b.py"),
+                ("configs", "olmo_1b.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+# --------------------------------------------------------------------------
+# H2O-Danube-1.8B and OLMo-1B
+# --------------------------------------------------------------------------
+
+NEW_ARCHS = ("h2o-danube-1.8b", "olmo-1b")
+
+
+@functools.lru_cache(maxsize=None)
+def _new_arch(arch):
+    rcfg = r_base.smoke_variant(r_get_config(arch))
+    cfg = smoke_variant(get_config(arch))
+    arrays = _arrays(rcfg)
+    return (cfg, rcfg, arrays, jax.tree.map(jnp.asarray, arrays),
+            interop.lm_params_from_arrays(arrays, cfg))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_config_equals_reference(arch):
+    for ours, ref in ((get_config(arch), r_get_config(arch)),
+                      (smoke_variant(get_config(arch)),
+                       r_base.smoke_variant(r_get_config(arch)))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        assert ours.param_counts() == ref.param_counts()
+        assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
+            == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
+    full = get_config(arch)
+    if arch == "h2o-danube-1.8b":
+        assert (full.resolved_head_dim, full.swa_window) == (80, 4096)
+        assert round(full.param_counts()["total"] / 1e9, 2) == 1.83
+    else:
+        assert full.norm == "layernorm_nonparam" and full.tie_embeddings
+        assert round(full.param_counts()["total"] / 1e9, 2) == 1.18
+
+
+def test_layer_norm_nonparam_matches_reference():
+    x = np.random.default_rng(5).standard_normal((2, 7, 64)).astype(
+        np.float32) * 3 + 1
+    np.testing.assert_allclose(
+        _np(p_common.layer_norm_nonparam(torch.from_numpy(x))),
+        np.asarray(r_common.layer_norm_nonparam(jnp.asarray(x))),
+        **LAYER_TOL)
+    np.testing.assert_allclose(
+        _np(p_common.apply_norm("layernorm_nonparam", torch.from_numpy(x),
+                                None)),
+        np.asarray(r_common.apply_norm("layernorm_nonparam", jnp.asarray(x),
+                                       None)), **LAYER_TOL)
+    with pytest.raises(ValueError):
+        p_common.apply_norm("batchnorm", torch.from_numpy(x), None)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_forward_matches_reference(arch):
+    """24 tokens: danube's smoke window of 16 masks the earliest keys."""
+    cfg, rcfg, _, rparams, model = _new_arch(arch)
+    toks = _tokens(2, 24, 7)
+    got = p_lm.forward(model, torch.from_numpy(toks))
+    for impl in ("pallas", "xla"):
+        want, _ = r_lm.forward(rparams, rcfg, {"tokens": jnp.asarray(toks)},
+                               impl=impl)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_decode_step_matches_reference(arch):
+    """An 18-token prefill, then two one-token steps (past danube's window:
+    decode attention with a window) against the reference's."""
+    cfg, rcfg, _, rparams, model = _new_arch(arch)
+    pc = p_lm.init_cache(cfg, 2, 24, device="cpu")
+    rc = r_lm.init_cache(rcfg, 2, 24)
+    start = 0
+    for t, seed in ((18, 8), (1, 9), (1, 10)):
+        toks = _tokens(2, t, seed)
+        got = p_lm.decode_step(model, torch.from_numpy(toks), pc)
+        want, rc = r_lm.decode_step(rparams, rcfg,
+                                    {"tokens": jnp.asarray(toks)}, rc,
+                                    jnp.int32(start))
+        np.testing.assert_allclose(_np(got), np.asarray(want), **LOGIT_TOL)
+        start += t
+        assert pc["len"] == start
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_params_carry_every_leaf(arch):
+    cfg, _, arrays, _, model = _new_arch(arch)
+    state = model.state_dict()
+    seen = set()
+    for path, a in jax.tree_util.tree_leaves_with_path(arrays):
+        keys = [p.key for p in path]
+        if keys[0] == "blocks":
+            for i in range(cfg.num_layers):
+                name = ".".join(["blocks", str(i)] + keys[2:])
+                np.testing.assert_array_equal(state[name].numpy(), a[i])
+                seen.add(name)
+        else:
+            np.testing.assert_array_equal(state[keys[0]].numpy(), a)
+            seen.add(keys[0])
+    assert seen == set(state)
+    norms = {n for n in seen if n.split(".")[-1] in ("nm", "nf",
+                                                    "final_norm")}
+    assert bool(norms) == (arch != "olmo-1b")
+    # the port's own init builds the same tree: no norm weights for olmo
+    ours = p_lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert set(ours.state_dict()) == set(state)

@@ -116,7 +116,8 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert ours.padded_vocab == ref.padded_vocab
         assert ours.mamba.nheads(ours.d_model) == ref.mamba.nheads(ref.d_model)
-    assert registered() == ("mamba2-130m", "qwen2-1.5b")
+    assert registered() == ("h2o-danube-1.8b", "mamba2-130m", "olmo-1b",
+                            "qwen2-1.5b")
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.padded_vocab) == (24, 768,
                                                                   50432)
@@ -164,8 +165,18 @@ def test_init_model_and_cache_shapes():
     assert cache["conv"].dtype == torch.bfloat16
     assert cache["ssm"].shape == (2, 3, 24, 128, 64)
     assert cache["ssm"].dtype == torch.float32 and cache["len"] == 0
-    with pytest.raises(NotImplementedError, match="LM continuous batching"):
-        p_lm.init_cache(full, 3, 99, device="cpu", per_seq=True)
+    # per-sequence lanes: the reference's conv and SSM shapes (its Mamba
+    # caches hold no length), one int32 length a lane
+    lanes = p_lm.init_cache(full, 3, 99, device="cpu", per_seq=True)
+    ref = r_lm.init_cache(r_base.smoke_variant(r_get_config(ARCH)), 3, 99,
+                          per_seq=True)["sub0"]["mamba"]
+    small = p_lm.init_cache(smoke_variant(full), 3, 99, device="cpu",
+                            per_seq=True)
+    assert set(ref) == {"conv", "ssm"}
+    for k in ("conv", "ssm"):
+        assert tuple(small[k].shape) == ref[k].shape
+        assert lanes[k].shape == cache[k].shape
+    assert lanes["len"].dtype == torch.int32 and lanes["len"].tolist() == [0] * 3
 
 
 # --------------------------------------------------------------------------
