@@ -43,7 +43,9 @@ Phases (each prints its lines; any failure exits non-zero):
    attention with a window (a tick of 8 ragged lanes, window below and
    above the length, length 0, lengths past S, one-row lanes), both
    dtypes, each bf16 shape timed beside SDPA with the same boolean mask
-   (the JSON rows' ``shapes``);
+   (the JSON rows' ``shapes``); head dim 128 at group 6 (Mixtral-8x22B's
+   48/8 heads): the same lane prefill and an 8-lane windowed tick plus a
+   window-below-length case, held and timed alike;
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
@@ -161,18 +163,29 @@ Phases (each prints its lines; any failure exits non-zero):
    bf16 weights: (a) H2O-Danube-1.8B (24 layers, 32/8 heads of 80,
    window 4096), 8 slots of 4672 rows, 24 requests of 256-4600 ids (4
    past the window), 8-48 new tokens; (b) OLMo-1B, 8 slots, 24 requests
-   of 256-2048 ids; (c) Mamba2-130M, 4 slots, 12 requests.  Gates: every
+   of 256-2048 ids; (c) Mamba2-130M, 4 slots, 12 requests; (d)
+   Mixtral-8x22B (MoE, 8 experts top-2 of 16384, 48/8 heads of 128,
+   window 4096) at 4 of its 56 layers (``BATCH_DEPTH``: 10.4 B of its 141 B
+   parameters), danube's traffic.  Gates: every
    request drains; flash launches = layers x requests, decode launches =
    layers x ticks (every tick decodes), SSD launches = layers x requests
-   in (c), nothing else; the lane logits of 6 requests of (a) (2 past the
-   window) and 4 of (b), recorded by wrapping the two callables, within
-   LM_BF16_FACTOR times the bf16-vs-f32 difference of the single-sequence
-   path (a batch-1 cache with a shared length fed the same ids; max and
-   mean), and the ids equal to its argmax wherever its top-2 gap exceeds
-   that bound; the card equal to the CPU on f32 copies at 2 layers of (a)
-   and (b) (3 slots, 5 requests, equal ids, logits within 2e-3).  It
-   prints generated tokens/s, ticks, peak memory and the idle share over
-   8 ticks of busy lanes.
+   in (c), nothing else; the lane logits of 6 requests of (a) and (d) (2
+   past the window) and 4 of (b), recorded by wrapping the two callables,
+   within LM_BF16_FACTOR times the bf16-vs-f32 difference of the
+   single-sequence path (a batch-1 cache with a shared length fed the same
+   ids; max and mean), and the ids equal to its argmax wherever its top-2
+   gap exceeds that bound; for (d), whose bf16 routing flips near-tied
+   experts, also the same comparison on its f32 copy (all 24 requests
+   drained on it; both sides dropless: logits within 2e-3 and the ids
+   equal at every position); the card equal to the CPU on f32 copies at 2
+   layers of (a) and (b) and 1 of (d) (3 slots, 5 requests, equal ids,
+   logits within 2e-3).  It prints generated tokens/s, ticks, peak memory
+   and the idle share over 8 ticks of busy lanes; for (d) also the MoE's
+   share of a tick's device busy time (expert products against dispatch
+   and combine) and one lane prefill's MoE with its products over the
+   filled slots against the reference's ``cap = n``; the tick's MoE keeps
+   all its slots and it, and a whole decode step, read nothing back to
+   the host (``set_sync_debug_mode("error")``), the prefill's trims.
 
 Phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 each drive their path with the
 launch counters zeroed just before and read just after (phases 11 and
@@ -309,7 +322,14 @@ BATCH_WORLDS = (
     ("h2o-danube-1.8b", 8, 24, (256, 4600), 4, (8, 48), 4672, (6, 2)),
     ("olmo-1b", 8, 24, (256, 2048), 0, (8, 48), 2112, (4, 0)),
     ("mamba2-130m", 4, 12, (256, 2048), 0, (8, 48), 2112, (0, 0)),
+    ("mixtral-8x22b", 8, 24, (256, 4600), 4, (8, 48), 4672, (6, 2)),
 )
+# depth cuts: (layers on the card, layers of the card-against-CPU copies);
+# an architecture not named here runs all its layers and BATCH_CPU's.
+# Mixtral's 56 layers hold 141 B parameters (282 GB in bf16); 4 layers
+# hold 10.4 B, and its float32 copy of 1 layer about 12 GB a side
+BATCH_DEPTH = {"mixtral-8x22b": (4, 1)}
+MOE_PREFILL = 4600     # the MoE's prefill shape in phase 12's MoE lines
 BATCH_SEED = 12
 # the card-against-CPU gate: float32 copies at 2 layers, 3 slots, 5
 # requests of 64-160 ids, 4 new tokens each, logits within LM_CPU_TOL
@@ -2381,9 +2401,33 @@ def _window_mask(lengths, s, window, device):
 
 
 def phase_attention_d80(recs, record, gen, smi):
-    """Head dim 80 (H2O-Danube, 32/8 heads) and the windowed decode: the
-    kernels against their plain versions in both dtypes; the bf16 case of
-    each shape timed beside SDPA with the same mask."""
+    """Head dim 80 (H2O-Danube, 32/8 heads) and the windowed decode edges,
+    then head dim 128 at group 6 (Mixtral-8x22B, 48/8 heads): each
+    model's lane prefill and tick in both dtypes, the bf16 case of each
+    shape timed beside SDPA with the same mask."""
+    w, tk = DANUBE_WINDOW, DANUBE_MAX_LEN
+    lane_attention(recs, record, gen, smi, "danube", 32, 8, 80, [
+        ("danube tick, 8 ragged lanes", 8, tk, w, DANUBE_TICK_LENGTHS),
+        ("window < len", 4, tk, w, [4600, 4097, 4672, 4200]),
+        ("window >= len", 2, tk, w, [4096, 100]),
+        ("len 0", 2, 1000, 16, [0, 17]),
+        ("lengths past S", 3, 300, 100, [301, 350, 410]),
+        ("ragged lanes, one row", 8, tk, w,
+         [256, 4600, 1, 64, 4161, 65, 2000, 4672]),
+    ])
+    lane_attention(recs, record, gen, smi, "mixtral", 48, 8, 128, [
+        ("mixtral tick, 8 ragged lanes", 8, tk, w, DANUBE_TICK_LENGTHS),
+        ("window < len", 4, tk, w, [4600, 4097, 4672, 4200]),
+    ])
+
+
+def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases):
+    """Flash attention at a lane prefill (the longest prompt, Tq
+    DANUBE_PROMPT_MAX, over a lane of DANUBE_MAX_LEN rows, window
+    DANUBE_WINDOW) and decode attention in ``decode_cases`` ((tag, b, s,
+    window, lengths): lengths[b] - 1 is the query's position), both
+    against their plain versions in both dtypes; the bf16 case of each
+    shape timed beside SDPA with the same boolean mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -2391,15 +2435,15 @@ def phase_attention_d80(recs, record, gen, smi):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    hq, hk, d, w = 32, 8, 80, DANUBE_WINDOW
+    w = DANUBE_WINDOW
     tq, tk = DANUBE_PROMPT_MAX, DANUBE_MAX_LEN
     rec = recs["flash_attention"]
     for dtype in (torch.float32, torch.bfloat16):
         q = _randn((1, hq, tq, d), dtype, gen)
         k = _randn((1, hk, tk, d), dtype, gen)
         v = _randn((1, hk, tk, d), dtype, gen)
-        record("flash_attention", "danube lane prefill Tq %d Tk %d D 80 "
-               "window %d %s" % (tq, tk, w, str(dtype)[6:]),
+        record("flash_attention", "%s lane prefill Tq %d Tk %d D %d "
+               "window %d %s" % (label, tq, tk, d, w, str(dtype)[6:]),
                fa_ops.flash_attention(q, k, v, True, w, 0),
                fa_ref.attention_ref(q, k, v, True, w, 0), dtype)
     qpos = torch.arange(tq, device="cuda")[:, None]
@@ -2407,8 +2451,9 @@ def phase_attention_d80(recs, record, gen, smi):
     mask = (kpos <= qpos) & (kpos > qpos - w)
     pairs = _live_pairs(tq, tk, True, w, 0)
     rec.time_case(
-        "danube lane prefill, B 1, 32/8 heads, Tq %d, Tk %d, D 80, window "
-        "%d, bf16 (library: SDPA, boolean window mask)" % (tq, tk, w),
+        "%s lane prefill, B 1, %d/%d heads, Tq %d, Tk %d, D %d, window "
+        "%d, bf16 (library: SDPA, boolean window mask)"
+        % (label, hq, hk, tq, tk, d, w),
         lambda: fa_ops.flash_attention(q, k, v, True, w, 0),
         lambda: fa_ref.attention_ref(q, k, v, True, w, 0),
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -2417,35 +2462,25 @@ def phase_attention_d80(recs, record, gen, smi):
                4.0 * d * hq * pairs, BF16_PEAK_OPS_PER_S), smi)
     del q, k, v, mask
 
-    # (tag, b, s, window, lengths): lengths[b] - 1 is the query's position
     rec = recs["decode_attention"]
-    cases = [
-        ("danube tick, 8 ragged lanes", 8, tk, w, DANUBE_TICK_LENGTHS),
-        ("window < len", 4, tk, w, [4600, 4097, 4672, 4200]),
-        ("window >= len", 2, tk, w, [4096, 100]),
-        ("len 0", 2, 1000, 16, [0, 17]),
-        ("lengths past S", 3, 300, 100, [301, 350, 410]),
-        ("ragged lanes, one row", 8, tk, w,
-         [256, 4600, 1, 64, 4161, 65, 2000, 4672]),
-    ]
-    for tag, cb, cs, cw, lengths in cases:
+    for tag, cb, cs, cw, lengths in decode_cases:
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn((cb, hq, 1, d), dtype, gen)
             k = _randn((cb, hk, cs, d), dtype, gen)
             v = _randn((cb, hk, cs, d), dtype, gen)
             got = da_ops.decode_attention(q, k, v, lens, cw)
-            record("decode_attention", "D 80 window %d, %s %s"
-                   % (cw, tag, str(dtype)[6:]), got,
+            record("decode_attention", "D %d window %d, %s %s"
+                   % (d, cw, tag, str(dtype)[6:]), got,
                    da_ref.decode_attention_ref(q, k, v, lens, cw), dtype)
             if bool((got[lens == 0] != 0).any()):
                 fail("decode_attention: a length-0 row is not 0")
         live = sum(max(0, min(n, cs) - max(0, n - cw)) for n in lengths)
         mask = _window_mask(lens, cs, cw, "cuda")
         rec.time_case(
-            "D 80, 32/8 heads, window %d, %s: B %d, S %d, %d live rows, "
-            "bf16 (library: SDPA over S, boolean mask)" % (cw, tag, cb, cs,
-                                                          live),
+            "D %d, %d/%d heads, window %d, %s: B %d, S %d, %d live rows, "
+            "bf16 (library: SDPA over S, boolean mask)" % (d, hq, hk, cw, tag,
+                                                          cb, cs, live),
             lambda: da_ops.decode_attention(q, k, v, lens, cw),
             lambda: da_ref.decode_attention_ref(q, k, v, lens, cw),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -2562,7 +2597,7 @@ def profiled(label, fn, kernels, smi):
     busy = sum(dev.values())
     if busy <= 0:
         log("  profile %s: no device time recorded (not measured)" % label)
-        return
+        return None
     ours = {k: sum(t for kname, t in dev.items() if KERNEL_SYMBOLS[k] in kname)
             for k in kernels}
     log("  profile %s: wall %.2f ms, device busy %.2f ms (idle share %.3f), "
@@ -2572,6 +2607,7 @@ def profiled(label, fn, kernels, smi):
                                for k, v in ours.items()), smi))
     for kname, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
         log("    %8.3f ms  %s" % (t / 1e3, kname[:110]))
+    return busy / 1e3
 
 
 def profile_serving(model, prompt, max_len, kernels, smi):
@@ -2656,16 +2692,19 @@ def gate_cpu(model, f32, prompt, new):
         fail("the card and the CPU generate other ids on the f32 LM path")
 
 
-def make_lm(arch):
-    """The architecture at full width, random weights from a seeded
-    generator on the card; float32 products in full float32 for the f32
-    gates (the default; set so that no earlier setting leaks in)."""
+def make_lm(arch, layers=None):
+    """The architecture at full width (``layers`` of its layers where
+    given), random weights from a seeded generator on the card; float32
+    products in full float32 for the f32 gates (the default; set so that
+    no earlier setting leaks in)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.time()
     model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                           device="cuda")
@@ -2996,16 +3035,20 @@ def run_batcher(model, requests, slots, max_len, record=()):
             calls[0], secs)
 
 
-def gate_batched(model, requests, ids, logits, label):
+def gate_batched(model, requests, ids, logits, label, slots, max_len):
     """Gate 3: the batcher's lane logits against the single-sequence path
     (a batch-1 cache with a shared length: the prompt, then the batcher's
     own ids one at a time), teacher-forced.  The tolerance is phase 7's: at
     most LM_BF16_FACTOR times the in-run difference between bf16 and an
     f32 copy on the same ids (single path), in the largest and the mean
     difference; and the batcher's ids equal the single path's argmax
-    wherever its top-2 gap exceeds that bound."""
+    wherever its top-2 gap exceeds that bound.  For an MoE model, whose
+    bf16 routing flips near-tied experts (so that bound is wide), the
+    same comparison also runs on the f32 copy (``gate_batched_f32``)."""
     v = model.cfg.vocab_size
     f32 = as_f32(model, "cuda")
+    if model.cfg.moe is not None:
+        gate_batched_f32(f32, requests, slots, max_len, list(logits), label)
     stats = dict(d_max=0.0, d_sum=0.0, n_max=0.0, n_sum=0.0, n=0)
     singles = {}
     for rid, got in logits.items():
@@ -3050,15 +3093,50 @@ def gate_batched(model, requests, ids, logits, label):
              "itself does" % (label, LM_BF16_FACTOR))
 
 
-def gate_batched_cpu(arch, smi):
+def gate_batched_f32(f32, requests, slots, max_len, record, label):
+    """Gate 3 on a float32 copy: the batcher drains ``requests`` on it and
+    the lanes of ``record`` are held against the single-sequence path
+    teacher-forced on their own ids.  Both run dropless, so they route
+    alike and differ by float32 rounding only (other GEMM shapes at a tick
+    of 8 lanes and at batch 1): lane logits within LM_CPU_TOL, TF32 off,
+    and the lanes' ids equal to the single path's argmax at every
+    position."""
+    v = f32.cfg.vocab_size
+    t0 = time.time()
+    ids, logits, ticks, _, _ = run_batcher(f32, requests, slots, max_len,
+                                           record)
+    err, positions = 0.0, 0
+    for rid, got in logits.items():
+        prompt = torch.from_numpy(requests[rid][0].astype(np.int64))[None]
+        prompt = prompt.cuda()
+        tok = torch.tensor([ids[rid]], dtype=torch.int64, device="cuda")
+        single = teacher_forced(f32, prompt, tok,
+                                prompt.shape[1] + tok.shape[1])[0, :, :v]
+        err = max(err, float((got[:, :v] - single).abs().max()))
+        positions += single.shape[0]
+        if ids[rid] != single.argmax(-1).tolist():
+            fail("%s: the f32 batcher's ids leave the single path's argmax "
+                 "(request %d)" % (label, rid))
+    log("  gate 3, batcher against the single-sequence path (%s, f32 copy, "
+        "TF32 off, dropless, teacher-forced, %d requests drained in %d "
+        "ticks, %d recorded, %d positions): max |diff| %.3g (tol %g); ids "
+        "equal its argmax at all %d positions, %.1f s"
+        % (label, len(requests), ticks, len(logits), positions, err,
+           LM_CPU_TOL, positions, time.time() - t0))
+    if not err <= LM_CPU_TOL:
+        fail("%s: the f32 batcher's lane logits leave the single path's: "
+             "%g > %g" % (label, err, LM_CPU_TOL))
+
+
+def gate_batched_cpu(arch, layers, smi):
     """Gate 4: the batcher on the card == on the CPU, float32 copies at
-    BATCH_CPU["layers"] layers and full width: equal ids, lane logits
-    within LM_CPU_TOL (TF32 off)."""
+    ``layers`` layers and full width: equal ids, lane logits within
+    LM_CPU_TOL (TF32 off)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
     c = BATCH_CPU
-    cfg = dataclasses.replace(get_config(arch), num_layers=c["layers"])
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
                           device="cuda")
     f32, cpu = as_f32(model, "cuda"), as_f32(model, "cpu")
@@ -3079,7 +3157,7 @@ def gate_batched_cpu(arch, smi):
     log("  gate 4, card against CPU (%s, f32, %d layers, TF32 off, %d slots, "
         "%d requests of %d-%d ids, %d new tokens): max |logit diff| %.3g "
         "(tol %g), ticks %d / %d, ids of request 0 %s / %s, %.1f s [%s]"
-        % (arch, c["layers"], c["slots"], c["requests"], c["prompt"][0],
+        % (arch, layers, c["slots"], c["requests"], c["prompt"][0],
            c["prompt"][1], c["new"], err, LM_CPU_TOL, ticks_g, ticks_c,
            ids_g[0], ids_c[0], time.time() - t0, smi))
     if not err <= LM_CPU_TOL:
@@ -3111,8 +3189,103 @@ def profile_ticks(model, requests, slots, max_len, kernels, smi):
         for _ in range(PROFILE_TICKS):
             state["cache"], _ = batcher.step(state["cache"])
 
-    profiled("%d ticks of %d busy lanes" % (PROFILE_TICKS, slots), ticks,
-             kernels, smi)
+    return profiled("%d ticks of %d busy lanes" % (PROFILE_TICKS, slots),
+                    ticks, kernels, smi)
+
+
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's names
+
+
+def busy_ms(fn, iters: int = 5):
+    """Device busy milliseconds per ``fn()`` from one torch.profiler
+    session (what the device works, without the gaps a host read leaves):
+    ``(every kernel, the cuBLAS GEMM kernels among them)``."""
+    dev = profile_device(fn, iters)
+    gemm = sum(t for k, t in dev.items()
+               if any(g in k.lower() for g in GEMM_KERNELS))
+    return sum(dev.values()) / 1e3 / iters, gemm / 1e3 / iters
+
+
+def moe_share(model, slots, tick_busy, smi):
+    """The MoE of one tick (``slots`` tokens, dropless, every layer)
+    against the tick's device busy time from ``profile_ticks``, split
+    within one profiler session into cuBLAS's GEMM kernels (the expert
+    products of ``moe.experts``; the router's float32 product, a few us,
+    falls on the side its kernel's name puts it) and the rest (softmax,
+    top-k, sort, gather, combine); then the MoE of one lane prefill
+    (MOE_PREFILL tokens) with the products over the filled slots, as the
+    port runs them, against the reference's ``cap = n`` slots an expert
+    (``moe.experts`` on zeros of that shape).  Device busy times
+    (torch.profiler) and wall (CUDA events).  Both sides of the trim:
+    the tick keeps all its ``cap`` slots and its MoE, and a whole
+    ``lm.decode_step`` of ``slots`` lanes, read nothing back to the host
+    (``torch.cuda.set_sync_debug_mode("error")``), and its wall is timed
+    in turns against the tick trimmed (``TRIM_MIN_CAP`` 0: a host read a
+    layer); the prefill trims."""
+    from repro_torch.models import lm, moe
+
+    cfg = model.cfg
+    mo, d, e, k = cfg.moe, cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
+    p = model.blocks[0].moe
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for n in (slots, MOE_PREFILL):
+        x = _randn((1, n, d), torch.bfloat16, gen)
+        cap = moe.dropless_capacity(n)
+        probs = torch.softmax(x[0].float() @ p.router, dim=-1)
+        rows = moe.dispatch_group(x, probs[None], k, e, cap)[0].shape[2]
+        whole, prod = busy_ms(lambda: moe.moe_forward(p, mo, x,
+                                                      dropless=True))
+        wall = cuda_ms(lambda: moe.moe_forward(p, mo, x, dropless=True))
+        if n == slots:
+            if rows != cap:
+                fail("a tick's MoE ran %d of its %d slots" % (rows, cap))
+            cache = lm.init_cache(cfg, slots, 64, model.device, per_seq=True)
+            tokens = torch.zeros((slots, 1), dtype=torch.int64,
+                                 device="cuda")
+            lm.decode_step(model, tokens, cache, last_only=True)
+            sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                moe.moe_forward(p, mo, x, dropless=True)
+                lm.decode_step(model, tokens, cache, last_only=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            sync()
+            del cache
+            # against the trim the tick no longer does (a host read a
+            # layer), in turns within this call
+            walls = {True: [], False: []}
+            keep = moe.TRIM_MIN_CAP
+            try:
+                for trim in (False, True, False, True):
+                    moe.TRIM_MIN_CAP = 0 if trim else keep
+                    walls[trim].append(cuda_ms(
+                        lambda: moe.moe_forward(p, mo, x, dropless=True)))
+            finally:
+                moe.TRIM_MIN_CAP = keep
+            log("  MoE of one tick (%d tokens, dropless, all %d slots an "
+                "expert; it and a whole decode step of %d lanes read "
+                "nothing back to the host): %d layers x (busy %.4f ms: GEMM "
+                "kernels %.4f, the rest %.4f; wall %.4f ms; in turns, wall "
+                "%.4f ms against %.4f trimmed with a host read) = %.3f of "
+                "the tick's %s ms device busy [%s]"
+                % (n, cap, slots, cfg.num_layers, whole, prod, whole - prod,
+                   wall, np.mean(walls[False]), np.mean(walls[True]),
+                   cfg.num_layers * whole / tick_busy if tick_busy else
+                   float("nan"),
+                   "%.3f" % tick_busy if tick_busy else "(not measured)",
+                   smi))
+            continue
+        if not rows < cap:
+            fail("a %d-token prefill's MoE ran all %d slots" % (n, cap))
+        zeros = torch.zeros((1, e, cap, d), dtype=x.dtype, device="cuda")
+        full_prod = busy_ms(lambda: moe.experts(p, zeros), iters=2)[0]
+        log("  MoE of one lane prefill (%d tokens, dropless): busy %.4f ms "
+            "(GEMM kernels %.4f ms, the expert products over the %d filled "
+            "slots of %d an expert; over all %d, as the reference: %.4f "
+            "ms), wall %.4f ms [%s]" % (n, whole, prod, rows, cap, cap,
+                                        full_prod, wall, smi))
+        del zeros
 
 
 def phase_batcher(smi):
@@ -3121,18 +3294,23 @@ def phase_batcher(smi):
     step, finished lanes reused; at full width, random bf16 weights."""
     from repro_torch.kernels import _cuda
 
+    from repro_torch.configs import get_config
+
     total = {k: 0 for k in _cuda.LAUNCHES}
     for (arch, slots, n, (lo, hi), past, (new_lo, new_hi), max_len,
          (forced, forced_past)) in BATCH_WORLDS:
-        cfg, model, n_params, made_s = make_lm(arch)
+        layers, cpu_layers = BATCH_DEPTH.get(arch, (None,
+                                                    BATCH_CPU["layers"]))
+        cfg, model, n_params, made_s = make_lm(arch, layers)
         window = cfg.swa_window
         reqs = batch_requests(cfg.vocab_size, n, lo, hi, past, window,
                               new_lo, new_hi, BATCH_SEED)
         lens = [len(p) for p, _ in reqs]
-        log("phase 12: %s, %d layers, d_model %d, %s, %.3f B parameters, "
-            "made in %.1f s; %d slots of %d rows, %d requests, prompts %d-%d "
-            "ids (%d past the window %s), %d-%d new [%s]"
-            % (arch, cfg.num_layers, cfg.d_model, cfg.dtype, n_params / 1e9,
+        log("phase 12: %s, %d of %d layers, d_model %d, %s, %.3f B "
+            "parameters, made in %.1f s; %d slots of %d rows, %d requests, "
+            "prompts %d-%d ids (%d past the window %s), %d-%d new [%s]"
+            % (arch, cfg.num_layers, get_config(arch).num_layers,
+               cfg.d_model, cfg.dtype, n_params / 1e9,
                made_s, slots, max_len, n, min(lens), max(lens),
                sum(t > (window or 1 << 30) for t in lens), window,
                min(m for _, m in reqs), max(m for _, m in reqs), smi))
@@ -3182,13 +3360,18 @@ def phase_batcher(smi):
             total[k] += launches[k]
         with torch.no_grad():
             if record:
-                gate_batched(model, reqs, ids, logits, arch)
-            profile_ticks(model, reqs, slots, max_len, kernels, smi)
+                gate_batched(model, reqs, ids, logits, arch, slots, max_len)
+            tick_busy = profile_ticks(model, reqs, slots, max_len, kernels,
+                                      smi)
+            if cfg.moe is not None:
+                moe_share(model, slots,
+                          tick_busy / PROFILE_TICKS if tick_busy else None,
+                          smi)
         del model, logits
         gc.collect()
         torch.cuda.empty_cache()
         if not mamba:
-            gate_batched_cpu(arch, smi)
+            gate_batched_cpu(arch, cpu_layers, smi)
     return total
 
 

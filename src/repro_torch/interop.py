@@ -80,18 +80,24 @@ def _param(a, dtype, device) -> torch.Tensor:
 def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     """An :class:`~repro_torch.models.lm.LM` from the reference's nested
     parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
-    ``lm_head``, and ``blocks/sub0/{nm, nf, attn/*, mlp/*}`` (attention
-    stacks) or ``blocks/sub0/{nm, mamba/*}`` (Mamba-2 stacks), stacked on a
-    leading layer axis, which is unstacked here.  A norm without weights
-    (OLMo's) has no ``nm``, ``nf`` or ``final_norm`` leaf.  The port keeps the
-    reference's weight layouts, so nothing is transposed; values are cast
-    to ``cfg.dtype``, except Mamba's ``A_log``, ``D`` and ``dt_bias``, which
-    the reference keeps in float32."""
+    ``lm_head``, and for each sub-layer ``i`` of the layer pattern
+    ``blocks/sub{i}/{nm, nf, attn/*, mlp/*}`` (a dense FFN),
+    ``blocks/sub{i}/{nm, nf, attn/*, moe/{router, wi, wg, wo, shared/*}}``
+    (an MoE; ``shared`` where it has shared experts) or
+    ``blocks/sub{i}/{nm, mamba/*}`` (Mamba-2), stacked on a leading period
+    axis, which is unstacked here: layer ``j`` is period ``j // P`` of
+    sub-layer ``j % P``, the reference's scan order.  A norm without
+    weights (OLMo's) has no ``nm``, ``nf`` or ``final_norm`` leaf.  The
+    port keeps the reference's weight layouts, so nothing is transposed;
+    values are cast to ``cfg.dtype``, except what the reference keeps in
+    float32: Mamba's ``A_log``, ``D`` and ``dt_bias`` and the MoE
+    router."""
     from .models.attention import Attention
     from .models.common import dtype_of
     from .models.lm import LM, Block, check_supported
     from .models.mamba import FLOAT32_LEAVES, LEAVES, Mamba
     from .models.mlp import MLP
+    from .models.moe import MoE
 
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
@@ -104,21 +110,31 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
             return None
         return t(tree[name] if i is None else tree[name][i])
 
-    sub = params["blocks"]["sub0"]
+    def mlp(tree, i):
+        return MLP(*(t(tree[n][i]) for n in ("wi", "wg", "wo")))
+
     blocks = []
-    for i in range(cfg.num_layers):
+    for j in range(cfg.num_layers):
+        i, sub = j // cfg.period, params["blocks"]["sub%d" % (j % cfg.period)]
         if "mamba" in sub:
             mm = sub["mamba"]
             blocks.append(Block(opt(sub, "nm", i), Mamba(*(
                 t(mm[n][i], torch.float32 if n in FLOAT32_LEAVES else dtype)
                 for n in LEAVES))))
             continue
-        at, ml = sub["attn"], sub["mlp"]
+        at = sub["attn"]
         bias = [opt(at, n, i) for n in ("bq", "bk", "bv")]
-        blocks.append(Block(
-            opt(sub, "nm", i),
-            Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")), *bias),
-            opt(sub, "nf", i),
-            MLP(*(t(ml[n][i]) for n in ("wi", "wg", "wo")))))
+        attn = Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")),
+                         *bias)
+        if "mlp" in sub:
+            ffn = mlp(sub["mlp"], i)
+        elif "moe" in sub:
+            mo = sub["moe"]
+            ffn = MoE(t(mo["router"][i], torch.float32),
+                      *(t(mo[n][i]) for n in ("wi", "wg", "wo")),
+                      mlp(mo["shared"], i) if "shared" in mo else None)
+        else:
+            ffn = None
+        blocks.append(Block(opt(sub, "nm", i), attn, opt(sub, "nf", i), ffn))
     return LM(cfg, t(params["embed"]), blocks, opt(params, "final_norm"),
               opt(params, "lm_head"))

@@ -1,1 +1,2 @@
-"""LM models of the port: dense GQA decoder stacks (``lm.py``)."""
+"""LM models of the port: GQA decoder stacks with dense or MoE FFNs and
+Mamba-2 stacks (``lm.py``)."""

@@ -1,17 +1,24 @@
-"""LM assembly for dense GQA stacks and Mamba-2 (SSD) stacks: init,
-forward, decode cache, decode step.
+"""LM assembly for GQA stacks (each layer's FFN dense, MoE or none) and
+Mamba-2 (SSD) stacks: init, forward, decode cache, decode step.
 
-The reference scans over stacked layer weights; here the stack is a
-Python loop over :class:`Block` modules (the port runs eagerly).  A block
-is a mixer (GQA attention, sliding-window or not, or Mamba-2) and, where
-the layer pattern has one, a dense FFN, each behind the configuration's
-norm (RMSNorm with a weight, or OLMo's non-parametric LayerNorm, which
-has none: the block and the model then carry no ``nm``/``nf``/
-``final_norm``, as the reference's parameter tree has none).  Weights
-keep the reference's layouts (``interop.lm_params_from_arrays`` carries
-the reference's parameters in).  MoE, Mamba-1, hybrid patterns, codebook
-heads, vision/audio frontends, MLA and M-RoPE raise
+The reference scans over stacked layer weights, one period of the layer
+pattern at a time; here the stack is a Python loop over :class:`Block`
+modules (the port runs eagerly), layer ``j`` built from
+``layer_pattern[j % period]``.  A block is a mixer (GQA attention,
+sliding-window or not, or Mamba-2) and, where the layer pattern has one,
+an FFN (a dense MLP or an MoE, ``models/moe.py``), each behind the
+configuration's norm (RMSNorm with a weight, or OLMo's non-parametric
+LayerNorm, which has none: the block and the model then carry no
+``nm``/``nf``/``final_norm``, as the reference's parameter tree has none).
+Weights keep the reference's layouts (``interop.lm_params_from_arrays``
+carries the reference's parameters in).  Mamba-1, hybrid patterns,
+codebook heads, vision/audio frontends, MLA and M-RoPE raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+
+:func:`forward` runs the MoE layers in capacity mode unless asked for
+``dropless``, as the reference's ``forward`` does; :func:`decode_step` (the
+serving path: prefills and ticks) is always dropless, so a sequence's
+logits do not depend on which others share its batch.
 
 The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len"}``
 for attention stacks and ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, S,
@@ -23,7 +30,7 @@ the cache and advances ``len`` in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -40,9 +47,9 @@ from .mamba import (
     Mamba, check_mamba, init_mamba, mamba2_forward, mamba_cache_shape,
 )
 from .mlp import MLP, init_mlp
+from .moe import MoE, init_moe, moe_forward
 
 NEG_INF = -1e30
-ATTN_LAYER = LayerSpec("attn", "dense")
 MAMBA_LAYER = LayerSpec("mamba", None)
 
 
@@ -51,16 +58,24 @@ def is_mamba(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's LM does not run yet (a Mamba layer with
-    no ``MambaConfig`` is a ``ValueError``)."""
-    if any(s.mixer == "mamba" for s in cfg.layer_pattern):
+    """Raise for what the port's LM does not run yet: a layer pattern
+    other than attention layers (each FFN dense, MoE or none) or
+    ``(mamba, None)``.  A Mamba layer with no ``MambaConfig``, an MoE
+    layer with no ``MoEConfig`` or a depth the pattern does not divide is
+    a ``ValueError``."""
+    pattern = cfg.layer_pattern
+    if any(s.mixer == "mamba" for s in pattern):
         check_mamba(cfg)
-    if cfg.layer_pattern not in ((ATTN_LAYER,), (MAMBA_LAYER,)):
-        raise not_ported("layer pattern %s (%s)" % (cfg.layer_pattern,
-                                                    cfg.name),
+    if not (pattern == (MAMBA_LAYER,) or all(
+            s.mixer == "attn" and s.ffn in ("dense", "moe", None)
+            for s in pattern)):
+        raise not_ported("layer pattern %s (%s)" % (pattern, cfg.name),
                          "Other LM architectures")
-    if cfg.moe is not None:
-        raise not_ported("MoE (%s)" % cfg.name, "Other LM architectures")
+    if any(s.ffn == "moe" for s in pattern) and cfg.moe is None:
+        raise ValueError("%s has an MoE layer but no MoEConfig" % cfg.name)
+    if cfg.num_layers % cfg.period:
+        raise ValueError("%s: %d layers are not whole periods of %d"
+                         % (cfg.name, cfg.num_layers, cfg.period))
     if cfg.num_codebooks or cfg.frontend is not None:
         raise not_ported("codebook heads and frontends (%s)" % cfg.name,
                          "Other LM architectures")
@@ -76,32 +91,45 @@ def _weight(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
 
 class Block(nn.Module):
     """norm -> mixer (attention or Mamba-2) -> residual, then, where the
-    layer has an FFN, norm -> MLP -> residual.  The mixer is ``attn`` or
-    ``mamba``, as in the reference's parameter tree; the norm weights
-    ``nm``, ``nf`` are None for a norm without weights."""
+    layer has an FFN, norm -> FFN (a dense MLP or an MoE) -> residual.
+    The mixer is ``attn`` or ``mamba`` and the FFN ``mlp`` or ``moe``
+    (the other None), as in the reference's parameter tree; the norm
+    weights ``nm``, ``nf`` are None for a norm without weights."""
 
     def __init__(self, nm: Optional[torch.Tensor],
                  mixer: Union[Attention, Mamba],
-                 nf: Optional[torch.Tensor] = None, mlp: Optional[MLP] = None):
+                 nf: Optional[torch.Tensor] = None,
+                 ffn: Optional[Union[MLP, MoE]] = None):
         super().__init__()
         self.nm = _weight(nm)
         self.kind = "attn" if isinstance(mixer, Attention) else "mamba"
         setattr(self, self.kind, mixer)
-        if mlp is not None:
+        if ffn is not None:
             self.nf = _weight(nf)
-        self.mlp = mlp
+        self.mlp = ffn if isinstance(ffn, MLP) else None
+        self.moe = ffn if isinstance(ffn, MoE) else None
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
-                positions: torch.Tensor, cache: Optional[Dict] = None):
+                positions: torch.Tensor, cache: Optional[Dict] = None,
+                dropless: bool = False, moe_groups: int = 1):
+        """``(h, cache, aux)``: aux is the MoE's load-balancing loss, or
+        None for a layer without one."""
         hn = apply_norm(cfg.norm, h, self.nm)
         if self.kind == "attn":
             out, new_cache = gqa_forward(self.attn, cfg, hn, positions, cache)
         else:
             out, new_cache = mamba2_forward(self.mamba, cfg, hn, cache)
         h = h + out
+        aux = None
         if self.mlp is not None:
             h = h + self.mlp(apply_norm(cfg.norm, h, self.nf))
-        return h, new_cache
+        elif self.moe is not None:
+            y, aux = moe_forward(self.moe, cfg.moe,
+                                 apply_norm(cfg.norm, h, self.nf),
+                                 dropless=dropless,
+                                 dispatch_groups=moe_groups)
+            h = h + y
+        return h, new_cache, aux
 
 
 class LM(nn.Module):
@@ -130,8 +158,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights with the reference's distributions: normal scaled by
     ``1/sqrt(fan_in)``, the embedding and untied head by 0.02, RMSNorm
     weights 1 (the non-parametric LayerNorm has none), biases 0 (Mamba's
-    own in ``mamba.init_mamba``).  ``generator`` must live on
-    ``device``."""
+    own in ``mamba.init_mamba``), an MoE router in float32 whatever the
+    model's dtype.  Layer ``j`` is ``layer_pattern[j % period]``.
+    ``generator`` must live on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -140,14 +169,20 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     def norm():
         return ones_param((d,), dev, dtype) if cfg.norm == "rmsnorm" else None
 
+    def layer(spec: LayerSpec) -> Block:
+        mixer = (init_attention(cfg, generator, dev, dtype)
+                 if spec.mixer == "attn"
+                 else init_mamba(cfg, generator, dev, dtype))
+        if spec.ffn is None:
+            return Block(norm(), mixer)
+        ffn = (init_mlp(d, cfg.d_ff, generator, dev, dtype)
+               if spec.ffn == "dense"
+               else init_moe(d, cfg.moe, generator, dev, dtype))
+        return Block(norm(), mixer, norm(), ffn)
+
     embed = normal_param((vp, d), generator, dev, dtype, scale=0.02)
-    if is_mamba(cfg):
-        blocks = [Block(norm(), init_mamba(cfg, generator, dev, dtype))
-                  for _ in range(cfg.num_layers)]
-    else:
-        blocks = [Block(norm(), init_attention(cfg, generator, dev, dtype),
-                        norm(), init_mlp(d, cfg.d_ff, generator, dev, dtype))
-                  for _ in range(cfg.num_layers)]
+    blocks = [layer(cfg.layer_pattern[j % cfg.period])
+              for j in range(cfg.num_layers)]
     head = (None if cfg.tie_embeddings
             else normal_param((d, vp), generator, dev, dtype, scale=0.02))
     return LM(cfg, embed, blocks, norm(), head)
@@ -167,19 +202,30 @@ def _positions(b: int, t: int, start: int, device) -> torch.Tensor:
     return (start + torch.arange(t, device=device))[None].expand(b, t)
 
 
-def forward_hidden(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+def forward_hidden(model: LM, tokens: torch.Tensor, dropless: bool = False,
+                   moe_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone without a cache: embeddings -> blocks -> final norm,
-    ``tokens [B, T]`` -> ``[B, T, d]``."""
+    ``tokens [B, T]`` -> ``(h [B, T, d], aux)``, aux the float32 sum of the
+    MoE layers' load-balancing losses (0 without MoE).  MoE layers run in
+    capacity mode unless ``dropless``, dispatched in ``moe_groups``
+    groups."""
     h = torch.nn.functional.embedding(tokens, model.embed)
     positions = _positions(h.shape[0], h.shape[1], 0, h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in model.blocks:
-        h, _ = blk(model.cfg, h, positions)
-    return apply_norm(model.cfg.norm, h, model.final_norm)
+        h, _, a = blk(model.cfg, h, positions, dropless=dropless,
+                      moe_groups=moe_groups)
+        if a is not None:
+            aux = aux + a
+    return apply_norm(model.cfg.norm, h, model.final_norm), aux
 
 
-def forward(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal forward: logits ``[B, T, Vp]``."""
-    return lm_logits(model, forward_hidden(model, tokens))
+def forward(model: LM, tokens: torch.Tensor, dropless: bool = False,
+            moe_groups: int = 1) -> torch.Tensor:
+    """Full-sequence causal forward: logits ``[B, T, Vp]`` (MoE layers as
+    in :func:`forward_hidden`)."""
+    return lm_logits(model, forward_hidden(model, tokens, dropless,
+                                           moe_groups)[0])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
@@ -217,7 +263,8 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,
     (``[B, Vp]`` of the last position with ``last_only``).  Writes the T
     new key/value rows (or the new conv tail and SSM state) of every layer
     into ``cache`` and advances ``cache["len"]`` by T, in place; a
-    one-token step reads no per-sequence length back to the host."""
+    one-token step of at most ``moe.TRIM_MIN_CAP`` sequences reads nothing
+    back to the host.  MoE layers run dropless."""
     h = torch.nn.functional.embedding(tokens, model.embed)
     b, t = h.shape[:2]
     start = cache["len"]
@@ -226,7 +273,8 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,
     else:
         positions = _positions(b, t, start, h.device)
     for i, blk in enumerate(model.blocks):
-        h, _ = blk(model.cfg, h, positions, _layer_cache(cache, i))
+        h, _, _ = blk(model.cfg, h, positions, _layer_cache(cache, i),
+                      dropless=True)
     cache["len"] = start + t
     if last_only:
         h = h[:, -1:]

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX reference: LM continuous batching at the
 reference's smoke size (``smoke_variant``, float32, on the CPU), for
 ``qwen2-1.5b``, ``h2o-danube-1.8b`` (sliding window 16), ``olmo-1b``
-(non-parametric LayerNorm) and ``mamba2-130m``.
+(non-parametric LayerNorm), ``mamba2-130m`` and ``mixtral-8x22b`` (MoE,
+dropless on the serving path, sliding window 16).
 
 The same parameters (numpy, from a seed, in the reference's nested
 layout) and token ids feed both packages:
@@ -49,8 +50,9 @@ from repro_torch.launch import serve as p_launch
 from repro_torch.models import lm as p_lm
 from repro_torch.serve import lm as p_serve
 
-ARCHS = ("qwen2-1.5b", "h2o-danube-1.8b", "olmo-1b", "mamba2-130m")
-ATTENTION_ARCHS = ARCHS[:3]
+ARCHS = ("qwen2-1.5b", "h2o-danube-1.8b", "olmo-1b", "mamba2-130m",
+         "mixtral-8x22b")
+ATTENTION_ARCHS = tuple(a for a in ARCHS if a != "mamba2-130m")
 TOL = dict(rtol=2e-4, atol=2e-4)
 SLOTS = 2
 MAX_LEN = 20
@@ -169,7 +171,7 @@ def test_batcher_equals_generate(arch):
     assert len(admitted) == len(REQUESTS) > SLOTS      # lanes were reused
     assert all(r.done for r in batcher.completed)
     assert ticks >= max(n for _, n in REQUESTS) - 1
-    if arch == "h2o-danube-1.8b":
+    if arch in ("h2o-danube-1.8b", "mixtral-8x22b"):
         assert max(len(p) + n for p, n in w["requests"]) > w["cfg"].swa_window
 
 

@@ -930,6 +930,9 @@ FLASH_CASES = {
     "tq129_window100_offset33_g4_d80": (2, 8, 2, 129, 333, 80, True, 100,
                                         33),
     "noncausal_g1_d80": (1, 2, 2, 70, 150, 80, False, None, 0),
+    # Mixtral-8x22B's lane prefill: 48/8 heads of 128, window 4096
+    "mixtral_prefill_window4096_g6_d128": (1, 48, 8, 4600, 4672, 128, True,
+                                           4096, 0),
 }
 # (b, hq, hk, s, d, lengths)
 DECODE_CASES = {
@@ -959,6 +962,9 @@ WINDOW_DECODE_CASES = {
                          [256, 4600, 1, 64, 4161, 65, 2000, 4672]),
     "window_mid_tile_g6_d128": (2, 12, 2, 2112, 128, 70, [2080, 1000]),
     "window1_g3_d64": (2, 6, 2, 300, 64, 1, [300, 5]),
+    # Mixtral-8x22B's tick: 8 ragged lanes, 48/8 heads of 128, window 4096
+    "mixtral_tick_g6_d128": (8, 48, 8, 4672, 128, 4096,
+                             [4601, 257, 4649, 2001, 4098, 1001, 3501, 300]),
 }
 
 
@@ -1362,18 +1368,24 @@ def _batched(model, requests, slots, max_len):
     return ids, {k: torch.stack(v) for k, v in logits.items()}, ticks
 
 
+# Mixtral-8x22B runs 1 layer: its float32 layer holds 2.5 B parameters
+BATCH_LAYERS = {"h2o-danube-1.8b": 2, "olmo-1b": 2, "mixtral-8x22b": 1}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmo-1b"])
+@pytest.mark.parametrize("arch", sorted(BATCH_LAYERS))
 def test_two_layer_batcher_on_the_card_equals_the_cpu(card, arch):
-    """The continuous batcher at full width, 2 layers, float32, 3 slots and
-    5 requests: the card's ids equal the CPU's, its lane logits within
-    2e-3 (``chip_smoke.LM_CPU_TOL``), and every request's prefill and every
-    tick launch the attention kernels once a layer."""
+    """The continuous batcher at full width, 2 layers (Mixtral's MoE: 1),
+    float32, 3 slots and 5 requests: the card's ids equal the CPU's, its
+    lane logits within 2e-3 (``chip_smoke.LM_CPU_TOL``), and every
+    request's prefill and every tick launch the attention kernels once a
+    layer."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm as p_lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+    layers = BATCH_LAYERS[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               dtype="float32")
     model = p_lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
@@ -1382,11 +1394,61 @@ def test_two_layer_batcher_on_the_card_equals_the_cpu(card, arch):
     _cuda.reset_launches()
     ids, logits, ticks = _batched(copy.deepcopy(model).to(card), requests, 3,
                                   168)
-    assert _cuda.LAUNCHES["flash_attention"] == 2 * len(requests)
-    assert _cuda.LAUNCHES["decode_attention"] == 2 * ticks
+    assert _cuda.LAUNCHES["flash_attention"] == layers * len(requests)
+    assert _cuda.LAUNCHES["decode_attention"] == layers * ticks
     cpu_ids, cpu_logits, cpu_ticks = _batched(model, requests, 3, 168)
     assert ids == cpu_ids and ticks == cpu_ticks
     for rid in ids:
         torch.testing.assert_close(logits[rid][..., :cfg.vocab_size],
                                    cpu_logits[rid][..., :cfg.vocab_size],
                                    rtol=0, atol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# the MoE FFN (no kernel of its own: torch ops on the card)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_forward_on_the_card_equals_the_cpu(card, dropless):
+    """``moe_forward`` at Mixtral's expert count and top-k, d 512, 300
+    tokens, float32, with capacity drops (factor 0.5) or dropless and a
+    router with two equal columns: the same kept slots and outputs within
+    1e-4 on the card and the CPU, the router float32 in a bf16 layer.
+    Weights are normal / sqrt(fan_in), so the outputs are of order 1
+    (``init_moe``'s 1 / sqrt(e) makes them ~1e3, where float32 sums in
+    another order move them by ~1e-3)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as p_moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mo = MoEConfig(num_experts=8, top_k=2, expert_ff=1024,
+                   capacity_factor=0.5)
+    g = torch.Generator().manual_seed(0)
+    router, wi, wg, wo = (torch.randn(shape, generator=g) / shape[-2] ** 0.5
+                          for shape in ((512, 8), (8, 512, 1024),
+                                        (8, 512, 1024), (8, 1024, 512)))
+    router[:, 1] = router[:, 0]
+    layer = p_moe.MoE(router, wi, wg, wo)
+    x = torch.randn((3, 100, 512), generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev in ("cpu", card):
+        lay = copy.deepcopy(layer).to(dev)
+        xd = x.to(dev)
+        probs = torch.softmax(xd.reshape(-1, 512) @ lay.router, -1)
+        cap = (p_moe.dropless_capacity(300) if dropless else
+               p_moe.capacity(300, mo))
+        _, tok, _, sel = p_moe.dispatch_group(xd.reshape(1, 300, 512),
+                                              probs[None], 2, 8, cap)
+        y, aux = p_moe.moe_forward(lay, mo, xd, dropless=dropless)
+        outs[str(dev)] = (tok.cpu(), sel.cpu(), y.cpu(), aux.cpu())
+    (tok, sel, y, aux), (ctok, csel, cy, caux) = outs[str(card)], outs["cpu"]
+    assert torch.equal(tok, ctok) and torch.equal(sel, csel)
+    assert dropless == bool((tok >= 0).sum() == 600)
+    torch.testing.assert_close(y, cy, rtol=0, atol=1e-4)
+    torch.testing.assert_close(aux, caux, rtol=0, atol=1e-6)
+    bf16 = p_moe.MoE(layer.router.to(card), *(
+        w.to(card, torch.bfloat16) for w in (layer.wi, layer.wg, layer.wo)))
+    y16, _ = p_moe.moe_forward(bf16, mo, x.to(card, torch.bfloat16),
+                               dropless=dropless)
+    assert y16.dtype == torch.bfloat16 and bool(torch.isfinite(y16).all())

@@ -127,8 +127,8 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
-    assert registered() == ("h2o-danube-1.8b", "mamba2-130m", "olmo-1b",
-                            "qwen2-1.5b")
+    assert registered() == ("h2o-danube-1.8b", "mamba2-130m",
+                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
     full = get_config("qwen2-1.5b")
     assert full.padded_vocab == 152064
     assert round(full.param_counts()["total"] / 1e9, 2) == 1.54
@@ -152,9 +152,13 @@ def test_unported_model_features_raise(cfg, rcfg):
     mla = dataclasses.replace(cfg, mla=p_base.MLAConfig(kv_lora_rank=32))
     with pytest.raises(NotImplementedError, match="Other LM architectures"):
         p_lm.init_model(mla, device="cpu")
-    moe = dataclasses.replace(cfg, moe=p_base.MoEConfig(4, 2, 64))
+    # MoE is ported (tests/test_torch_moe.py); a hybrid pattern is not
+    hybrid = dataclasses.replace(
+        cfg, moe=p_base.MoEConfig(4, 2, 64), mamba=p_base.MambaConfig(),
+        layer_pattern=(p_base.LayerSpec("attn", "moe"),
+                       p_base.LayerSpec("mamba", "dense")))
     with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.init_model(moe, device="cpu")
+        p_lm.init_model(hybrid, device="cpu")
     # a Mamba pattern: Mamba-1 is not ported; no MambaConfig is an error
     mamba = dataclasses.replace(
         cfg, layer_pattern=(p_base.LayerSpec("mamba", None),),
@@ -390,7 +394,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 ("launch", "dscep_run.py"), ("launch", "mesh.py"),
                 ("core", "kb_dist.py"), ("configs", "dscep.py"),
                 ("launch", "serve.py"), ("configs", "h2o_danube_1_8b.py"),
-                ("configs", "olmo_1b.py")):
+                ("configs", "olmo_1b.py"), ("models", "moe.py"),
+                ("configs", "mixtral_8x22b.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):

@@ -3,12 +3,15 @@
 (the continuous batcher at full width) alone.
 
     python3 tools/batcher_phase.py     # from the repository root, on a card
+    python3 tools/batcher_phase.py --arch mixtral-8x22b   # one world only
 
 Builds the kernels, holds flash and decode attention against their plain
-versions (``chip_smoke.phase_attention``, the head-dim-80 and windowed
-cases included, each timed), then runs ``chip_smoke.phase_batcher`` and
-prints its launch counts.  Needs a card.
+versions (``chip_smoke.phase_attention``, the head-dim-80, windowed and
+Mixtral cases included, each timed), then runs ``chip_smoke.phase_batcher``
+(over the ``BATCH_WORLDS`` entries of the ``--arch`` names given, all of
+them by default) and prints its launch counts.  Needs a card.
 """
+import argparse
 import json
 import os
 import sys
@@ -20,9 +23,16 @@ sys.path[:0] = [REPO, os.path.join(REPO, "src")]
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", action="append",
+                    choices=[w[0] for w in cs.BATCH_WORLDS])
+    args = ap.parse_args(argv)
+    if args.arch:
+        cs.BATCH_WORLDS = tuple(w for w in cs.BATCH_WORLDS
+                                if w[0] in args.arch)
     if not torch.cuda.is_available():
         print("batcher_phase: no CUDA device is visible", file=sys.stderr)
         return 2
