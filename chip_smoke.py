@@ -9,7 +9,8 @@ Phases (each prints its lines; any failure exits non-zero):
    ``nvcc`` (one process per source, all started together), print the
    card's name and power limit, each kernel's registers and spills, and
    the count of ``HGMMA`` (``wgmma``) instructions in the SASS of the bf16
-   flash kernel (5 instantiations: head dims 16, 32, 64, 80, 128) and of
+   flash kernel (7 instantiations: (D, Dv) = (16, 16), (32, 32), (64,
+   64), (80, 80), (128, 128), (96, 64), (192, 128)) and of
    the bf16 SSD passes that multiply (4 each) (``cuobjdump -sass``; none
    in any instantiation, or another count of them, fails the run).
 2. **Kernels against their plain versions, on the card**: the scan join,
@@ -45,7 +46,11 @@ Phases (each prints its lines; any failure exits non-zero):
    dtypes, each bf16 shape timed beside SDPA with the same boolean mask
    (the JSON rows' ``shapes``); head dim 128 at group 6 (Mixtral-8x22B's
    48/8 heads): the same lane prefill and an 8-lane windowed tick plus a
-   window-below-length case, held and timed alike;
+   window-below-length case, held and timed alike; MLA's head dims, q and
+   k of D against v of Dv (MiniCPM3-4B: 40/40 heads, D 96, Dv 64;
+   DeepSeek-V2: 128/128 heads, D 192, Dv 128): the same lane prefill,
+   causal without a window (SDPA ``is_causal``), and an 8-lane tick over
+   the same lengths without a window, held and timed alike;
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
@@ -166,21 +171,29 @@ Phases (each prints its lines; any failure exits non-zero):
    of 256-2048 ids; (c) Mamba2-130M, 4 slots, 12 requests; (d)
    Mixtral-8x22B (MoE, 8 experts top-2 of 16384, 48/8 heads of 128,
    window 4096) at 4 of its 56 layers (``BATCH_DEPTH``: 10.4 B of its 141 B
-   parameters), danube's traffic.  Gates: every
+   parameters), danube's traffic; (e) MiniCPM3-4B (MLA: a latent cache of
+   256 + 32 columns a row, 40 heads expanded to D 96, Dv 64), all 62
+   layers; (f) DeepSeek-V2 (MLA at D 192, Dv 128, 128
+   heads; MoE of 160 experts top-6 with 2 shared) at 2 of its 60 layers
+   (9.0 B of its 239 B parameters), danube's distributions (e and f: 8
+   slots, 12 requests, 4 of them past 4096 ids).  Gates: every
    request drains; flash launches = layers x requests, decode launches =
    layers x ticks (every tick decodes), SSD launches = layers x requests
-   in (c), nothing else; the lane logits of 6 requests of (a) and (d) (2
-   past the window) and 4 of (b), recorded by wrapping the two callables,
-   within LM_BF16_FACTOR times the bf16-vs-f32 difference of the
-   single-sequence path (a batch-1 cache with a shared length fed the same
-   ids; max and mean), and the ids equal to its argmax wherever its top-2
-   gap exceeds that bound; for (d), whose bf16 routing flips near-tied
-   experts, also the same comparison on its f32 copy (all 24 requests
-   drained on it; both sides dropless: logits within 2e-3 and the ids
-   equal at every position); the card equal to the CPU on f32 copies at 2
-   layers of (a) and (b) and 1 of (d) (3 slots, 5 requests, equal ids,
-   logits within 2e-3).  It prints generated tokens/s, ticks, peak memory
-   and the idle share over 8 ticks of busy lanes; for (d) also the MoE's
+   in (c), nothing else; the lane logits of 6 requests of (a), (d), (e)
+   and (f) (2 past 4096 ids) and 4 of (b), recorded by wrapping the two
+   callables, within LM_BF16_FACTOR times the bf16-vs-f32 difference of
+   the single-sequence path (a batch-1 cache with a shared length fed the
+   same ids; max and mean), and the ids equal to its argmax wherever its
+   top-2 gap exceeds that bound; for the MoE models (d) and (f), whose
+   bf16 routing flips near-tied experts, also the same comparison on
+   their f32 copies (all requests drained on it; both sides dropless:
+   logits within 2e-3 and the ids equal at every position); the card
+   equal to the CPU on f32 copies at 2 layers of (a), (b) and (e) and 1 of
+   (d) and (f) (3 slots, 5 requests, equal ids, logits within 2e-3); for
+   (e) and (f) a whole decode step of 8 lanes reads nothing back to the
+   host (``set_sync_debug_mode("error")``).  It prints generated tokens/s, ticks, peak memory
+   and the idle share over 8 ticks of busy lanes; for (d) and (f) also the
+   MoE's
    share of a tick's device busy time (expert products against dispatch
    and combine) and one lane prefill's MoE with its products over the
    filled slots against the reference's ``cap = n``; the tick's MoE keeps
@@ -323,12 +336,20 @@ BATCH_WORLDS = (
     ("olmo-1b", 8, 24, (256, 2048), 0, (8, 48), 2112, (4, 0)),
     ("mamba2-130m", 4, 12, (256, 2048), 0, (8, 48), 2112, (0, 0)),
     ("mixtral-8x22b", 8, 24, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    # MLA: danube's distributions (the prompts "past the window" are past
+    # 4096 ids; these models have no window) over the latent cache, 12
+    # requests (cut from 24 to keep the script near 900 s; lanes are still
+    # reused)
+    ("minicpm3-4b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("deepseek-v2-236b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
 )
 # depth cuts: (layers on the card, layers of the card-against-CPU copies);
 # an architecture not named here runs all its layers and BATCH_CPU's.
 # Mixtral's 56 layers hold 141 B parameters (282 GB in bf16); 4 layers
-# hold 10.4 B, and its float32 copy of 1 layer about 12 GB a side
-BATCH_DEPTH = {"mixtral-8x22b": (4, 1)}
+# hold 10.4 B, and its float32 copy of 1 layer about 12 GB a side.
+# DeepSeek-V2's 60 layers hold 239 B (479 GB); 2 layers hold 9.0 B (18 GB),
+# its float32 copy of 1 layer 5.0 B, about 20 GB a side
+BATCH_DEPTH = {"mixtral-8x22b": (4, 1), "deepseek-v2-236b": (2, 1)}
 MOE_PREFILL = 4600     # the MoE's prefill shape in phase 12's MoE lines
 BATCH_SEED = 12
 # the card-against-CPU gate: float32 copies at 2 layers, 3 slots, 5
@@ -369,9 +390,10 @@ KERNEL_SYMBOLS = {"join_compact": "scan_join",   # count + scatter kernels
                   "ssd": "ssd_"}
 
 # the bf16 kernels whose every instantiation must hold HGMMA, by source,
-# with their instantiations' count (flash: head dims 16, 32, 64, 80, 128)
+# with their instantiations' count (flash: (D, Dv) = (16, 16), (32, 32),
+# (64, 64), (80, 80), (128, 128) and MLA's (96, 64), (192, 128))
 TENSOR_CORE_KERNELS = {
-    "attention": {"flash_attention_wgmma_kernel": 5},
+    "attention": {"flash_attention_wgmma_kernel": 7},
     "ssd": {"ssd_chunk_state_wgmma_kernel": 4, "ssd_output_wgmma_kernel": 4}}
 
 
@@ -2388,6 +2410,7 @@ def phase_attention(smi):
         4.0 * d * b * hq * length, BF16_PEAK_OPS_PER_S)
     del q, k, v
     phase_attention_d80(recs, record, gen, smi)
+    phase_attention_mla(recs, record, gen, smi)
     sync()
     return recs
 
@@ -2421,13 +2444,32 @@ def phase_attention_d80(recs, record, gen, smi):
     ])
 
 
-def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases):
+def phase_attention_mla(recs, record, gen, smi):
+    """MLA's head dims, q and k of D = nope + rope against v of Dv:
+    MiniCPM3-4B (40/40 heads, D 96, Dv 64) and DeepSeek-V2 (128/128 heads,
+    D 192, Dv 128), each model's lane prefill (causal, no window) and an
+    8-lane tick over DANUBE_TICK_LENGTHS, in both dtypes; the bf16 case of
+    each shape timed beside SDPA."""
+    for label, h, d, dv in (("minicpm3", 40, 96, 64),
+                            ("deepseek", 128, 192, 128)):
+        lane_attention(recs, record, gen, smi, label, h, h, d, [
+            ("%s tick, 8 ragged lanes" % label, 8, DANUBE_MAX_LEN, None,
+             DANUBE_TICK_LENGTHS),
+        ], dv=dv, window=None)
+
+
+def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases,
+                   dv=None, window=DANUBE_WINDOW):
     """Flash attention at a lane prefill (the longest prompt, Tq
-    DANUBE_PROMPT_MAX, over a lane of DANUBE_MAX_LEN rows, window
-    DANUBE_WINDOW) and decode attention in ``decode_cases`` ((tag, b, s,
-    window, lengths): lengths[b] - 1 is the query's position), both
-    against their plain versions in both dtypes; the bf16 case of each
-    shape timed beside SDPA with the same boolean mask."""
+    DANUBE_PROMPT_MAX, over a lane of DANUBE_MAX_LEN rows, causal, with
+    ``window`` or none) and decode attention in ``decode_cases`` ((tag, b,
+    s, window, lengths): lengths[b] - 1 is the query's position), both
+    against their plain versions in both dtypes, v of width ``dv`` (D
+    where not given); the bf16 case of each shape timed beside SDPA with
+    the same function (a boolean mask, or ``is_causal`` without a window:
+    query i keeps keys j <= i, SDPA's top-left alignment).  Bounds: the
+    bytes of q, k, v and the output once, and 2 (D + Dv) operations a
+    live (query, key) pair at the bf16 peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -2435,31 +2477,40 @@ def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    w = DANUBE_WINDOW
+    w = window
+    dv = dv or d
     tq, tk = DANUBE_PROMPT_MAX, DANUBE_MAX_LEN
+    dims = "D %d" % d if dv == d else "D %d Dv %d" % (d, dv)
     rec = recs["flash_attention"]
     for dtype in (torch.float32, torch.bfloat16):
         q = _randn((1, hq, tq, d), dtype, gen)
         k = _randn((1, hk, tk, d), dtype, gen)
-        v = _randn((1, hk, tk, d), dtype, gen)
-        record("flash_attention", "%s lane prefill Tq %d Tk %d D %d "
-               "window %d %s" % (label, tq, tk, d, w, str(dtype)[6:]),
+        v = _randn((1, hk, tk, dv), dtype, gen)
+        record("flash_attention", "%s lane prefill Tq %d Tk %d %s window "
+               "%s %s" % (label, tq, tk, dims, w, str(dtype)[6:]),
                fa_ops.flash_attention(q, k, v, True, w, 0),
                fa_ref.attention_ref(q, k, v, True, w, 0), dtype)
-    qpos = torch.arange(tq, device="cuda")[:, None]
-    kpos = torch.arange(tk, device="cuda")[None, :]
-    mask = (kpos <= qpos) & (kpos > qpos - w)
+        del q, k, v
+    q = _randn((1, hq, tq, d), torch.bfloat16, gen)
+    k = _randn((1, hk, tk, d), torch.bfloat16, gen)
+    v = _randn((1, hk, tk, dv), torch.bfloat16, gen)
+    if w is None:
+        mask, how = None, "is_causal"
+    else:
+        qpos = torch.arange(tq, device="cuda")[:, None]
+        kpos = torch.arange(tk, device="cuda")[None, :]
+        mask, how = (kpos <= qpos) & (kpos > qpos - w), "boolean window mask"
     pairs = _live_pairs(tq, tk, True, w, 0)
     rec.time_case(
-        "%s lane prefill, B 1, %d/%d heads, Tq %d, Tk %d, D %d, window "
-        "%d, bf16 (library: SDPA, boolean window mask)"
-        % (label, hq, hk, tq, tk, d, w),
+        "%s lane prefill, B 1, %d/%d heads, Tq %d, Tk %d, %s, window %s, "
+        "bf16 (library: SDPA, %s)" % (label, hq, hk, tq, tk, dims, w, how),
         lambda: fa_ops.flash_attention(q, k, v, True, w, 0),
         lambda: fa_ref.attention_ref(q, k, v, True, w, 0),
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                               enable_gqa=True),
-        _bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-               4.0 * d * hq * pairs, BF16_PEAK_OPS_PER_S), smi)
+        lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True),
+        _bound(2 * (q.numel() + k.numel() + v.numel() + hq * tq * dv),
+               2.0 * (d + dv) * hq * pairs, BF16_PEAK_OPS_PER_S), smi)
     del q, k, v, mask
 
     rec = recs["decode_attention"]
@@ -2468,25 +2519,26 @@ def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases):
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn((cb, hq, 1, d), dtype, gen)
             k = _randn((cb, hk, cs, d), dtype, gen)
-            v = _randn((cb, hk, cs, d), dtype, gen)
+            v = _randn((cb, hk, cs, dv), dtype, gen)
             got = da_ops.decode_attention(q, k, v, lens, cw)
-            record("decode_attention", "D %d window %d, %s %s"
-                   % (d, cw, tag, str(dtype)[6:]), got,
+            record("decode_attention", "%s window %s, %s %s"
+                   % (dims, cw, tag, str(dtype)[6:]), got,
                    da_ref.decode_attention_ref(q, k, v, lens, cw), dtype)
             if bool((got[lens == 0] != 0).any()):
                 fail("decode_attention: a length-0 row is not 0")
-        live = sum(max(0, min(n, cs) - max(0, n - cw)) for n in lengths)
-        mask = _window_mask(lens, cs, cw, "cuda")
+        live = sum(max(0, min(n, cs) - max(0, n - (cw or n))) for n in lengths)
+        mask = _window_mask(lens, cs, cw or cs + max(lengths), "cuda")
         rec.time_case(
-            "D %d, %d/%d heads, window %d, %s: B %d, S %d, %d live rows, "
-            "bf16 (library: SDPA over S, boolean mask)" % (d, hq, hk, cw, tag,
-                                                          cb, cs, live),
+            "%s, %d/%d heads, window %s, %s: B %d, S %d, %d live rows, "
+            "bf16 (library: SDPA over S, boolean mask)" % (
+                dims, hq, hk, cw, tag, cb, cs, live),
             lambda: da_ops.decode_attention(q, k, v, lens, cw),
             lambda: da_ref.decode_attention_ref(q, k, v, lens, cw),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                    enable_gqa=True),
-            _bound(2 * (2 * hk * d * live + 2 * q.numel()) + 4 * cb,
-                   4.0 * d * hq * live, BF16_PEAK_OPS_PER_S), smi)
+            _bound(2 * (hk * (d + dv) * live + q.numel() + cb * hq * dv)
+                   + 4 * cb, 2.0 * (d + dv) * hq * live,
+                   BF16_PEAK_OPS_PER_S), smi)
 
 
 # --------------------------------------------------------------------------
@@ -3199,11 +3251,18 @@ GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's names
 def busy_ms(fn, iters: int = 5):
     """Device busy milliseconds per ``fn()`` from one torch.profiler
     session (what the device works, without the gaps a host read leaves):
-    ``(every kernel, the cuBLAS GEMM kernels among them)``."""
+    ``(every kernel, the cuBLAS GEMM kernels among them)``, or ``(None,
+    None)`` when no session recorded a device event (not measured)."""
     dev = profile_device(fn, iters)
+    if not dev:
+        return None, None
     gemm = sum(t for k, t in dev.items()
                if any(g in k.lower() for g in GEMM_KERNELS))
     return sum(dev.values()) / 1e3 / iters, gemm / 1e3 / iters
+
+
+def ms_text(ms) -> str:
+    return "%.4f" % ms if ms is not None else "(not measured)"
 
 
 def moe_share(model, slots, tick_busy, smi):
@@ -3263,16 +3322,18 @@ def moe_share(model, slots, tick_busy, smi):
                         lambda: moe.moe_forward(p, mo, x, dropless=True)))
             finally:
                 moe.TRIM_MIN_CAP = keep
+            measured = whole is not None
             log("  MoE of one tick (%d tokens, dropless, all %d slots an "
                 "expert; it and a whole decode step of %d lanes read "
-                "nothing back to the host): %d layers x (busy %.4f ms: GEMM "
-                "kernels %.4f, the rest %.4f; wall %.4f ms; in turns, wall "
+                "nothing back to the host): %d layers x (busy %s ms: GEMM "
+                "kernels %s, the rest %s; wall %.4f ms; in turns, wall "
                 "%.4f ms against %.4f trimmed with a host read) = %.3f of "
                 "the tick's %s ms device busy [%s]"
-                % (n, cap, slots, cfg.num_layers, whole, prod, whole - prod,
+                % (n, cap, slots, cfg.num_layers, ms_text(whole),
+                   ms_text(prod), ms_text(whole - prod if measured else None),
                    wall, np.mean(walls[False]), np.mean(walls[True]),
-                   cfg.num_layers * whole / tick_busy if tick_busy else
-                   float("nan"),
+                   cfg.num_layers * whole / tick_busy
+                   if tick_busy and measured else float("nan"),
                    "%.3f" % tick_busy if tick_busy else "(not measured)",
                    smi))
             continue
@@ -3280,12 +3341,47 @@ def moe_share(model, slots, tick_busy, smi):
             fail("a %d-token prefill's MoE ran all %d slots" % (n, cap))
         zeros = torch.zeros((1, e, cap, d), dtype=x.dtype, device="cuda")
         full_prod = busy_ms(lambda: moe.experts(p, zeros), iters=2)[0]
-        log("  MoE of one lane prefill (%d tokens, dropless): busy %.4f ms "
-            "(GEMM kernels %.4f ms, the expert products over the %d filled "
-            "slots of %d an expert; over all %d, as the reference: %.4f "
-            "ms), wall %.4f ms [%s]" % (n, whole, prod, rows, cap, cap,
-                                        full_prod, wall, smi))
+        log("  MoE of one lane prefill (%d tokens, dropless): busy %s ms "
+            "(GEMM kernels %s ms, the expert products over the %d filled "
+            "slots of %d an expert; over all %d, as the reference: %s "
+            "ms), wall %.4f ms [%s]" % (n, ms_text(whole), ms_text(prod),
+                                        rows, cap, cap, ms_text(full_prod),
+                                        wall, smi))
         del zeros
+
+
+def tick_reads_nothing_back(model, slots, max_len, smi):
+    """A whole ``lm.decode_step`` of ``slots`` lanes over a per-sequence
+    cache of ``max_len`` rows (MLA: every lane's latent rows expanded, the
+    decode kernel at (D, Dv), no host read) under
+    ``torch.cuda.set_sync_debug_mode("error")``, after one step outside
+    it; its wall time (CUDA events) beside the device's."""
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(model.cfg, slots, max_len, model.device,
+                          per_seq=True)
+    cache["len"].copy_(torch.tensor(DANUBE_TICK_LENGTHS[:slots],
+                                    dtype=torch.int32))
+    tokens = torch.zeros((slots, 1), dtype=torch.int64, device="cuda")
+    lm.decode_step(model, tokens, cache, last_only=True)
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lm.decode_step(model, tokens, cache, last_only=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    wall = cuda_ms(lambda: lm.decode_step(model, tokens, cache,
+                                          last_only=True), iters=3, warmup=1)
+    busy = busy_ms(lambda: lm.decode_step(model, tokens, cache,
+                                          last_only=True), iters=3)
+    log("  one decode step of %d lanes over %d rows a lane (lengths %s) "
+        "read nothing back to the host; wall %.3f ms, device busy %s ms "
+        "(cuBLAS GEMM kernels %s) [%s]" % (slots, max_len,
+                                           DANUBE_TICK_LENGTHS[:slots], wall,
+                                           ms_text(busy[0]), ms_text(busy[1]),
+                                           smi))
+    del cache
 
 
 def phase_batcher(smi):
@@ -3299,21 +3395,26 @@ def phase_batcher(smi):
     total = {k: 0 for k in _cuda.LAUNCHES}
     for (arch, slots, n, (lo, hi), past, (new_lo, new_hi), max_len,
          (forced, forced_past)) in BATCH_WORLDS:
+        t_world = time.time()
         layers, cpu_layers = BATCH_DEPTH.get(arch, (None,
                                                     BATCH_CPU["layers"]))
         cfg, model, n_params, made_s = make_lm(arch, layers)
-        window = cfg.swa_window
+        # a model without a window draws danube's traffic: "past" counts
+        # prompts past DANUBE_WINDOW ids
+        window = cfg.swa_window or (DANUBE_WINDOW if past else None)
         reqs = batch_requests(cfg.vocab_size, n, lo, hi, past, window,
                               new_lo, new_hi, BATCH_SEED)
         lens = [len(p) for p, _ in reqs]
         log("phase 12: %s, %d of %d layers, d_model %d, %s, %.3f B "
             "parameters, made in %.1f s; %d slots of %d rows, %d requests, "
-            "prompts %d-%d ids (%d past the window %s), %d-%d new [%s]"
+            "prompts %d-%d ids (%d past %s ids; the model's window %s), "
+            "%d-%d new [%s]"
             % (arch, cfg.num_layers, get_config(arch).num_layers,
                cfg.d_model, cfg.dtype, n_params / 1e9,
                made_s, slots, max_len, n, min(lens), max(lens),
                sum(t > (window or 1 << 30) for t in lens), window,
-               min(m for _, m in reqs), max(m for _, m in reqs), smi))
+               cfg.swa_window, min(m for _, m in reqs),
+               max(m for _, m in reqs), smi))
         with torch.no_grad():                                  # warm-up
             run_batcher(model, [(p[:64], 2) for p, _ in reqs[:2]], slots,
                         max_len)
@@ -3360,18 +3461,23 @@ def phase_batcher(smi):
             total[k] += launches[k]
         with torch.no_grad():
             if record:
+                t0 = time.time()
                 gate_batched(model, reqs, ids, logits, arch, slots, max_len)
+                log("  gate 3 (%s) took %.1f s" % (arch, time.time() - t0))
             tick_busy = profile_ticks(model, reqs, slots, max_len, kernels,
                                       smi)
             if cfg.moe is not None:
                 moe_share(model, slots,
                           tick_busy / PROFILE_TICKS if tick_busy else None,
                           smi)
+            if cfg.mla is not None:
+                tick_reads_nothing_back(model, slots, max_len, smi)
         del model, logits
         gc.collect()
         torch.cuda.empty_cache()
         if not mamba:
             gate_batched_cpu(arch, cpu_layers, smi)
+        log("  %s world: %.1f s" % (arch, time.time() - t_world))
     return total
 
 

@@ -3,8 +3,8 @@
 One :class:`ModelConfig` describes a decoder LM: dense / MoE / SSM /
 hybrid stacks with GQA/MLA/SWA attention, M-RoPE, multi-codebook heads.
 The schema is the whole of the reference's, so a configuration compares
-field for field; the port runs GQA stacks whose layers carry a dense
-FFN, an MoE FFN or none (sliding windows and the non-parametric
+field for field; the port runs GQA and MLA stacks whose layers carry a
+dense FFN, an MoE FFN or none (sliding windows and the non-parametric
 LayerNorm included) and attention-free Mamba-2 (SSD) stacks of it
 (``models/``), and the rest raises ``NotImplementedError`` where it is
 used.
@@ -181,8 +181,6 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 NOT_PORTED = {
     "jamba-v0.1-52b": "Other LM architectures",     # Mamba-1, MoE, hybrid
     "qwen2-vl-7b": "Other LM architectures",
-    "deepseek-v2-236b": "Other LM architectures",
-    "minicpm3-4b": "Other LM architectures",
     "musicgen-large": "Other LM architectures",
 }
 
@@ -196,7 +194,8 @@ def register(name: str):
 
 def _register_all() -> None:
     from . import (  # noqa: F401  (register themselves)
-        h2o_danube_1_8b, mamba2_130m, mixtral_8x22b, olmo_1b, qwen2_1_5b)
+        deepseek_v2_236b, h2o_danube_1_8b, mamba2_130m, minicpm3_4b,
+        mixtral_8x22b, olmo_1b, qwen2_1_5b)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -81,7 +81,9 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     """An :class:`~repro_torch.models.lm.LM` from the reference's nested
     parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
     ``lm_head``, and for each sub-layer ``i`` of the layer pattern
-    ``blocks/sub{i}/{nm, nf, attn/*, mlp/*}`` (a dense FFN),
+    ``blocks/sub{i}/{nm, nf, attn/*, mlp/*}`` (a dense FFN; ``attn`` holds
+    ``wq, wk, wv, wo`` and the biases for GQA, ``wq_a, wq_b`` or ``wq``,
+    ``wkv_a, wk_rope, wkv_b, wo`` for MLA),
     ``blocks/sub{i}/{nm, nf, attn/*, moe/{router, wi, wg, wo, shared/*}}``
     (an MoE; ``shared`` where it has shared experts) or
     ``blocks/sub{i}/{nm, mamba/*}`` (Mamba-2), stacked on a leading period
@@ -92,7 +94,7 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     values are cast to ``cfg.dtype``, except what the reference keeps in
     float32: Mamba's ``A_log``, ``D`` and ``dt_bias`` and the MoE
     router."""
-    from .models.attention import Attention
+    from .models.attention import MLA, Attention
     from .models.common import dtype_of
     from .models.lm import LM, Block, check_supported
     from .models.mamba import FLOAT32_LEAVES, LEAVES, Mamba
@@ -123,9 +125,14 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
                 for n in LEAVES))))
             continue
         at = sub["attn"]
-        bias = [opt(at, n, i) for n in ("bq", "bk", "bv")]
-        attn = Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")),
-                         *bias)
+        if "wkv_a" in at:
+            attn = MLA(*(t(at[n][i]) for n in ("wkv_a", "wk_rope", "wkv_b",
+                                              "wo")),
+                       **{n: opt(at, n, i) for n in ("wq", "wq_a", "wq_b")})
+        else:
+            attn = Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv",
+                                                    "wo")),
+                             *(opt(at, n, i) for n in ("bq", "bk", "bv")))
         if "mlp" in sub:
             ffn = mlp(sub["mlp"], i)
         elif "moe" in sub:

@@ -17,15 +17,25 @@
 //      the reference sends a windowed one-token step to flash attention,
 //      which here would spend a 128-row query tile on one row.
 //
-// Head dims 16, 32, 64, 80 and 128 (80: H2O-Danube).  The bf16 flash kernel
-// pads D to a multiple of 64 columns, the bf16 decode kernel its shared
-// rows to whole groups of 8 16-byte chunks, the f32 decode kernel a row's
-// D/4 lanes to a power of two (D = 80: 12 of 32 lanes idle).
+// Head dims (D of q and k, Dv of v): (16, 16), (32, 32), (64, 64), (80, 80),
+// (128, 128) and, for multi-head latent attention (MLA), (96, 64)
+// (MiniCPM3-4B) and (192, 128) (DeepSeek-V2): q and k carry D = nope + rope
+// columns, v the value width Dv below it; the scale stays 1/sqrt(D).  Any
+// other pair is refused (kBadShape).  The bf16 flash kernel pads D and Dv to
+// a multiple of 64 columns each (D = 80 and 96 to 128 in Q K^T, whose k-steps
+// take only the live columns), the bf16 decode kernel its shared rows to
+// whole groups of 8 16-byte chunks, the f32 decode kernel a row's lanes to a
+// power of two (D / 4 lanes of 4 floats up to D = 128, D / 8 lanes of 8
+// floats above: D = 192 takes 24 of 32 lanes).  At D = 192 the bf16 flash
+// kernel fits one SM only because its V tiles are sized by Dv (48 KB of Q,
+// 2 x 48 KB of K and 2 x 32 KB of V stages: 208 KB; with Dv = D it would be
+// 240 KB), and the f32 flash kernel holds one block an SM where two do not
+// fit.
 //
-// Layouts are the reference's: q [B, Hq, Tq, D], k and v [B, Hk, Tk, D],
-// out [B, Hq, Tq, D], contiguous, in float32 or bfloat16.  Query head h
-// reads KV head h / (Hq / Hk): K and V are never repeated in memory.  All
-// softmax arithmetic is float32, in base 2 (exp2 of scores times
+// Layouts are the reference's: q [B, Hq, Tq, D], k [B, Hk, Tk, D], v [B, Hk,
+// Tk, Dv], out [B, Hq, Tq, Dv], contiguous, in float32 or bfloat16.  Query
+// head h reads KV head h / (Hq / Hk): K and V are never repeated in memory.
+// All softmax arithmetic is float32, in base 2 (exp2 of scores times
 // log2(e)/sqrt(D) is the same function as exp).
 //
 // Flash attention.  Bound at the prefill's shapes (B=4, Hq=12, Tq=2048
@@ -78,7 +88,7 @@
 // tiles are float32 in shared memory (row stride D + 4 floats: 16-byte
 // aligned, and eight threads reading eight rows' float4s hit 32 distinct
 // banks); K and V take turns in one buffer, which keeps two blocks on an SM
-// at D = 128.  P stays float32 in P.V.
+// up to D = 128 (at D = 192 one: 115 KB a block).  P stays float32 in P.V.
 //
 // Decode attention: one launch.  Bound: reading the K and V rows below
 // lengths[b] once (8.5 MB per layer at B=4, Hk=2, D=128, length 2080: 2.5
@@ -107,10 +117,11 @@
 //     (mma.sync m16n8k16: at most 8 heads fill the 16-row M; wgmma's 64-row
 //     M does not fit), P rounded to bf16 as in flash attention;
 //   decode_attention_kernel (float32): on the CUDA cores, a lane owning a
-//     16-byte chunk of a cache row (D/4 lanes a row), the query rows' chunks
-//     in float32 registers, a row's scores summed over its lanes by
-//     shuffles.  On an H100 the first design ran bf16 this way too: 4.4 us a
-//     64-row tile at 8 warps, issue-bound on the shuffles and FMAs.
+//     16-byte chunk of a cache row (D/4 lanes a row; two chunks, D/8 lanes,
+//     above D = 128), the query rows' chunks in float32 registers, a row's
+//     scores summed over its lanes by shuffles.  On an H100 the first
+//     design ran bf16 this way too: 4.4 us a 64-row tile at 8 warps,
+//     issue-bound on the shuffles and FMAs.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -183,27 +194,33 @@ __device__ __forceinline__ float comp(float4 v, int i) {
 // flash attention (prefill)
 // ---------------------------------------------------------------------------
 
+// Q and K/V rows (V's Dv <= D columns in a K-sized row); two blocks an SM
+// where two fit (an SM's 228 KB less 1 KB a block), else one (D = 192: 115
+// KB a block)
 template <int D> struct FlashSmem {
   static constexpr int LD = D + 4;               // Q and K/V row stride
   static constexpr int LP = kTile + 4;           // P row stride
   static constexpr int floats = 2 * kTile * LD + kTile * LP;
   static constexpr int bytes = floats * 4;
+  static constexpr int blocks = 2 * (bytes + 1024) <= 233472 ? 2 : 1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kFlashThreads, 2)
+template <int D, int DV>
+__global__ void __launch_bounds__(kFlashThreads, FlashSmem<D>::blocks)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int Hq, int Hk, int Tq, int Tk, int causal,
                        int has_window, int window, int q_offset,
                        float qscale) {
+  static_assert(DV <= D && DV % 16 == 0, "flash value width");
   constexpr int LD = FlashSmem<D>::LD, LP = FlashSmem<D>::LP;
-  constexpr int NC = D / 16;                     // output columns a thread
+  constexpr int LKV = LD;                        // K and V rows
+  constexpr int NC = DV / 16;                    // output columns a thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                              // [kTile][LD], scaled
-  float* KVs = Qs + kTile * LD;                  // [kTile][LD], K then V
-  float* Ps = KVs + kTile * LD;                  // [kTile][LP]
+  float* KVs = Qs + kTile * LD;                  // [kTile][LKV], K then V
+  float* Ps = KVs + kTile * LKV;                 // [kTile][LP]
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int nq = (Tq + kTile - 1) / kTile;
@@ -212,8 +229,8 @@ flash_attention_kernel(const float* __restrict__ q,
   const int hk = hq / (Hq / Hk);
   const float* qb = q + (size_t)(b * Hq + hq) * Tq * D;
   const float* kb = k + (size_t)(b * Hk + hk) * Tk * D;
-  const float* vb = v + (size_t)(b * Hk + hk) * Tk * D;
-  float* ob = o + (size_t)(b * Hq + hq) * Tq * D;
+  const float* vb = v + (size_t)(b * Hk + hk) * Tk * DV;
+  float* ob = o + (size_t)(b * Hq + hq) * Tq * DV;
 
   // output column of the thread's n-th accumulator
   auto col = [&](int n) {
@@ -244,7 +261,7 @@ flash_attention_kernel(const float* __restrict__ q,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                     // KVs and Ps free, Qs visible
-    load_rows<float, D, LD>(KVs, kb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
+    load_rows<float, D, LKV>(KVs, kb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
     __syncthreads();
 
     float s[4][4];
@@ -260,7 +277,7 @@ flash_attention_kernel(const float* __restrict__ q,
         qv[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * LD + d);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * LD + d);
+        kv[j] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * LKV + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -301,7 +318,8 @@ flash_attention_kernel(const float* __restrict__ q,
     }
 
     __syncthreads();                     // K no longer read
-    load_rows<float, D, LD>(KVs, vb, k0, kTile, Tk, 1.f, tid, kFlashThreads);
+    load_rows<float, DV, LKV>(KVs, vb, k0, kTile, Tk, 1.f, tid,
+                              kFlashThreads);
     __syncthreads();                     // V and P visible
 
 #pragma unroll 2
@@ -312,7 +330,7 @@ flash_attention_kernel(const float* __restrict__ q,
         pv[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * LP + c);
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = KVs + (c + cc) * LD;
+        const float* vrow = KVs + (c + cc) * LKV;
         float vv[NC];
         if constexpr (NC % 4 == 0) {
 #pragma unroll
@@ -341,7 +359,7 @@ flash_attention_kernel(const float* __restrict__ q,
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int n = 0; n < NC; ++n)
-      store(ob + (size_t)row * D + col(n), acc[i][n] / lsafe);
+      store(ob + (size_t)row * DV + col(n), acc[i][n] / lsafe);
   }
 }
 
@@ -358,31 +376,37 @@ constexpr int kWgThreads = kWgConsumers + kWgProducers;
 // Shared memory of the bf16 kernel.  Every tile is stored as DP/64 column
 // blocks of 64 bf16 (128 bytes a row) in the layout wgmma's 128-byte
 // swizzle reads: row r at r * 128 bytes, its 16-byte chunk c at
-// (c ^ r % 8) * 16.  Head dims are zero-padded up to a multiple of 64
-// columns (D < 64 to 64, D = 80 to 128: 1.6x the shared memory and P V's
-// columns of D = 80, its Q K^T taking only the 5 live k-steps).
-template <int D> struct WgSmem {
-  static constexpr int DP = (D + 63) / 64 * 64;
+// (c ^ r % 8) * 16.  Q and K widths (D) and V widths (DV) are each
+// zero-padded up to a multiple of 64 columns (D < 64 to 64, D = 80 and 96
+// to 128: more shared memory, and for D = 80 more P V columns, while Q K^T
+// takes only the live k-steps).  V stages sized by DV are what fit D = 192
+// (Dv 128): 48 + 2 x 48 + 2 x 32 KB.
+__host__ __device__ constexpr int pad64(int w) { return (w + 63) / 64 * 64; }
+
+template <int D, int DV> struct WgSmem {
+  static constexpr int DP = pad64(D), DVP = pad64(DV);
   static constexpr int Q = (DP / 64) * kWgBM * 128;     // bytes of Q
-  static constexpr int KV = (DP / 64) * kWgBN * 128;    // one K or V tile
-  static constexpr int bars = Q + 4 * KV;               // 8 mbarriers
+  static constexpr int K = (DP / 64) * kWgBN * 128;     // one K tile
+  static constexpr int V = (DVP / 64) * kWgBN * 128;    // one V tile
+  static constexpr int bars = Q + 2 * K + 2 * V;        // 8 mbarriers
   static constexpr int bytes = bars + 64 + 1024;        // + 1024 alignment
+  static_assert(DVP <= 128 && bytes <= 232448, "bf16 flash tile shape");
 };
 
-// rows [row0, row0 + ROWS) of a row-major [*, D] bf16 matrix into dst in the
+// rows [row0, row0 + ROWS) of a row-major [*, W] bf16 matrix into dst in the
 // swizzled layout of WgSmem (column block c / 8 at c / 8 * ROWS * 128
 // bytes); rows at or past `limit` and the padding columns are zero-filled
-template <int D, int ROWS>
+template <int W, int ROWS>
 __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
                                                 const __nv_bfloat16* src,
                                                 int row0, int limit, int tid) {
-  constexpr int CPR = WgSmem<D>::DP / 8;           // 16-byte chunks a row
+  constexpr int CPR = pad64(W) / 8;                // 16-byte chunks a row
 #pragma unroll 8
   for (int it = 0; it < ROWS * CPR / kWgProducers; ++it) {
     const int i = tid + it * kWgProducers;
     const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < limit && c * 8 < D;
-    const __nv_bfloat16* s = ok ? src + (size_t)(row0 + r) * D + c * 8 : src;
+    const bool ok = row0 + r < limit && c * 8 < W;
+    const __nv_bfloat16* s = ok ? src + (size_t)(row0 + r) * W + c * 8 : src;
     cp_async16(dst + (c >> 3) * ROWS * 128 + r * 128 +
                    (((c & 7) ^ (r & 7)) << 4),
                s, ok ? 16 : 0);
@@ -439,7 +463,7 @@ __device__ __forceinline__ void online_softmax(float* s, uint32_t* p,
     }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -447,13 +471,13 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              __nv_bfloat16* __restrict__ o, int Hq, int Hk,
                              int Tq, int Tk, int causal, int has_window,
                              int window, int q_offset, float scale) {
-  using S = WgSmem<D>;
-  constexpr int DP = S::DP;
+  using S = WgSmem<D, DV>;
+  constexpr int DVP = S::DVP;
   constexpr int KQ = (D + 15) / 16;      // Q K^T's k-steps: the live columns
   extern __shared__ __align__(1024) uint8_t wg_smem[];
   const uint32_t sQ = (smem_u32(wg_smem) + 1023u) & ~1023u;
   const uint32_t sK = sQ + S::Q;                 // 2 stages of K
-  const uint32_t sV = sK + 2 * S::KV;            // 2 stages of V
+  const uint32_t sV = sK + 2 * S::K;             // 2 stages of V
   // fullk/fullv[st]: the stage's K / V landed (an arrival per producer
   // warp); emptyk/emptyv[st]: every consumer thread is done with it
   const uint32_t fullk = sQ + S::bars, fullv = fullk + 16;
@@ -465,7 +489,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int hq = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int hk = hq / (Hq / Hk);
   const __nv_bfloat16* kb = k + (size_t)(b * Hk + hk) * Tk * D;
-  const __nv_bfloat16* vb = v + (size_t)(b * Hk + hk) * Tk * D;
+  const __nv_bfloat16* vb = v + (size_t)(b * Hk + hk) * Tk * DV;
 
   const int qpos_first = q_offset + q0;
   const int qpos_last = q_offset + min(q0 + kWgBM, Tq) - 1;
@@ -500,7 +524,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       if (it == 0)
         load_tile_sw128<D, kWgBM>(
             sQ, q + (size_t)(b * Hq + hq) * Tq * D, q0, Tq, ptid);
-      load_tile_sw128<D, kWgBN>(sK + st * S::KV, kb, k0, Tk, ptid);
+      load_tile_sw128<D, kWgBN>(sK + st * S::K, kb, k0, Tk, ptid);
       cp_async_commit();
       if (it > 0) {
         cp_async_wait<1>();            // V of the previous tile landed
@@ -509,7 +533,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         if (ptid % 32 == 0) mbar_arrive(fullv + 8 * (st ^ 1));
       }
       if (round > 0) mbar_wait(emptyv + 8 * st, (round - 1) & 1);
-      load_tile_sw128<D, kWgBN>(sV + st * S::KV, vb, k0, Tk, ptid);
+      load_tile_sw128<DV, kWgBN>(sV + st * S::V, vb, k0, Tk, ptid);
       cp_async_commit();
       cp_async_wait<1>();              // this tile's K (and Q) landed
       fence_proxy_async();
@@ -541,16 +565,16 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const uint32_t qw = sQ + wg * 64 * 128;        // this warpgroup's Q rows
 
-  float oacc[DP / 2];
+  float oacc[DVP / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) oacc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
   uint32_t p[kWgBN / 4];               // P in bf16 pairs: A fragments of P V
 
   for (int it = 0; it < ntiles; ++it) {
     const int st = it & 1, round = it >> 1;
     const int k0 = (kt_begin + it) * kWgBN;
-    const uint32_t ks = sK + st * S::KV, vs = sV + st * S::KV;
+    const uint32_t ks = sK + st * S::K, vs = sV + st * S::V;
 
     // S = Q K^T, [64 rows, kWgBN keys] in f32 registers
     float s[kWgBN / 2];
@@ -576,26 +600,26 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     // O *= alpha, skipped when no row max of the warp moved
     if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DVP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
     }
 
-    // O += P V, V [kWgBN keys, DP] the MN-major B operand
+    // O += P V, V [kWgBN keys, DVP] the MN-major B operand
     mbar_wait(fullv + 8 * st, round & 1);
-    reg_fence<DP / 2>(oacc);
+    reg_fence<DVP / 2>(oacc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWgBN / 16; ++kk) {
       const uint64_t dv = sw128_desc(vs + kk * 16 * 128, kWgBN * 128);
-      if constexpr (DP == 64) wgmma_rs_n64(oacc, &p[4 * kk], dv);
+      if constexpr (DVP == 64) wgmma_rs_n64(oacc, &p[4 * kk], dv);
       else wgmma_rs_n128(oacc, &p[4 * kk], dv);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    reg_fence<DP / 2>(oacc);
+    reg_fence<DVP / 2>(oacc);
     mbar_arrive(emptyv + 8 * st);
   }
 
-  __nv_bfloat16* ob = o + (size_t)(b * Hq + hq) * Tq * D;
+  __nv_bfloat16* ob = o + (size_t)(b * Hq + hq) * Tq * DV;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float lt = l[h];
@@ -605,10 +629,10 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (row >= Tq) continue;
     const float lsafe = lt == 0.f ? 1.f : lt;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DVP / 8; ++j) {
       const int col = 8 * j + 2 * tig;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + col) =
+      if (col < DV)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * DV + col) =
             __floats2bfloat162_rn(oacc[4 * j + 2 * h] / lsafe,
                                   oacc[4 * j + 2 * h + 1] / lsafe);
     }
@@ -630,32 +654,42 @@ __host__ __device__ constexpr int pow2_ceil(int x) {
   return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
 }
 
-// A lane owns one 16-byte chunk of a cache row (N elements); LPR lanes hold
-// a row (LIVE of them a chunk each: D = 80 has 20 live lanes of 32, the
-// shuffle reductions needing a power of two), a warp RPW rows at once, and
-// the block's GROUPS row groups take RPG rows each of a TILE-row tile.  NS
-// ring stages of one K and one V tile, in the input dtype.
-template <int D> struct Dec {
-  static constexpr int N = 4;                     // floats a 16-byte chunk
-  static constexpr int LIVE = D / N;
+// A lane owns N floats of a cache row (one 16-byte chunk, N = 4, up to D =
+// 128; two, N = 8, above, so that a row of D = 192 fits a warp); LPR lanes
+// hold a row (LIVE of them N columns of K each: D = 80 has 20 live lanes of
+// 32, the shuffle reductions needing a power of two; LIVEV of them N columns
+// of V, Dv = 64 under D = 96 16 of 24), a warp RPW rows at once, and the
+// block's GROUPS row groups take RPG rows each of a TILE-row tile.  NS ring
+// stages of one K and one V tile, in the input dtype.
+template <int D, int DV> struct Dec {
+  static constexpr int N = D / 4 <= 32 ? 4 : 8;   // floats a lane
+  static constexpr int LIVE = D / N, LIVEV = DV / N;
   static constexpr int LPR = pow2_ceil(LIVE);
   static constexpr int RPW = 32 / LPR;
   static constexpr int GROUPS = kDecWarps * RPW;
   static constexpr int TILE = GROUPS > 64 ? GROUPS : 64;
   static constexpr int RPG = TILE / GROUPS;
-  static constexpr int ROW = D * 4;
-  static constexpr int STAGE = 2 * TILE * ROW;
+  static constexpr int ROWK = D * 4, ROWV = DV * 4;     // bytes a row
+  static constexpr int STAGE = TILE * (ROWK + ROWV);
   static constexpr int NS = kDecRingBytes / STAGE < 4 ? kDecRingBytes / STAGE
                                                       : 4;
   static constexpr int RING = NS * STAGE;
   // after the loop the ring holds the warps' (m, l, acc) per head
-  static constexpr int WARPS = kDecWarps * kDecHeads * (D + 2) * 4;
+  static constexpr int WARPS = kDecWarps * kDecHeads * (DV + 2) * 4;
   static constexpr int SCRATCH = RING > WARPS ? RING : WARPS;
   // the block's merged (m, l, acc) per head, read by the whole cluster
-  static constexpr int PART = kDecHeads * (D + 2) * 4;
+  static constexpr int PART = kDecHeads * (DV + 2) * 4;
   static constexpr int bytes = SCRATCH + PART;
-  static_assert(LPR >= 1 && LPR <= 32 && NS >= 2, "decode tile shape");
+  static_assert(LPR >= 1 && LPR <= 32 && NS >= 2 && D % N == 0 &&
+                DV % N == 0 && LIVEV <= LIVE, "decode tile shape");
 };
+
+// N floats from 16-byte aligned p
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* out) {
+#pragma unroll
+  for (int e = 0; e < N; e += 4) Vec<float>::load(p + e, out + e);
+}
 
 // The end of both decode kernels.  Each of the block's NT / 32 warps has
 // left its state per head in shared memory: max wm[w][h], sum wl[w][h],
@@ -745,7 +779,7 @@ __device__ __forceinline__ void live_rows(int length, int S, int window,
 // the cluster reads its share of the first lengths[b] cache rows of KV head
 // hk for up to kDecHeads query heads; the cluster's blocks then merge their
 // softmax states through distributed shared memory and write out[b, h].
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kDecThreads, 1)
 decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -753,7 +787,7 @@ decode_attention_kernel(const float* __restrict__ q,
                         const int* __restrict__ lengths, float* __restrict__ o,
                         int Hq, int Hk, int S, int window, int hgroups,
                         float qscale) {
-  using C = Dec<D>;
+  using C = Dec<D, DV>;
   constexpr int N = C::N, H8 = kDecHeads;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -770,7 +804,8 @@ decode_attention_kernel(const float* __restrict__ q,
   const int ng = min(H8, G - hg * H8);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = warp * C::RPW + lane / C::LPR, sub = lane % C::LPR;
-  const bool lane_live = sub < C::LIVE;     // the lane holds a chunk of D
+  const bool lane_live = sub < C::LIVE;     // the lane holds N columns of K
+  const bool lane_livev = sub < C::LIVEV;   // ... and of V
 
   // the split: a share of whole tiles of the live rows [lo, len)
   int len, lo;
@@ -782,18 +817,19 @@ decode_attention_kernel(const float* __restrict__ q,
   const int k1 = min(k0 + per * C::TILE, len);
   const int ntiles = k0 < k1 ? (k1 - k0 + C::TILE - 1) / C::TILE : 0;
   const float* kb = k + ((size_t)b * Hk + hk) * S * D;
-  const float* vb = v + ((size_t)b * Hk + hk) * S * D;
+  const float* vb = v + ((size_t)b * Hk + hk) * S * DV;
 
   // the live rows of tile i of K and V into ring stage i % NS
   auto load_tile = [&](int i) {
-    constexpr int CPR = C::ROW / 16;
+    constexpr int CPK = C::ROWK / 16, CPV = C::ROWV / 16;
     const int r0 = k0 + i * C::TILE, nk = min(C::TILE, k1 - r0);
     const uint32_t st = ring + (i % C::NS) * C::STAGE;
-    for (int c = tid; c < nk * CPR; c += kDecThreads) {
-      const size_t off = (size_t)(r0 + c / CPR) * D + (c % CPR) * N;
-      cp_async16(st + c * 16, kb + off, 16);
-      cp_async16(st + C::TILE * C::ROW + c * 16, vb + off, 16);
-    }
+    for (int c = tid; c < nk * CPK; c += kDecThreads)
+      cp_async16(st + c * 16, kb + (size_t)(r0 + c / CPK) * D + (c % CPK) * 4,
+                 16);
+    for (int c = tid; c < nk * CPV; c += kDecThreads)
+      cp_async16(st + C::TILE * C::ROWK + c * 16,
+                 vb + (size_t)(r0 + c / CPV) * DV + (c % CPV) * 4, 16);
   };
   for (int i = 0; i < C::NS - 1; ++i) {
     if (i < ntiles) load_tile(i);
@@ -805,7 +841,7 @@ decode_attention_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < H8; ++h) {
     if (h < ng && lane_live) {
-      Vec<float>::load(q + ((size_t)b * Hq + h0 + h) * D + sub * N, qr[h]);
+      load_f32<N>(q + ((size_t)b * Hq + h0 + h) * D + sub * N, qr[h]);
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) qr[h][e] = 0.f;
@@ -830,7 +866,7 @@ decode_attention_kernel(const float* __restrict__ q,
     if (it + C::NS - 1 < ntiles) load_tile(it + C::NS - 1);
     cp_async_commit();
     const uint8_t* ks = dec_smem + (it % C::NS) * C::STAGE;
-    const uint8_t* vs = ks + C::TILE * C::ROW;
+    const uint8_t* vs = ks + C::TILE * C::ROWK;
     // the tile's live rows: [nlo, nk) (rows below the window's start too)
     const int nk = min(C::TILE, k1 - (k0 + it * C::TILE));
     const int nlo = max(lo - (k0 + it * C::TILE), 0);
@@ -838,10 +874,10 @@ decode_attention_kernel(const float* __restrict__ q,
     float s[C::RPG][H8];
 #pragma unroll
     for (int i = 0; i < C::RPG; ++i) {
-      float kf[N] = {0.f, 0.f, 0.f, 0.f};
+      float kf[N] = {};
       if (lane_live)
-        Vec<float>::load(reinterpret_cast<const float*>(
-                         ks + (grp + i * C::GROUPS) * C::ROW + sub * 16), kf);
+        load_f32<N>(reinterpret_cast<const float*>(
+                    ks + (grp + i * C::GROUPS) * C::ROWK + sub * N * 4), kf);
 #pragma unroll
       for (int h = 0; h < H8; ++h) {
         float a = 0.f;
@@ -888,10 +924,10 @@ decode_attention_kernel(const float* __restrict__ q,
     for (int i = 0; i < C::RPG; ++i) {
       const int r = grp + i * C::GROUPS;
       if (r >= nk || r < nlo) continue;  // stale shared memory: never read
-      float vf[N] = {0.f, 0.f, 0.f, 0.f};
-      if (lane_live)
-        Vec<float>::load(
-            reinterpret_cast<const float*>(vs + r * C::ROW + sub * 16), vf);
+      float vf[N] = {};
+      if (lane_livev)
+        load_f32<N>(
+            reinterpret_cast<const float*>(vs + r * C::ROWV + sub * N * 4), vf);
 #pragma unroll
       for (int h = 0; h < H8; ++h) {
         if (h >= ng) continue;
@@ -924,8 +960,8 @@ decode_attention_kernel(const float* __restrict__ q,
   __syncthreads();
   float* wm = reinterpret_cast<float*>(dec_smem);     // [warp][head]
   float* wl = wm + kDecWarps * H8;                    // [warp][head]
-  float* wacc = wl + kDecWarps * H8;                  // [warp][head][D]
-  if (lane < C::LPR && lane_live) {
+  float* wacc = wl + kDecWarps * H8;                  // [warp][head][DV]
+  if (lane < C::LPR && lane_livev) {
 #pragma unroll
     for (int h = 0; h < H8; ++h) {
       if (h >= ng) continue;
@@ -935,45 +971,45 @@ decode_attention_kernel(const float* __restrict__ q,
       }
 #pragma unroll
       for (int e = 0; e < N; ++e)
-        wacc[(warp * H8 + h) * D + sub * N + e] = acc[h][e];
+        wacc[(warp * H8 + h) * DV + sub * N + e] = acc[h][e];
     }
   }
   __syncthreads();
-  decode_merge<float, D, kDecThreads>(wm, wl, wacc, part,
-                                  o + ((size_t)b * Hq + h0) * D, ng);
+  decode_merge<float, DV, kDecThreads>(wm, wl, wacc, part,
+                                       o + ((size_t)b * Hq + h0) * DV, ng);
 }
 
-template <int D>
+template <int D, int DV>
 int flash_f32_launch(const void* q, const void* k, const void* v, void* o,
                      int B, int Hq, int Hk, int Tq, int Tk, int causal,
                      int has_window, int window, int q_offset, float qscale,
                      cudaStream_t stream) {
   const int bytes = FlashSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>,
+      flash_attention_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + kTile - 1) / kTile, Hq, B);
-  flash_attention_kernel<D><<<grid, kFlashThreads, bytes, stream>>>(
+  flash_attention_kernel<D, DV><<<grid, kFlashThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hk,
       Tq, Tk, causal, has_window, window, q_offset, qscale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hk, int Tq, int Tk, int causal,
                        int has_window, int window, int q_offset, float scale,
                        cudaStream_t stream) {
-  const int bytes = WgSmem<D>::bytes;
+  const int bytes = WgSmem<D, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<D>,
+      flash_attention_wgmma_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int nq = (Tq + kWgBM - 1) / kWgBM;
   if (nq > 65535) return kBadShape;
   const dim3 grid(Hq * B, nq);       // all heads' latest query tiles first
-  flash_attention_wgmma_kernel<D><<<grid, kWgThreads, bytes, stream>>>(
+  flash_attention_wgmma_kernel<D, DV><<<grid, kWgThreads, bytes, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hk, Tq, Tk, causal,
       has_window, window, q_offset, scale);
@@ -994,21 +1030,13 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
 // zero-filled (a zero V row times p = 0 stays 0).
 constexpr int kDecMmaThreads = 128;
 
-template <int D> struct DecMma {
-  static constexpr int TILE = 64;
-  static constexpr int CPR = D * 2 / 16;            // 16-byte chunks a row
-  // a row in shared memory: whole groups of 8 chunks once it has 8 or more,
-  // so that c ^ (r & 7) stays inside it (D = 80: 10 chunks in 16)
+// A bf16 row of W columns in the ring: CPR 16-byte chunks, in whole groups
+// of 8 once it has 8 or more, so that c ^ (r & 7) stays inside it (D = 80:
+// 10 chunks in 16; D = 96: 12 in 16)
+template <int W> struct MmaRow {
+  static constexpr int CPR = W * 2 / 16;            // 16-byte chunks a row
   static constexpr int SCPR = CPR >= 8 ? (CPR + 7) / 8 * 8 : CPR;
   static constexpr int ROW = SCPR * 16;             // bytes a row
-  static constexpr int STAGE = 2 * TILE * ROW;
-  static constexpr int NS = kDecRingBytes / STAGE < 6 ? kDecRingBytes / STAGE
-                                                      : 6;
-  static constexpr int RING = NS * STAGE;
-  static constexpr int WARPS = (kDecMmaThreads / 32) * kDecHeads * (D + 2) * 4;
-  static constexpr int SCRATCH = RING > WARPS ? RING : WARPS;
-  static constexpr int PART = kDecHeads * (D + 2) * 4;
-  static constexpr int bytes = SCRATCH + PART;
   // the swizzled byte offset of chunk c of row r
   __device__ static uint32_t at(int r, int c) {
     const int sw = SCPR >= 8 ? (r & 7) : SCPR == 4 ? ((r >> 1) & 3)
@@ -1017,7 +1045,22 @@ template <int D> struct DecMma {
   }
 };
 
-template <int D>
+template <int D, int DV> struct DecMma {
+  static constexpr int TILE = 64;
+  using RK = MmaRow<D>;                             // K rows
+  using RV = MmaRow<DV>;                            // V rows
+  static constexpr int STAGE = TILE * (RK::ROW + RV::ROW);
+  static constexpr int NS = kDecRingBytes / STAGE < 6 ? kDecRingBytes / STAGE
+                                                      : 6;
+  static constexpr int RING = NS * STAGE;
+  static constexpr int WARPS = (kDecMmaThreads / 32) * kDecHeads * (DV + 2) * 4;
+  static constexpr int SCRATCH = RING > WARPS ? RING : WARPS;
+  static constexpr int PART = kDecHeads * (DV + 2) * 4;
+  static constexpr int bytes = SCRATCH + PART;
+  static_assert(NS >= 2 && D % 16 == 0 && DV % 16 == 0, "decode tile shape");
+};
+
+template <int D, int DV>
 __global__ void __launch_bounds__(kDecMmaThreads, 1)
 decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
@@ -1025,8 +1068,10 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const int* __restrict__ lengths,
                             __nv_bfloat16* __restrict__ o, int Hq, int Hk,
                             int S, int window, int hgroups, float qscale) {
-  using C = DecMma<D>;
-  constexpr int KS = D / 16, H8 = kDecHeads, TILE = C::TILE;
+  using C = DecMma<D, DV>;
+  using RK = typename C::RK;
+  using RV = typename C::RV;
+  constexpr int KS = D / 16, VS = DV / 16, H8 = kDecHeads, TILE = C::TILE;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) uint8_t dec_smem[];
@@ -1052,18 +1097,23 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int k1 = min(k0 + per * TILE, len);
   const int ntiles = k0 < k1 ? (k1 - k0 + TILE - 1) / TILE : 0;
   const __nv_bfloat16* kb = k + ((size_t)b * Hk + hk) * S * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * Hk + hk) * S * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * Hk + hk) * S * DV;
 
   // tile i of K and V into ring stage i % NS; rows past the split zeros
   auto load_tile = [&](int i) {
     const int r0 = k0 + i * TILE, nk = min(TILE, k1 - r0);
     const uint32_t st = ring + (i % C::NS) * C::STAGE;
-    for (int c = tid; c < TILE * C::CPR; c += kDecMmaThreads) {
-      const int r = c / C::CPR, cc = c % C::CPR;
+    for (int c = tid; c < TILE * RK::CPR; c += kDecMmaThreads) {
+      const int r = c / RK::CPR, cc = c % RK::CPR;
       const bool ok = r < nk;
       const size_t off = ok ? (size_t)(r0 + r) * D + cc * 8 : 0;
-      cp_async16(st + C::at(r, cc), kb + off, ok ? 16 : 0);
-      cp_async16(st + TILE * C::ROW + C::at(r, cc), vb + off, ok ? 16 : 0);
+      cp_async16(st + RK::at(r, cc), kb + off, ok ? 16 : 0);
+    }
+    for (int c = tid; c < TILE * RV::CPR; c += kDecMmaThreads) {
+      const int r = c / RV::CPR, cc = c % RV::CPR;
+      const bool ok = r < nk;
+      const size_t off = ok ? (size_t)(r0 + r) * DV + cc * 8 : 0;
+      cp_async16(st + TILE * RK::ROW + RV::at(r, cc), vb + off, ok ? 16 : 0);
     }
   };
   for (int i = 0; i < C::NS - 1; ++i) {
@@ -1085,9 +1135,9 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // head gid's running max and (this lane's part of the) sum; O's
   // fragment: oacc[j][0..1] = O[gid][8 j + 2 tig, + 1]
   float m_run = kNegInf, l_run = 0.f;
-  float oacc[D / 8][4];
+  float oacc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
 
@@ -1098,7 +1148,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (it + C::NS - 1 < ntiles) load_tile(it + C::NS - 1);
     cp_async_commit();
     const uint32_t ks = ring + (it % C::NS) * C::STAGE;
-    const uint32_t vs = ks + TILE * C::ROW;
+    const uint32_t vs = ks + TILE * RK::ROW;
     // the tile's live rows: [nlo, nk) (rows below the window's start too)
     const int nk = min(TILE, k1 - (k0 + it * TILE));
     const int nlo = max(lo - (k0 + it * TILE), 0);
@@ -1108,8 +1158,8 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t kf[4];
-      ldmatrix_x4(kf, ks + C::at(16 * warp + (mrow >> 1) * 8 + rrow,
-                                 2 * kk + (mrow & 1)));
+      ldmatrix_x4(kf, ks + RK::at(16 * warp + (mrow >> 1) * 8 + rrow,
+                                  2 * kk + (mrow & 1)));
       mma_16816(sacc[0], qa[kk][0], 0u, qa[kk][1], 0u, kf[0], kf[1]);
       mma_16816(sacc[1], qa[kk][0], 0u, qa[kk][1], 0u, kf[2], kf[3]);
     }
@@ -1129,7 +1179,7 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const float alpha = fast_exp2(m_run - m_new);
       l_run *= alpha;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         oacc[j][0] *= alpha;
         oacc[j][1] *= alpha;
       }
@@ -1147,12 +1197,12 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t pa0 = pack_bf16(p[0][0], p[0][1]);
     const uint32_t pa2 = pack_bf16(p[1][0], p[1][1]);
 
-    // O += P V: 16 columns of D a step
+    // O += P V: 16 columns of DV a step
 #pragma unroll
-    for (int c2 = 0; c2 < KS; ++c2) {
+    for (int c2 = 0; c2 < VS; ++c2) {
       uint32_t vf[4];
-      ldmatrix_x4_trans(vf, vs + C::at(16 * warp + (mrow & 1) * 8 + rrow,
-                                       2 * c2 + (mrow >> 1)));
+      ldmatrix_x4_trans(vf, vs + RV::at(16 * warp + (mrow & 1) * 8 + rrow,
+                                        2 * c2 + (mrow >> 1)));
       mma_16816(oacc[2 * c2], pa0, 0u, pa2, 0u, vf[0], vf[1]);
       mma_16816(oacc[2 * c2 + 1], pa0, 0u, pa2, 0u, vf[2], vf[3]);
     }
@@ -1172,31 +1222,32 @@ decode_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       wl[warp * H8 + gid] = l_run;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      wacc[(warp * H8 + gid) * D + 8 * j + 2 * tig] = oacc[j][0];
-      wacc[(warp * H8 + gid) * D + 8 * j + 2 * tig + 1] = oacc[j][1];
+    for (int j = 0; j < DV / 8; ++j) {
+      wacc[(warp * H8 + gid) * DV + 8 * j + 2 * tig] = oacc[j][0];
+      wacc[(warp * H8 + gid) * DV + 8 * j + 2 * tig + 1] = oacc[j][1];
     }
   }
   __syncthreads();
-  decode_merge<__nv_bfloat16, D, kDecMmaThreads>(
-      wm, wl, wacc, part, o + ((size_t)b * Hq + h0) * D, ng);
+  decode_merge<__nv_bfloat16, DV, kDecMmaThreads>(
+      wm, wl, wacc, part, o + ((size_t)b * Hq + h0) * DV, ng);
 }
 
 // the kernel of a dtype: bf16 on the tensor cores, float32 on the CUDA cores
-template <typename T, int D> struct DecodeKernel {
-  static constexpr int threads = kDecThreads, bytes = Dec<D>::bytes;
-  static auto fn() { return decode_attention_kernel<D>; }
+template <typename T, int D, int DV> struct DecodeKernel {
+  static constexpr int threads = kDecThreads, bytes = Dec<D, DV>::bytes;
+  static auto fn() { return decode_attention_kernel<D, DV>; }
 };
-template <int D> struct DecodeKernel<__nv_bfloat16, D> {
-  static constexpr int threads = kDecMmaThreads, bytes = DecMma<D>::bytes;
-  static auto fn() { return decode_attention_mma_kernel<D>; }
+template <int D, int DV> struct DecodeKernel<__nv_bfloat16, D, DV> {
+  static constexpr int threads = kDecMmaThreads;
+  static constexpr int bytes = DecMma<D, DV>::bytes;
+  static auto fn() { return decode_attention_mma_kernel<D, DV>; }
 };
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int decode_launch(const void* q, const void* k, const void* v,
                   const void* lengths, void* o, int B, int Hq, int Hk, int S,
                   int nsplit, int window, float qscale, cudaStream_t stream) {
-  using K = DecodeKernel<T, D>;
+  using K = DecodeKernel<T, D, DV>;
   const int hgroups = (Hq / Hk + kDecHeads - 1) / kDecHeads;
   if (nsplit < 1 || nsplit > kDecMaxSplit || B > 65535 ||
       (long long)Hk * hgroups > 65535)
@@ -1236,26 +1287,32 @@ int decode_launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// the (D, Dv) pairs the launchers take, as one switch value
+#define PAIR(d, dv) ((d) * 1024 + (dv))
+
 // out = attention(q, k, v) with causal / sliding-window masks; query row i
-// at absolute position q_offset + i.  dtype 0: float32, 1: bfloat16.
+// at absolute position q_offset + i; q and k of head dim D, v and out of Dv.
+// dtype 0: float32, 1: bfloat16.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Hq, int Hk, int Tq, int Tk,
-                           int D, int dtype, int causal, int has_window,
-                           int window, int q_offset, float qscale,
-                           void* stream) {
+                           int D, int Dv, int dtype, int causal,
+                           int has_window, int window, int q_offset,
+                           float qscale, void* stream) {
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define FLASH(L, DD)                                                       \
-  return L<DD>(q, k, v, o, B, Hq, Hk, Tq, Tk, causal, has_window, window,  \
-               q_offset, qscale, s)
-#define FLASH_D(L)            \
-  switch (D) {                \
-    case 16: FLASH(L, 16);    \
-    case 32: FLASH(L, 32);    \
-    case 64: FLASH(L, 64);    \
-    case 80: FLASH(L, 80);    \
-    case 128: FLASH(L, 128);  \
-    default: return kBadShape; \
+#define FLASH(L, DD, DDV)                                                  \
+  return L<DD, DDV>(q, k, v, o, B, Hq, Hk, Tq, Tk, causal, has_window,     \
+                    window, q_offset, qscale, s)
+#define FLASH_D(L)                              \
+  switch (PAIR(D, Dv)) {                        \
+    case PAIR(16, 16): FLASH(L, 16, 16);        \
+    case PAIR(32, 32): FLASH(L, 32, 32);        \
+    case PAIR(64, 64): FLASH(L, 64, 64);        \
+    case PAIR(80, 80): FLASH(L, 80, 80);        \
+    case PAIR(128, 128): FLASH(L, 128, 128);    \
+    case PAIR(96, 64): FLASH(L, 96, 64);        \
+    case PAIR(192, 128): FLASH(L, 192, 128);    \
+    default: return kBadShape;                  \
   }
   if (dtype == 0) FLASH_D(flash_f32_launch)
   FLASH_D(flash_wgmma_launch)
@@ -1266,30 +1323,36 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // out[b, h] = attention of q[b, h] over the cache rows [lo, min(lengths[b],
 // S)), lo = max(0, lengths[b] - window) with a window (> 0), else 0, in one
 // launch: nsplit (1..8) blocks of a cluster per (batch, KV head, group of 8
-// query heads).  dtype 0: float32, 1: bfloat16.
+// query heads); q and k of head dim D, v and out of Dv.  dtype 0: float32,
+// 1: bfloat16.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* lengths, void* o, int B, int Hq,
-                            int Hk, int S, int D, int dtype, int nsplit,
-                            int window, float qscale, void* stream) {
+                            int Hk, int S, int D, int Dv, int dtype,
+                            int nsplit, int window, float qscale,
+                            void* stream) {
   if (B == 0 || Hq == 0) return 0;
   if (Hk < 1 || Hq % Hk) return kBadShape;
   cudaStream_t s = (cudaStream_t)stream;
-#define DEC(T, DD)                                                        \
-  return decode_launch<T, DD>(q, k, v, lengths, o, B, Hq, Hk, S, nsplit,  \
-                              window, qscale, s)
-#define DEC_D(T)             \
-  switch (D) {               \
-    case 16: DEC(T, 16);     \
-    case 32: DEC(T, 32);     \
-    case 64: DEC(T, 64);     \
-    case 80: DEC(T, 80);     \
-    case 128: DEC(T, 128);   \
-    default: return kBadShape; \
+#define DEC(T, DD, DDV)                                                   \
+  return decode_launch<T, DD, DDV>(q, k, v, lengths, o, B, Hq, Hk, S,     \
+                                   nsplit, window, qscale, s)
+#define DEC_D(T)                                \
+  switch (PAIR(D, Dv)) {                        \
+    case PAIR(16, 16): DEC(T, 16, 16);          \
+    case PAIR(32, 32): DEC(T, 32, 32);          \
+    case PAIR(64, 64): DEC(T, 64, 64);          \
+    case PAIR(80, 80): DEC(T, 80, 80);          \
+    case PAIR(128, 128): DEC(T, 128, 128);      \
+    case PAIR(96, 64): DEC(T, 96, 64);          \
+    case PAIR(192, 128): DEC(T, 192, 128);      \
+    default: return kBadShape;                  \
   }
   if (dtype == 0) DEC_D(float)
   DEC_D(__nv_bfloat16)
 #undef DEC_D
 #undef DEC
 }
+
+#undef PAIR
 
 }  // extern "C"

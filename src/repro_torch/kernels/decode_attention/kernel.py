@@ -38,7 +38,7 @@ def _lib():
     lib = _cuda.library("attention")
     if "decode" not in _READY:
         lib.decode_attention_launch.argtypes = (
-            [P] * 5 + [I] * 8 + [ctypes.c_float, P])
+            [P] * 5 + [I] * 9 + [ctypes.c_float, P])
         lib.decode_attention_launch.restype = I
         _READY.add("decode")
     return lib
@@ -64,9 +64,10 @@ def cluster_splits(blocks: int, s: int, sms: int) -> int:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
-    """``q [B, Hq, 1, D]``, ``k, v [B, Hk, S, D]``, ``lengths [B]`` int32
-    -> ``[B, Hq, 1, D]``.  Lengths past S count as S; a window (at least
-    1) starts each sequence at row ``max(0, lengths[b] - window)``."""
+    """``q [B, Hq, 1, D]``, ``k [B, Hk, S, D]``, ``v [B, Hk, S, Dv]``,
+    ``lengths [B]`` int32 -> ``[B, Hq, 1, Dv]``.  Lengths past S count as
+    S; a window (at least 1) starts each sequence at row ``max(0,
+    lengths[b] - window)``."""
     if window is not None and window < 1:
         raise ValueError("decode_attention: a window holds at least one row, "
                          "got %d" % window)
@@ -80,10 +81,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          % (tuple(q.shape), tuple(lengths.shape)))
     groups = -(-(hq // hk) // HEADS_PER_BLOCK)
     nsplit = cluster_splits(b * hk * groups, s, _sm_count(q.device))
-    out = torch.empty_like(q)
+    out = q.new_empty((b, hq, 1, v.shape[3]))
     _cuda.check(_lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, hk, s, d, DTYPES[q.dtype], nsplit,
+        out.data_ptr(), b, hq, hk, s, d, v.shape[3], DTYPES[q.dtype], nsplit,
         int(window or 0), LOG2E / math.sqrt(d), _cuda.stream_of(q)),
         "decode_attention")
     _cuda.count_launch("decode_attention")

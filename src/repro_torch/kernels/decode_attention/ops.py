@@ -14,9 +14,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
     """GQA decode attention: ``q [B, Hq, 1, D]`` against the cache rows
-    ``[max(0, lengths[b] - window), min(lengths[b], S))`` of ``k, v [B, Hk,
-    S, D]`` -> ``[B, Hq, 1, D]``; 0 where no row is live (see
-    ``ref.decode_attention_ref``)."""
+    ``[max(0, lengths[b] - window), min(lengths[b], S))`` of ``k [B, Hk, S,
+    D]`` and ``v [B, Hk, S, Dv]`` -> ``[B, Hq, 1, Dv]``; 0 where no row is
+    live (see ``ref.decode_attention_ref``)."""
     if q.is_cuda:
         if lengths.dtype != torch.int32:
             lengths = lengths.to(torch.int32)

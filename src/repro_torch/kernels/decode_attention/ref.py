@@ -12,8 +12,9 @@ NEG_INF = -1e30
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor,
                          window: Optional[int] = None) -> torch.Tensor:
-    """``q [B, Hq, 1, D]``, ``k, v [B, Hk, S, D]``, ``lengths [B]`` ->
-    ``[B, Hq, 1, D]`` in ``q``'s dtype.  Sequence b attends to the cache
+    """``q [B, Hq, 1, D]``, ``k [B, Hk, S, D]``, ``v [B, Hk, S, Dv]``,
+    ``lengths [B]`` -> ``[B, Hq, 1, Dv]`` in ``q``'s dtype, scaled by
+    ``1/sqrt(D)``.  Sequence b attends to the cache
     rows ``[max(0, lengths[b] - window), min(lengths[b], S))`` (from row 0
     without a window): the query sits at position ``lengths[b] - 1`` and
     a window keeps keys ``kpos > qpos - window``.  0 where no row is
@@ -35,4 +36,4 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.where(mask, torch.softmax(logits, dim=-1),
                         torch.zeros_like(logits))
     out = torch.einsum("bhgts,bhsd->bhgtd", probs, v.float())
-    return out.reshape(b, hq, tq, d).to(q.dtype)
+    return out.reshape(b, hq, tq, v.shape[-1]).to(q.dtype)

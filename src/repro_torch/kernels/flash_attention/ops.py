@@ -13,9 +13,10 @@ from . import kernel, ref
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """GQA attention, ``q [B, Hq, Tq, D]`` against ``k, v [B, Hk, Tk, D]``
-    -> ``[B, Hq, Tq, D]`` in ``q``'s dtype; query row ``i`` sits at
-    absolute position ``q_offset + i`` (see ``ref.attention_ref``)."""
+    """GQA attention, ``q [B, Hq, Tq, D]`` against ``k [B, Hk, Tk, D]``,
+    ``v [B, Hk, Tk, Dv]`` -> ``[B, Hq, Tq, Dv]`` in ``q``'s dtype; query
+    row ``i`` sits at absolute position ``q_offset + i`` (see
+    ``ref.attention_ref``)."""
     if q.is_cuda:
         return kernel.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, q_offset=q_offset)

@@ -11,10 +11,12 @@ import torch
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
                   q_offset: int = 0) -> torch.Tensor:
-    """``q [B, Hq, Tq, D]``, ``k, v [B, Hk, Tk, D]`` -> ``[B, Hq, Tq, D]``
-    in ``q``'s dtype.  Query row ``i`` sits at absolute position
-    ``q_offset + i``; key ``j`` at ``j``.  Causal keeps keys ``j <= pos``,
-    a window keeps ``j > pos - window``.  A row with no live key is 0."""
+    """``q [B, Hq, Tq, D]``, ``k [B, Hk, Tk, D]``, ``v [B, Hk, Tk, Dv]`` ->
+    ``[B, Hq, Tq, Dv]`` in ``q``'s dtype, scaled by ``1/sqrt(D)`` (MLA's
+    value width Dv may differ from D).  Query row ``i`` sits at absolute
+    position ``q_offset + i``; key ``j`` at ``j``.  Causal keeps keys ``j
+    <= pos``, a window keeps ``j > pos - window``.  A row with no live key
+    is 0."""
     b, hq, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     if hq % hk:

@@ -46,7 +46,8 @@ def make_slot_fns(model: lm.LM, max_len: int) -> Tuple[Callable, Callable]:
     ``lm.init_cache(per_seq=True)``:
 
     * ``prefill_one(tokens [1, T], cache, slot)`` zeroes lane ``slot``
-      (keys and values, or conv tail and SSM state), runs the prompt
+      (keys and values, MLA's latent rows, or conv tail and SSM state),
+      runs the prompt
       through the lane's view at a shared length of 0 (the flash kernel
       with ``q_offset`` 0, or the SSD kernel from a zero state), then sets
       the lane's length to T;

@@ -1,18 +1,19 @@
-"""LM assembly for GQA stacks (each layer's FFN dense, MoE or none) and
-Mamba-2 (SSD) stacks: init, forward, decode cache, decode step.
+"""LM assembly for attention stacks (GQA or MLA, each layer's FFN dense,
+MoE or none) and Mamba-2 (SSD) stacks: init, forward, decode cache,
+decode step.
 
 The reference scans over stacked layer weights, one period of the layer
 pattern at a time; here the stack is a Python loop over :class:`Block`
 modules (the port runs eagerly), layer ``j`` built from
 ``layer_pattern[j % period]``.  A block is a mixer (GQA attention,
-sliding-window or not, or Mamba-2) and, where the layer pattern has one,
-an FFN (a dense MLP or an MoE, ``models/moe.py``), each behind the
+sliding-window or not, MLA, or Mamba-2) and, where the layer pattern has
+one, an FFN (a dense MLP or an MoE, ``models/moe.py``), each behind the
 configuration's norm (RMSNorm with a weight, or OLMo's non-parametric
 LayerNorm, which has none: the block and the model then carry no
 ``nm``/``nf``/``final_norm``, as the reference's parameter tree has none).
 Weights keep the reference's layouts (``interop.lm_params_from_arrays``
 carries the reference's parameters in).  Mamba-1, hybrid patterns,
-codebook heads, vision/audio frontends, MLA and M-RoPE raise
+codebook heads, vision/audio frontends and M-RoPE raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 :func:`forward` runs the MoE layers in capacity mode unless asked for
@@ -21,12 +22,13 @@ serving path: prefills and ticks) is always dropless, so a sequence's
 logits do not depend on which others share its batch.
 
 The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len"}``
-for attention stacks and ``{"conv": [L, B, K-1, C], "ssm": [L, B, H, S,
-P], "len"}`` for Mamba-2 stacks; ``len`` is one host int shared by the
-batch, or, with ``per_seq`` (the continuous batcher's slot lanes), an
-int32 ``[B]`` tensor on the cache's device.  :func:`decode_step` takes
-each sequence's positions from its own length, writes the new state into
-the cache and advances ``len`` in place.
+for GQA stacks, ``{"ckv": [L, B, S, r], "krope": [L, B, S, dr], "len"}``
+(the latent, the reference's layout) for MLA stacks and ``{"conv": [L, B,
+K-1, C], "ssm": [L, B, H, S, P], "len"}`` for Mamba-2 stacks; ``len`` is
+one host int shared by the batch, or, with ``per_seq`` (the continuous
+batcher's slot lanes), an int32 ``[B]`` tensor on the cache's device.
+:func:`decode_step` takes each sequence's positions from its own length,
+writes the new state into the cache and advances ``len`` in place.
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ from torch import nn
 
 from ..configs.base import LayerSpec, ModelConfig, not_ported
 from .attention import (
-    Attention, check_attention, gqa_cache_shape, gqa_forward, init_attention,
-    seq_lengths,
+    MLA, Attention, attn_cache_shape, attn_forward, check_attention,
+    init_attention, seq_lengths,
 )
 from .common import (
     NORMS, apply_norm, dtype_of, normal_param, ones_param, resolve_device,
@@ -97,12 +99,12 @@ class Block(nn.Module):
     weights ``nm``, ``nf`` are None for a norm without weights."""
 
     def __init__(self, nm: Optional[torch.Tensor],
-                 mixer: Union[Attention, Mamba],
+                 mixer: Union[Attention, MLA, Mamba],
                  nf: Optional[torch.Tensor] = None,
                  ffn: Optional[Union[MLP, MoE]] = None):
         super().__init__()
         self.nm = _weight(nm)
-        self.kind = "attn" if isinstance(mixer, Attention) else "mamba"
+        self.kind = "mamba" if isinstance(mixer, Mamba) else "attn"
         setattr(self, self.kind, mixer)
         if ffn is not None:
             self.nf = _weight(nf)
@@ -116,7 +118,8 @@ class Block(nn.Module):
         None for a layer without one."""
         hn = apply_norm(cfg.norm, h, self.nm)
         if self.kind == "attn":
-            out, new_cache = gqa_forward(self.attn, cfg, hn, positions, cache)
+            out, new_cache = attn_forward(self.attn, cfg, hn, positions,
+                                          cache)
         else:
             out, new_cache = mamba2_forward(self.mamba, cfg, hn, cache)
         h = h + out
@@ -231,8 +234,10 @@ def forward(model: LM, tokens: torch.Tensor, dropless: bool = False,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                per_seq: bool = False) -> Dict:
     """An empty cache, length 0: zeros ``[L, batch, Hk, max_len, D]`` for
-    keys and values, or, for Mamba-2 stacks (which ``max_len`` does not
-    size), each layer's conv tail and SSM state.  One host length is shared
+    keys and values, ``[L, batch, max_len, r]`` and ``[L, batch, max_len,
+    dr]`` for an MLA stack's latent and rotary key, or, for Mamba-2 stacks
+    (which ``max_len`` does not size), each layer's conv tail and SSM
+    state.  One host length is shared
     by the batch, or, with ``per_seq``, each sequence (slot lane) has its
     own: an int32 ``[batch]`` tensor on ``device`` (Mamba-2 lanes carry one
     too, for uniformity)."""
@@ -244,16 +249,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
         one = mamba_cache_shape(cfg, batch, dtype, dev)
         return {"conv": one["conv"][None].repeat(n, 1, 1, 1),
                 "ssm": one["ssm"][None].repeat(n, 1, 1, 1, 1), "len": length}
-    one = gqa_cache_shape(cfg, batch, max_len, dtype, dev)
-    return {"k": one["k"][None].repeat(n, 1, 1, 1, 1),
-            "v": one["v"][None].repeat(n, 1, 1, 1, 1), "len": length}
+    one = attn_cache_shape(cfg, batch, max_len, dtype, dev)
+    out = {name: torch.zeros((n,) + t.shape, dtype=dtype, device=dev)
+           for name, t in one.items() if name != "len"}
+    out["len"] = length
+    return out
 
 
 def _layer_cache(cache: Dict, i: int) -> Dict:
     """Layer ``i``'s view of the stacked cache."""
-    if "ssm" in cache:
-        return {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-    return {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
+    view = {name: t[i] for name, t in cache.items() if name != "len"}
+    if "ssm" not in cache:
+        view["len"] = cache["len"]
+    return view
 
 
 def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,

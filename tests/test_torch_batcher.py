@@ -1,8 +1,10 @@
 """PyTorch port vs the JAX reference: LM continuous batching at the
 reference's smoke size (``smoke_variant``, float32, on the CPU), for
 ``qwen2-1.5b``, ``h2o-danube-1.8b`` (sliding window 16), ``olmo-1b``
-(non-parametric LayerNorm), ``mamba2-130m`` and ``mixtral-8x22b`` (MoE,
-dropless on the serving path, sliding window 16).
+(non-parametric LayerNorm), ``mamba2-130m``, ``mixtral-8x22b`` (MoE,
+dropless on the serving path, sliding window 16), ``minicpm3-4b`` and
+``deepseek-v2-236b`` (MLA: a latent cache ``ckv``/``krope``; DeepSeek's
+FFN an MoE with shared experts).
 
 The same parameters (numpy, from a seed, in the reference's nested
 layout) and token ids feed both packages:
@@ -51,7 +53,7 @@ from repro_torch.models import lm as p_lm
 from repro_torch.serve import lm as p_serve
 
 ARCHS = ("qwen2-1.5b", "h2o-danube-1.8b", "olmo-1b", "mamba2-130m",
-         "mixtral-8x22b")
+         "mixtral-8x22b", "minicpm3-4b", "deepseek-v2-236b")
 ATTENTION_ARCHS = tuple(a for a in ARCHS if a != "mamba2-130m")
 TOL = dict(rtol=2e-4, atol=2e-4)
 SLOTS = 2
@@ -292,6 +294,15 @@ def test_reference_batcher_rope_fault_is_not_copied():
 # --------------------------------------------------------------------------
 
 S = 24
+
+
+def _port_layout(name, a):
+    """A reference cache leaf in the port's layout: GQA keys and values
+    ``[L, B, S, Hk, D]`` -> ``[L, B, Hk, S, D]``; MLA's ``ckv`` and
+    ``krope`` as they are."""
+    return a.transpose(0, 1, 3, 2, 4) if name in ("k", "v") else a
+
+
 # the lanes' lengths before the step: 0, inside the window, across danube's
 # window of 16, past the cache's end (the T rows then go at S - T)
 LENGTHS = {1: [0, 5, 20, 27], 3: [0, 5, 22, 27]}
@@ -309,9 +320,9 @@ def test_per_sequence_decode_step_matches_reference(arch, t):
     sub = rc["sub0"]
     if "attn" in sub:
         at = sub["attn"]
-        k = rng.standard_normal(at["k"].shape).astype(np.float32)
-        v = rng.standard_normal(at["v"].shape).astype(np.float32)
-        sub = {"attn": {"k": jnp.asarray(k), "v": jnp.asarray(v),
+        rows = {name: rng.standard_normal(a.shape).astype(np.float32)
+                for name, a in at.items() if name != "len"}
+        sub = {"attn": {**{n: jnp.asarray(a) for n, a in rows.items()},
                         "len": jnp.broadcast_to(jnp.asarray(lens),
                                                 at["len"].shape)}}
     else:
@@ -322,9 +333,9 @@ def test_per_sequence_decode_step_matches_reference(arch, t):
     rc = {"sub0": sub}
 
     pc = p_lm.init_cache(cfg, b, S, device="cpu", per_seq=True)
-    if "attn" in sub:                      # [L, B, S, Hk, D] -> [L, B, Hk, S, D]
-        pc["k"].copy_(torch.from_numpy(k.transpose(0, 1, 3, 2, 4)))
-        pc["v"].copy_(torch.from_numpy(v.transpose(0, 1, 3, 2, 4)))
+    if "attn" in sub:
+        for name, a in rows.items():
+            pc[name].copy_(torch.from_numpy(_port_layout(name, a)))
     else:
         pc["conv"].copy_(torch.from_numpy(conv))
         pc["ssm"].copy_(torch.from_numpy(ssm))
@@ -340,10 +351,10 @@ def test_per_sequence_decode_step_matches_reference(arch, t):
     new = rc["sub0"]
     if "attn" in new:
         assert (np.asarray(new["attn"]["len"]) == lens + t).all()
-        for name in ("k", "v"):
+        for name in rows:
             np.testing.assert_allclose(
                 pc[name].numpy(),
-                np.asarray(new["attn"][name]).transpose(0, 1, 3, 2, 4), **TOL)
+                _port_layout(name, np.asarray(new["attn"][name])), **TOL)
     else:
         for name in ("conv", "ssm"):
             np.testing.assert_allclose(pc[name].numpy(),
@@ -358,8 +369,11 @@ def test_per_sequence_cache_shapes_match_reference():
         assert pc["len"].dtype == torch.int32 and pc["len"].tolist() == [0] * 3
         if "attn" in rc:
             assert (np.asarray(rc["attn"]["len"]) == 0).all()
-            assert tuple(pc["k"].shape) == tuple(
-                np.asarray(rc["attn"]["k"]).transpose(0, 1, 3, 2, 4).shape)
+            assert set(pc) == set(rc["attn"])
+            for name, a in rc["attn"].items():
+                if name != "len":
+                    assert tuple(pc[name].shape) == _port_layout(
+                        name, np.asarray(a)).shape
         else:
             for k in ("conv", "ssm"):
                 assert tuple(pc[k].shape) == rc["mamba"][k].shape

@@ -968,10 +968,13 @@ WINDOW_DECODE_CASES = {
 }
 
 
-def _qkv(shape_q, shape_kv, dtype, seed):
+def _qkv(shape_q, shape_kv, dtype, seed, dv=None):
+    """q, k and v drawn from one seeded generator; v of width ``dv`` (MLA)
+    where given, else k's."""
     g = torch.Generator().manual_seed(seed)
+    shape_v = shape_kv if dv is None else shape_kv[:-1] + (dv,)
     return [torch.randn(s, generator=g).to(dtype)
-            for s in (shape_q, shape_kv, shape_kv)]
+            for s in (shape_q, shape_kv, shape_v)]
 
 
 @pytest.mark.gpu
@@ -1024,6 +1027,89 @@ def test_windowed_decode_attention_kernel_matches_plain(card, case, dtype):
     want = p_da_ref.decode_attention_ref(q, k, v, lens, window)
     torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
     assert torch.all(got[lens == 0] == 0)
+
+
+# MLA's head dims: q and k of D = nope + rope, v of Dv below it (MiniCPM3-4B
+# (96, 64), 40/40 heads; DeepSeek-V2 (192, 128), 128/128 heads).
+# (b, hq, hk, tq, tk, d, dv, causal, window, q_offset)
+MLA_FLASH_CASES = {
+    "minicpm3_prefill_d96": (1, 40, 40, 4600, 4672, 96, 64, True, None, 0),
+    "deepseek_prefill_h16_d192": (1, 16, 16, 4600, 4672, 192, 128, True,
+                                  None, 0),
+    "tq127_d96": (1, 4, 4, 127, 127, 96, 64, True, None, 0),
+    "tq128_tk200_offset72_g2_d192": (2, 4, 2, 128, 200, 192, 128, True,
+                                     None, 72),
+    "tq129_d192": (1, 2, 2, 129, 129, 192, 128, True, None, 0),
+    "noncausal_tq129_tk65_d96": (1, 2, 2, 129, 65, 96, 64, False, None, 0),
+    "window40_offset204_g3_d192": (1, 3, 1, 129, 333, 192, 128, True, 40,
+                                   204),
+    "no_live_key_d96": (1, 2, 1, 70, 70, 96, 64, True, 0, 0),
+}
+# (b, hq, hk, s, d, dv, window, lengths)
+MLA_DECODE_CASES = {
+    "minicpm3_tick_d96": (8, 40, 40, 4672, 96, 64, None,
+                          [4601, 257, 4649, 2001, 4098, 1001, 3501, 300]),
+    "deepseek_tick_h32_d192": (8, 32, 32, 4672, 192, 128, None,
+                               [4601, 257, 4649, 2001, 4098, 1001, 3501,
+                                300]),
+    "lengths_0_1_s_past_s_d192": (4, 8, 8, 300, 192, 128, None,
+                                  [0, 1, 300, 301]),
+    "split_edges_g6_d96": (4, 12, 2, 2112, 96, 64, None,
+                           [128, 129, 1152, 1153]),
+    "window70_g8_d192": (2, 16, 2, 1000, 192, 128, 70, [1000, 517]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MLA_FLASH_CASES))
+def test_mla_flash_attention_kernel_matches_plain(card, case, dtype):
+    b, hq, hk, tq, tk, d, dv, causal, window, off = MLA_FLASH_CASES[case]
+    q, k, v = (t.to(card) for t in _qkv((b, hq, tq, d), (b, hk, tk, d),
+                                         dtype, seed=tq, dv=dv))
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = p_fa_ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    want = p_fa_ref.attention_ref(q, k, v, causal, window, off)
+    assert got.dtype == dtype and got.shape == want.shape == (b, hq, tq, dv)
+    torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
+    if case == "no_live_key_d96":
+        assert torch.all(got == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MLA_DECODE_CASES))
+def test_mla_decode_attention_kernel_matches_plain(card, case, dtype):
+    b, hq, hk, s, d, dv, window, lengths = MLA_DECODE_CASES[case]
+    q, k, v = (t.to(card) for t in _qkv((b, hq, 1, d), (b, hk, s, d), dtype,
+                                         seed=s, dv=dv))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = _cuda.LAUNCHES["decode_attention"]
+    got = p_da_ops.decode_attention(q, k, v, lens, window)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decode_attention"] == before + 1
+    want = p_da_ref.decode_attention_ref(q, k, v, lens, window)
+    assert got.shape == want.shape == (b, hq, 1, dv)
+    torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
+    assert torch.all(got[lens == 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(96, 96), (96, 128), (192, 192),
+                                  (128, 64), (192, 64)])
+def test_attention_kernels_refuse_other_head_dim_pairs(card, dims):
+    """A (D, Dv) pair no kernel is built for raises on the card: there is
+    no padding fallback and no plain version there."""
+    d, dv = dims
+    q, k, v = (t.to(card) for t in _qkv((1, 2, 4, d), (1, 2, 8, d),
+                                         torch.bfloat16, seed=0, dv=dv))
+    with pytest.raises(ValueError, match="head dims"):
+        p_fa_ops.flash_attention(q, k, v)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        p_da_ops.decode_attention(q[:, :, :1].contiguous(), k, v, lens)
 
 
 @pytest.mark.gpu
@@ -1402,6 +1488,81 @@ def test_two_layer_batcher_on_the_card_equals_the_cpu(card, arch):
         torch.testing.assert_close(logits[rid][..., :cfg.vocab_size],
                                    cpu_logits[rid][..., :cfg.vocab_size],
                                    rtol=0, atol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# multi-head latent attention (MLA): the real head dims at a narrow width
+# --------------------------------------------------------------------------
+
+def _narrow_mla(arch, absorbed=False):
+    """The architecture's heads and MLA dims (MiniCPM3-4B: 40 heads, D 96,
+    Dv 64; DeepSeek-V2: 128 heads, D 192, Dv 128, its MoE cut to 8
+    experts of 256) at d_model 512, 2 layers, float32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    moe = cfg.moe and dataclasses.replace(cfg.moe, num_experts=8,
+                                          expert_ff=256, shared_ff=256)
+    return dataclasses.replace(cfg, num_layers=2, d_model=512, d_ff=1024,
+                               vocab_size=1000, dtype="float32", moe=moe,
+                               mla_absorbed=absorbed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b"])
+def test_mla_batcher_on_the_card_equals_the_cpu(card, arch):
+    """The continuous batcher over an MLA model at its real head dims:
+    the card's ids equal the CPU's, lane logits within 2e-3, every prefill
+    one flash launch a layer and every tick one decode launch a layer (the
+    expanded latent at (D, Dv) = (96, 64) or (192, 128))."""
+    from repro_torch.models import lm as p_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _narrow_mla(arch)
+    model = p_lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    requests = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32), 4)
+                for n in rng.integers(64, 161, 5)]
+    _cuda.reset_launches()
+    ids, logits, ticks = _batched(copy.deepcopy(model).to(card), requests, 3,
+                                  168)
+    assert _cuda.LAUNCHES["flash_attention"] == 2 * len(requests)
+    assert _cuda.LAUNCHES["decode_attention"] == 2 * ticks
+    cpu_ids, cpu_logits, cpu_ticks = _batched(model, requests, 3, 168)
+    assert ids == cpu_ids and ticks == cpu_ticks
+    for rid in ids:
+        torch.testing.assert_close(logits[rid][..., :cfg.vocab_size],
+                                   cpu_logits[rid][..., :cfg.vocab_size],
+                                   rtol=0, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b"])
+def test_mla_absorbed_decode_on_the_card_equals_expanded(card, arch):
+    """Absorbed (latent-space, torch products, no kernel) and expanded
+    (the attention kernels) serving on the card: the same greedy ids and
+    teacher-forced logits within 1e-3 (float32, TF32 off), and the
+    absorbed path launches no attention kernel."""
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 1000, size=(2, 100))).to(card)
+    out = {}
+    for absorbed in (False, True):
+        cfg = _narrow_mla(arch, absorbed)
+        model = p_lm.init_model(cfg, torch.Generator().manual_seed(0),
+                                "cpu").to(card)
+        _cuda.reset_launches()
+        ids = p_serve.generate(model, prompt, 8, max_len=120)
+        launched = (_cuda.LAUNCHES["flash_attention"],
+                    _cuda.LAUNCHES["decode_attention"])
+        assert launched == ((0, 0) if absorbed else (2, 2 * 7))
+        out[absorbed] = ids, _teacher_forced(model, prompt, ids, 120)
+    assert torch.equal(out[True][0], out[False][0])
+    torch.testing.assert_close(out[True][1], out[False][1], rtol=0,
+                               atol=1e-3)
 
 
 # --------------------------------------------------------------------------

@@ -152,13 +152,17 @@ def test_a_shared_header_change_rebuilds_every_source(tmp_path, monkeypatch):
 @pytest.mark.parametrize("launcher", ["int flash_attention_launch(",
                                       "int decode_attention_launch("])
 def test_attention_launchers_take_every_head_dim(launcher):
-    """Each launcher's switch instantiates every head dim the wrappers
-    accept (80 for H2O-Danube among them), and nothing else."""
+    """Each launcher's switch instantiates every (D, Dv) pair the wrappers
+    accept (80 for H2O-Danube, MLA's (96, 64) and (192, 128) among them),
+    and nothing else."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     body = _body(_source("attention.cu"), launcher)
-    cases = sorted(int(d) for d in re.findall(r"case (\d+):", body))
-    assert cases == sorted(fa_kernel.HEAD_DIMS) and 80 in cases
+    cases = sorted((int(d), int(dv)) for d, dv in
+                   re.findall(r"case PAIR\((\d+), (\d+)\):", body))
+    assert cases == sorted(fa_kernel.HEAD_DIMS)
+    assert {(80, 80), (96, 64), (192, 128)} <= set(cases)
+    assert "default: return kBadShape;" in body
 
 
 def test_decode_kernels_take_the_window():

@@ -127,8 +127,9 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
-    assert registered() == ("h2o-danube-1.8b", "mamba2-130m",
-                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
+    assert registered() == ("deepseek-v2-236b", "h2o-danube-1.8b",
+                            "mamba2-130m", "minicpm3-4b", "mixtral-8x22b",
+                            "olmo-1b", "qwen2-1.5b")
     full = get_config("qwen2-1.5b")
     assert full.padded_vocab == 152064
     assert round(full.param_counts()["total"] / 1e9, 2) == 1.54
@@ -149,9 +150,10 @@ def test_unported_model_features_raise(cfg, rcfg):
     assert ours["len"].dtype == torch.int32 and ours["len"].tolist() == [0, 0]
     assert ref["len"].shape == (cfg.num_layers, 2)
     assert tuple(ours["k"].transpose(2, 3).shape) == ref["k"].shape
-    mla = dataclasses.replace(cfg, mla=p_base.MLAConfig(kv_lora_rank=32))
+    # MLA is ported (tests/test_torch_mla.py); M-RoPE is not
+    mrope = dataclasses.replace(cfg, mrope_sections=(2, 3, 3))
     with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.init_model(mla, device="cpu")
+        p_lm.init_model(mrope, device="cpu")
     # MoE is ported (tests/test_torch_moe.py); a hybrid pattern is not
     hybrid = dataclasses.replace(
         cfg, moe=p_base.MoEConfig(4, 2, 64), mamba=p_base.MambaConfig(),
@@ -395,7 +397,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 ("core", "kb_dist.py"), ("configs", "dscep.py"),
                 ("launch", "serve.py"), ("configs", "h2o_danube_1_8b.py"),
                 ("configs", "olmo_1b.py"), ("models", "moe.py"),
-                ("configs", "mixtral_8x22b.py")):
+                ("configs", "mixtral_8x22b.py"), ("configs", "minicpm3_4b.py"),
+                ("configs", "deepseek_v2_236b.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):

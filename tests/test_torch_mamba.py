@@ -116,8 +116,9 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert ours.padded_vocab == ref.padded_vocab
         assert ours.mamba.nheads(ours.d_model) == ref.mamba.nheads(ref.d_model)
-    assert registered() == ("h2o-danube-1.8b", "mamba2-130m",
-                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
+    assert registered() == ("deepseek-v2-236b", "h2o-danube-1.8b",
+                            "mamba2-130m", "minicpm3-4b", "mixtral-8x22b",
+                            "olmo-1b", "qwen2-1.5b")
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.padded_vocab) == (24, 768,
                                                                   50432)
