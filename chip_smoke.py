@@ -50,7 +50,9 @@ Phases (each prints its lines; any failure exits non-zero):
    k of D against v of Dv (MiniCPM3-4B: 40/40 heads, D 96, Dv 64;
    DeepSeek-V2: 128/128 heads, D 192, Dv 128): the same lane prefill,
    causal without a window (SDPA ``is_causal``), and an 8-lane tick over
-   the same lengths without a window, held and timed alike;
+   the same lengths without a window, held and timed alike; head dim 128
+   at group 4 (Jamba-v0.1-52B's 32/8 heads), causal without a window:
+   the same lane prefill and 8-lane tick, held and timed alike;
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
@@ -166,33 +168,45 @@ Phases (each prints its lines; any failure exits non-zero):
    lanes of a per-sequence cache, every tick decoding all lanes in one
    fixed-shape step, finished lanes reused) at full width with random
    bf16 weights: (a) H2O-Danube-1.8B (24 layers, 32/8 heads of 80,
-   window 4096), 8 slots of 4672 rows, 24 requests of 256-4600 ids (4
-   past the window), 8-48 new tokens; (b) OLMo-1B, 8 slots, 24 requests
+   window 4096), 8 slots of 4672 rows, 12 requests of 256-4600 ids (4
+   past the window), 8-48 new tokens; (b) OLMo-1B, 8 slots, 12 requests
    of 256-2048 ids; (c) Mamba2-130M, 4 slots, 12 requests; (d)
    Mixtral-8x22B (MoE, 8 experts top-2 of 16384, 48/8 heads of 128,
    window 4096) at 4 of its 56 layers (``BATCH_DEPTH``: 10.4 B of its 141 B
    parameters), danube's traffic; (e) MiniCPM3-4B (MLA: a latent cache of
-   256 + 32 columns a row, 40 heads expanded to D 96, Dv 64), all 62
-   layers; (f) DeepSeek-V2 (MLA at D 192, Dv 128, 128
+   256 + 32 columns a row, 40 heads expanded to D 96, Dv 64), 16 of its
+   62 layers; (f) DeepSeek-V2 (MLA at D 192, Dv 128, 128
    heads; MoE of 160 experts top-6 with 2 shared) at 2 of its 60 layers
-   (9.0 B of its 239 B parameters), danube's distributions (e and f: 8
-   slots, 12 requests, 4 of them past 4096 ids).  Gates: every
-   request drains; flash launches = layers x requests, decode launches =
-   layers x ticks (every tick decodes), SSD launches = layers x requests
-   in (c), nothing else; the lane logits of 6 requests of (a), (d), (e)
-   and (f) (2 past 4096 ids) and 4 of (b), recorded by wrapping the two
+   (9.0 B of its 239 B parameters); (g) Jamba-v0.1-52B (a period of 8
+   layers: Mamba-1, d_inner 8192, d_state 16, but for one attention
+   layer of 32/8 heads of 128; dense and 16-expert MoE FFNs in turn) at
+   one period, 8 of its 32 layers (13.3 B of its 51.5 B parameters);
+   danube's distributions (e, f and g: 8 slots, 12 requests, 4 of them
+   past 4096 ids).  Gates: every
+   request drains; flash launches = attention layers x requests, decode
+   launches = attention layers x ticks (every tick decodes), SSD
+   launches = layers x requests in (c), nothing else; the lane logits of
+   6 requests of (a), (d), (e), (f) and (g) (2 past 4096 ids) and 4 of
+   (b), recorded by wrapping the two
    callables, within LM_BF16_FACTOR times the bf16-vs-f32 difference of
    the single-sequence path (a batch-1 cache with a shared length fed the
    same ids; max and mean), and the ids equal to its argmax wherever its
-   top-2 gap exceeds that bound; for the MoE models (d) and (f), whose
-   bf16 routing flips near-tied experts, also the same comparison on
-   their f32 copies (all requests drained on it; both sides dropless:
-   logits within 2e-3 and the ids equal at every position); the card
-   equal to the CPU on f32 copies at 2 layers of (a), (b) and (e) and 1 of
-   (d) and (f) (3 slots, 5 requests, equal ids, logits within 2e-3); for
-   (e) and (f) a whole decode step of 8 lanes reads nothing back to the
-   host (``set_sync_debug_mode("error")``).  It prints generated tokens/s, ticks, peak memory
-   and the idle share over 8 ticks of busy lanes; for (d) and (f) also the
+   top-2 gap exceeds that bound; for the MoE models (d), (f) and (g),
+   whose bf16 routing flips near-tied experts, also the same comparison
+   on their f32 copies (all requests drained on it; both sides dropless:
+   logits within 2e-3 and the ids equal at every position); (g)'s
+   comparisons run on a two-layer copy at full width, layers 4 and 5 of
+   its period (attention with a dense FFN, Mamba-1 with an MoE;
+   ``BATCH_GATE_PATTERN``), as a float32 copy of 8 layers does not fit
+   beside them; the card equal to the CPU on f32 copies at 2 layers of
+   (a), (b), (e) and (g)'s pattern and 1 of (d) and (f) (3 slots, 5
+   requests, equal ids, logits within 2e-3); for (e), (f) and (g) a
+   whole decode step of 8 lanes reads nothing back to the host
+   (``set_sync_debug_mode("error")``).  It prints generated tokens/s,
+   ticks, peak memory and the idle share over 8 ticks of busy lanes; for
+   (g) the device time of a lane prefill of 4600 ids and of a tick split
+   by the Mamba-1 mixers and their scan, the MoE and the attention
+   kernel; for (d) and (f) also the
    MoE's
    share of a tick's device busy time (expert products against dispatch
    and combine) and one lane prefill's MoE with its products over the
@@ -332,24 +346,39 @@ LAUNCHER_SERVE = 8
 # (arch, slots, requests, prompt ids (lo, hi), prompts past the window,
 # new ids (lo, hi), lane rows, teacher-forced requests (past the window))
 BATCH_WORLDS = (
-    ("h2o-danube-1.8b", 8, 24, (256, 4600), 4, (8, 48), 4672, (6, 2)),
-    ("olmo-1b", 8, 24, (256, 2048), 0, (8, 48), 2112, (4, 0)),
+    # (danube, olmo and Mixtral drew 24 requests before Jamba's world
+    # came: 12, as the MLA worlds', keep the script under 1000 s; lanes
+    # are still reused)
+    ("h2o-danube-1.8b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("olmo-1b", 8, 12, (256, 2048), 0, (8, 48), 2112, (4, 0)),
     ("mamba2-130m", 4, 12, (256, 2048), 0, (8, 48), 2112, (0, 0)),
-    ("mixtral-8x22b", 8, 24, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("mixtral-8x22b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
     # MLA: danube's distributions (the prompts "past the window" are past
     # 4096 ids; these models have no window) over the latent cache, 12
     # requests (cut from 24 to keep the script near 900 s; lanes are still
     # reused)
     ("minicpm3-4b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
     ("deepseek-v2-236b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    # the hybrid pattern (Mamba-1, one attention layer a period, dense and
+    # MoE FFNs): danube's draws as the MLA worlds'
+    ("jamba-v0.1-52b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
 )
 # depth cuts: (layers on the card, layers of the card-against-CPU copies);
 # an architecture not named here runs all its layers and BATCH_CPU's.
+# MiniCPM3-4B ran all 62 layers before Jamba's world came: 16 keep the
+# script under 1000 s.
 # Mixtral's 56 layers hold 141 B parameters (282 GB in bf16); 4 layers
 # hold 10.4 B, and its float32 copy of 1 layer about 12 GB a side.
 # DeepSeek-V2's 60 layers hold 239 B (479 GB); 2 layers hold 9.0 B (18 GB),
-# its float32 copy of 1 layer 5.0 B, about 20 GB a side
-BATCH_DEPTH = {"mixtral-8x22b": (4, 1), "deepseek-v2-236b": (2, 1)}
+# its float32 copy of 1 layer 5.0 B, about 20 GB a side.  Jamba's 32
+# layers hold 51.5 B (103 GB); one period of 8 holds 13.3 B (26.5 GB)
+BATCH_DEPTH = {"mixtral-8x22b": (4, 1), "deepseek-v2-236b": (2, 1),
+               "minicpm3-4b": (16, 2), "jamba-v0.1-52b": (8, 2)}
+# where a float32 copy of the card's depth does not fit beside it, gates 3
+# and 4 run on a copy at full width whose layer pattern is this slice of
+# the period: Jamba's layers 4 and 5 (attention with a dense FFN, Mamba-1
+# with an MoE; 3.67 B parameters, 7.3 GB in bf16, 14.7 GB in float32)
+BATCH_GATE_PATTERN = {"jamba-v0.1-52b": (4, 6)}
 MOE_PREFILL = 4600     # the MoE's prefill shape in phase 12's MoE lines
 BATCH_SEED = 12
 # the card-against-CPU gate: float32 copies at 2 layers, 3 slots, 5
@@ -2411,6 +2440,7 @@ def phase_attention(smi):
     del q, k, v
     phase_attention_d80(recs, record, gen, smi)
     phase_attention_mla(recs, record, gen, smi)
+    phase_attention_jamba(recs, record, gen, smi)
     sync()
     return recs
 
@@ -2456,6 +2486,17 @@ def phase_attention_mla(recs, record, gen, smi):
             ("%s tick, 8 ragged lanes" % label, 8, DANUBE_MAX_LEN, None,
              DANUBE_TICK_LENGTHS),
         ], dv=dv, window=None)
+
+
+def phase_attention_jamba(recs, record, gen, smi):
+    """Jamba's attention layer, D 128 at group 4 (32/8 heads), causal and
+    without a window: its lane prefill and an 8-lane tick over
+    DANUBE_TICK_LENGTHS, in both dtypes; the bf16 cases timed beside SDPA
+    (``is_causal``, and over S with the lanes' mask)."""
+    lane_attention(recs, record, gen, smi, "jamba", 32, 8, 128, [
+        ("jamba tick, 8 ragged lanes", 8, DANUBE_MAX_LEN, None,
+         DANUBE_TICK_LENGTHS),
+    ], window=None)
 
 
 def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases,
@@ -2744,19 +2785,31 @@ def gate_cpu(model, f32, prompt, new):
         fail("the card and the CPU generate other ids on the f32 LM path")
 
 
-def make_lm(arch, layers=None):
-    """The architecture at full width (``layers`` of its layers where
-    given), random weights from a seeded generator on the card; float32
-    products in full float32 for the f32 gates (the default; set so that
-    no earlier setting leaks in)."""
+def lm_config(arch, layers=None, pattern=None):
+    """The architecture's configuration at full width: ``layers`` of its
+    layers where given, and the slice ``pattern`` (start, stop) of its
+    layer pattern as the pattern where given."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if pattern is not None:
+        cfg = dataclasses.replace(
+            cfg, layer_pattern=cfg.layer_pattern[slice(*pattern)])
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def make_lm(arch, layers=None, pattern=None):
+    """The architecture at full width (``lm_config``), random weights from
+    a seeded generator on the card; float32 products in full float32 for
+    the f32 gates (the default; set so that no earlier setting leaks
+    in)."""
     from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = lm_config(arch, layers, pattern)
     t0 = time.time()
     model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                           device="cuda")
@@ -3180,15 +3233,14 @@ def gate_batched_f32(f32, requests, slots, max_len, record, label):
              "%g > %g" % (label, err, LM_CPU_TOL))
 
 
-def gate_batched_cpu(arch, layers, smi):
+def gate_batched_cpu(arch, layers, smi, pattern=None):
     """Gate 4: the batcher on the card == on the CPU, float32 copies at
-    ``layers`` layers and full width: equal ids, lane logits within
-    LM_CPU_TOL (TF32 off)."""
-    from repro_torch.configs import get_config
+    ``layers`` layers (of the pattern slice ``pattern`` where given) and
+    full width: equal ids, lane logits within LM_CPU_TOL (TF32 off)."""
     from repro_torch.models import lm
 
     c = BATCH_CPU
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = lm_config(arch, layers, pattern)
     model = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
                           device="cuda")
     f32, cpu = as_f32(model, "cuda"), as_f32(model, "cpu")
@@ -3206,10 +3258,11 @@ def gate_batched_cpu(arch, layers, smi):
     v = cfg.vocab_size
     err = max(float((log_g[r].cpu() - log_c[r])[:, :v].abs().max())
               for r in every)
-    log("  gate 4, card against CPU (%s, f32, %d layers, TF32 off, %d slots, "
-        "%d requests of %d-%d ids, %d new tokens): max |logit diff| %.3g "
-        "(tol %g), ticks %d / %d, ids of request 0 %s / %s, %.1f s [%s]"
-        % (arch, layers, c["slots"], c["requests"], c["prompt"][0],
+    log("  gate 4, card against CPU (%s, f32, %d layers %s, TF32 off, %d "
+        "slots, %d requests of %d-%d ids, %d new tokens): max |logit diff| "
+        "%.3g (tol %g), ticks %d / %d, ids of request 0 %s / %s, %.1f s [%s]"
+        % (arch, layers, pattern_text(cfg), c["slots"], c["requests"],
+           c["prompt"][0],
            c["prompt"][1], c["new"], err, LM_CPU_TOL, ticks_g, ticks_c,
            ids_g[0], ids_c[0], time.time() - t0, smi))
     if not err <= LM_CPU_TOL:
@@ -3285,7 +3338,8 @@ def moe_share(model, slots, tick_busy, smi):
 
     cfg = model.cfg
     mo, d, e, k = cfg.moe, cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
-    p = model.blocks[0].moe
+    moes = [blk.moe for blk in model.blocks if blk.moe is not None]
+    p = moes[0]
     gen = torch.Generator(device="cuda").manual_seed(3)
     for n in (slots, MOE_PREFILL):
         x = _randn((1, n, d), torch.bfloat16, gen)
@@ -3329,10 +3383,10 @@ def moe_share(model, slots, tick_busy, smi):
                 "kernels %s, the rest %s; wall %.4f ms; in turns, wall "
                 "%.4f ms against %.4f trimmed with a host read) = %.3f of "
                 "the tick's %s ms device busy [%s]"
-                % (n, cap, slots, cfg.num_layers, ms_text(whole),
+                % (n, cap, slots, len(moes), ms_text(whole),
                    ms_text(prod), ms_text(whole - prod if measured else None),
                    wall, np.mean(walls[False]), np.mean(walls[True]),
-                   cfg.num_layers * whole / tick_busy
+                   len(moes) * whole / tick_busy
                    if tick_busy and measured else float("nan"),
                    "%.3f" % tick_busy if tick_busy else "(not measured)",
                    smi))
@@ -3384,13 +3438,134 @@ def tick_reads_nothing_back(model, slots, max_len, smi):
     del cache
 
 
+def pattern_text(cfg) -> str:
+    """A layer pattern as ``mixer+ffn`` a layer, e.g. ``attn+dense``."""
+    return "[%s]" % ", ".join("%s+%s" % (sp.mixer, sp.ffn)
+                              for sp in cfg.layer_pattern)
+
+
+def device_split(label, fn, parts, smi):
+    """Device busy ms of one ``fn()`` and of its parts.  Each part is a
+    function ``(module, name)``: its calls in one ``fn()`` are recorded
+    and replayed alone in one profiler session.  Parts named with a
+    ``/`` (``mixer/scan``) lie inside the part before the slash and are
+    not taken off the rest again; the rest is the whole less the other
+    parts.  A part whose sessions all recorded no device event (seen for
+    the replays of one attention launch alone) is timed with CUDA events
+    instead, and marked so.  Returns ``{part: ms}`` with ``"whole"`` and
+    ``"rest"``, None where the whole's sessions recorded nothing."""
+    calls = {name: [] for name in parts}
+
+    def spy(name, orig):
+        def wrapped(*a, **kw):
+            calls[name].append((a, kw))
+            return orig(*a, **kw)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in parts.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, spy(name, getattr(mod, attr))))
+        fn()
+    whole = busy_ms(fn, iters=1)[0]
+    out, by_events = {"whole": whole}, set()
+    for name, (mod, attr) in parts.items():
+        orig = getattr(mod, attr)
+
+        def replay():
+            for a, kw in calls[name]:
+                orig(*a, **kw)
+
+        out[name] = busy_ms(replay, iters=1)[0] if calls[name] else 0.0
+        if out[name] is None:
+            out[name] = cuda_ms(replay, iters=3, warmup=1)
+            by_events.add(name)
+    top = [out[n] for n in parts if "/" not in n]
+    out["rest"] = (whole - sum(top) if whole is not None
+                   and all(t is not None for t in top) else None)
+    log("  device split of %s: busy %s ms; %s; rest %s ms [%s]"
+        % (label, ms_text(whole), "; ".join(
+            "%s (%d calls) %s ms%s%s" % (
+                n, len(calls[n]), ms_text(out[n]),
+                " by CUDA events" if n in by_events else "",
+                " (%.3f of the whole)" % (out[n] / whole)
+                if whole and out[n] is not None else "")
+            for n in parts), ms_text(out["rest"]), smi))
+    return out
+
+
+def hybrid_split(model, slots, max_len, smi):
+    """Where a lane prefill of the longest prompt (DANUBE_PROMPT_MAX ids)
+    and a tick of ``slots`` lanes (DANUBE_TICK_LENGTHS) spend the device's
+    time: the Mamba-1 mixers (``mamba1_forward``) and their scan
+    (``selective_scan``, the prefill's; a tick takes the one-step
+    recurrence inside the mixer), the MoE FFNs, the attention kernel, and
+    the rest."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm, mamba
+
+    prefill, decode = launch.make_slot_fns(model, max_len)
+    cache = lm.init_cache(model.cfg, slots, max_len, model.device,
+                          per_seq=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, DANUBE_PROMPT_MAX),
+                           generator=gen, device="cuda")
+    tokens = torch.randint(0, model.cfg.vocab_size, (slots, 1),
+                           generator=gen, device="cuda")
+    common = {"Mamba-1 mixers": (mamba, "mamba1_forward"),
+              "Mamba-1 mixers/scan": (mamba, "selective_scan"),
+              "MoE": (lm, "moe_forward")}
+    pre = device_split(
+        "a lane prefill of %d ids" % DANUBE_PROMPT_MAX,
+        lambda: prefill(prompt, cache, 0),
+        {**common, "flash attention": (fa_ops, "flash_attention")}, smi)
+
+    def tick():
+        cache["len"].copy_(torch.tensor(DANUBE_TICK_LENGTHS[:slots],
+                                        dtype=torch.int32))
+        decode(tokens, cache)
+
+    tk = device_split("a tick of %d lanes" % slots, tick,
+                      {**common, "decode attention": (da_ops,
+                                                      "decode_attention")},
+                      smi)
+    del cache
+    return pre, tk
+
+
+def gate_on_copy(arch, pattern, reqs, slots, max_len, record, smi):
+    """Gate 3 where the card's depth has no room for its float32 copy: the
+    batcher drains ``reqs`` on a copy at full width whose layer pattern is
+    the slice ``pattern`` of the period (one layer each), and its lanes of
+    ``record`` are held to the single-sequence path as ``gate_batched``
+    holds them (bf16 against the bf16-vs-f32 noise; and, for an MoE, the
+    float32 copy within LM_CPU_TOL with equal ids)."""
+    layers = pattern[1] - pattern[0]
+    cfg, model, n_params, made_s = make_lm(arch, layers, pattern)
+    label = "%s, %d-layer copy %s" % (arch, layers, pattern_text(cfg))
+    log("  gate copy: %s, %.3f B parameters, made in %.1f s [%s]"
+        % (label, n_params / 1e9, made_s, smi))
+    t0 = time.time()
+    with torch.no_grad():
+        ids, logits, ticks, _, _ = run_batcher(model, reqs, slots, max_len,
+                                               record)
+        gate_batched(model, reqs, ids, logits, label, slots, max_len)
+    log("  gate 3 (%s, %d ticks) took %.1f s" % (label, ticks,
+                                                 time.time() - t0))
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_batcher(smi):
     """Phase 12: requests queued, each prefilled into a free lane of a
     per-sequence cache, every tick decoding all lanes in one fixed-shape
     step, finished lanes reused; at full width, random bf16 weights."""
     from repro_torch.kernels import _cuda
-
     from repro_torch.configs import get_config
+    from repro_torch.models import lm
 
     total = {k: 0 for k in _cuda.LAUNCHES}
     for (arch, slots, n, (lo, hi), past, (new_lo, new_hi), max_len,
@@ -3398,6 +3573,7 @@ def phase_batcher(smi):
         t_world = time.time()
         layers, cpu_layers = BATCH_DEPTH.get(arch, (None,
                                                     BATCH_CPU["layers"]))
+        gate_pattern = BATCH_GATE_PATTERN.get(arch)
         cfg, model, n_params, made_s = make_lm(arch, layers)
         # a model without a window draws danube's traffic: "past" counts
         # prompts past DANUBE_WINDOW ids
@@ -3406,12 +3582,14 @@ def phase_batcher(smi):
                               new_lo, new_hi, BATCH_SEED)
         lens = [len(p) for p, _ in reqs]
         log("phase 12: %s, %d of %d layers, d_model %d, %s, %.3f B "
-            "parameters, made in %.1f s; %d slots of %d rows, %d requests, "
-            "prompts %d-%d ids (%d past %s ids; the model's window %s), "
-            "%d-%d new [%s]"
+            "parameters summed from its tensors (%.3f B by the reference's "
+            "param_counts), made in %.1f s; %d slots of %d rows, %d "
+            "requests, prompts %d-%d ids (%d past %s ids; the model's "
+            "window %s), %d-%d new [%s]"
             % (arch, cfg.num_layers, get_config(arch).num_layers,
                cfg.d_model, cfg.dtype, n_params / 1e9,
-               made_s, slots, max_len, n, min(lens), max(lens),
+               cfg.param_counts()["total"] / 1e9, made_s, slots, max_len, n,
+               min(lens), max(lens),
                sum(t > (window or 1 << 30) for t in lens), window,
                cfg.swa_window, min(m for _, m in reqs),
                max(m for _, m in reqs), smi))
@@ -3424,9 +3602,13 @@ def phase_batcher(smi):
                 + [i for i, t in enumerate(lens) if t > window][:forced_past])
         else:
             record = list(range(forced))
-        mamba = cfg.layer_pattern[0].mixer == "mamba"
-        kernels = ("ssd",) if mamba else ("flash_attention",
-                                          "decode_attention")
+        kinds = [kind for kind, _ in lm.cache_slots(cfg)]
+        n_attn = kinds.count("attn")
+        n_ssd = len(kinds) - n_attn if cfg.mamba and cfg.mamba.version == 2 \
+            else 0
+        want_per = {"flash_attention": n_attn, "decode_attention": n_attn,
+                    "ssd": n_ssd}
+        kernels = tuple(k for k, c in want_per.items() if c)
 
         # the main path, through the entry points, counted
         sync()
@@ -3436,10 +3618,8 @@ def phase_batcher(smi):
             ids, logits, ticks, calls, secs = run_batcher(model, reqs, slots,
                                                           max_len, record)
         launches = path_launches("phase 12 (%s batcher)" % arch, kernels, smi)
-        layers = cfg.num_layers
-        want = ({"ssd": layers * n} if mamba else
-                {"flash_attention": layers * n,
-                 "decode_attention": layers * calls})
+        want = {"flash_attention": n_attn * n,
+                "decode_attention": n_attn * calls, "ssd": n_ssd * n}
         for k, cnt in launches.items():
             if cnt != want.get(k, 0):
                 fail("%s launched %d times on the %s batcher, expected %d"
@@ -3460,23 +3640,29 @@ def phase_batcher(smi):
         for k in total:
             total[k] += launches[k]
         with torch.no_grad():
-            if record:
+            if record and gate_pattern is None:
                 t0 = time.time()
                 gate_batched(model, reqs, ids, logits, arch, slots, max_len)
                 log("  gate 3 (%s) took %.1f s" % (arch, time.time() - t0))
             tick_busy = profile_ticks(model, reqs, slots, max_len, kernels,
                                       smi)
-            if cfg.moe is not None:
+            hybrid = cfg.mamba is not None and cfg.mamba.version == 1
+            if cfg.moe is not None and not hybrid:
                 moe_share(model, slots,
                           tick_busy / PROFILE_TICKS if tick_busy else None,
                           smi)
-            if cfg.mla is not None:
+            if cfg.mla is not None or hybrid:
                 tick_reads_nothing_back(model, slots, max_len, smi)
+            if hybrid:      # the MoE's share of a tick and a prefill too
+                hybrid_split(model, slots, max_len, smi)
         del model, logits
         gc.collect()
         torch.cuda.empty_cache()
-        if not mamba:
-            gate_batched_cpu(arch, cpu_layers, smi)
+        if record and gate_pattern is not None:
+            gate_on_copy(arch, gate_pattern, reqs, slots, max_len, record,
+                         smi)
+        if n_attn:
+            gate_batched_cpu(arch, cpu_layers, smi, gate_pattern)
         log("  %s world: %.1f s" % (arch, time.time() - t_world))
     return total
 

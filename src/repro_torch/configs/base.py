@@ -3,10 +3,10 @@
 One :class:`ModelConfig` describes a decoder LM: dense / MoE / SSM /
 hybrid stacks with GQA/MLA/SWA attention, M-RoPE, multi-codebook heads.
 The schema is the whole of the reference's, so a configuration compares
-field for field; the port runs GQA and MLA stacks whose layers carry a
-dense FFN, an MoE FFN or none (sliding windows and the non-parametric
-LayerNorm included) and attention-free Mamba-2 (SSD) stacks of it
-(``models/``), and the rest raises ``NotImplementedError`` where it is
+field for field; the port runs any layer pattern of GQA or MLA attention and Mamba-1 or
+Mamba-2 mixers whose layers carry a dense FFN, an MoE FFN or none
+(sliding windows and the non-parametric LayerNorm included;
+``models/``), and the rest raises ``NotImplementedError`` where it is
 used.
 """
 from __future__ import annotations
@@ -151,7 +151,7 @@ class ModelConfig:
                         + 2 * d * (self.num_kv_heads * hd) \
                         + (self.num_heads * hd) * d
                 add(attn_p * reps)
-            else:
+            else:   # Mamba-1 layers too: the reference's Mamba-2 formula
                 mc = self.mamba or MambaConfig()
                 di = mc.d_inner(d)
                 nh = mc.nheads(d)
@@ -179,7 +179,6 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # the reference's other architectures, each with the ROADMAP.md item that
 # ports what it needs
 NOT_PORTED = {
-    "jamba-v0.1-52b": "Other LM architectures",     # Mamba-1, MoE, hybrid
     "qwen2-vl-7b": "Other LM architectures",
     "musicgen-large": "Other LM architectures",
 }
@@ -194,8 +193,8 @@ def register(name: str):
 
 def _register_all() -> None:
     from . import (  # noqa: F401  (register themselves)
-        deepseek_v2_236b, h2o_danube_1_8b, mamba2_130m, minicpm3_4b,
-        mixtral_8x22b, olmo_1b, qwen2_1_5b)
+        deepseek_v2_236b, h2o_danube_1_8b, jamba_v0_1_52b, mamba2_130m,
+        minicpm3_4b, mixtral_8x22b, olmo_1b, qwen2_1_5b)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -81,19 +81,19 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     """An :class:`~repro_torch.models.lm.LM` from the reference's nested
     parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
     ``lm_head``, and for each sub-layer ``i`` of the layer pattern
-    ``blocks/sub{i}/{nm, nf, attn/*, mlp/*}`` (a dense FFN; ``attn`` holds
-    ``wq, wk, wv, wo`` and the biases for GQA, ``wq_a, wq_b`` or ``wq``,
-    ``wkv_a, wk_rope, wkv_b, wo`` for MLA),
-    ``blocks/sub{i}/{nm, nf, attn/*, moe/{router, wi, wg, wo, shared/*}}``
-    (an MoE; ``shared`` where it has shared experts) or
-    ``blocks/sub{i}/{nm, mamba/*}`` (Mamba-2), stacked on a leading period
-    axis, which is unstacked here: layer ``j`` is period ``j // P`` of
-    sub-layer ``j % P``, the reference's scan order.  A norm without
-    weights (OLMo's) has no ``nm``, ``nf`` or ``final_norm`` leaf.  The
-    port keeps the reference's weight layouts, so nothing is transposed;
-    values are cast to ``cfg.dtype``, except what the reference keeps in
-    float32: Mamba's ``A_log``, ``D`` and ``dt_bias`` and the MoE
-    router."""
+    ``blocks/sub{i}/{nm, attn/*}`` (``attn`` holds ``wq, wk, wv, wo`` and
+    the biases for GQA, ``wq_a, wq_b`` or ``wq``, ``wkv_a, wk_rope, wkv_b,
+    wo`` for MLA) or ``blocks/sub{i}/{nm, mamba/*}`` (Mamba-1 or Mamba-2,
+    the leaves of ``mamba.LEAVES`` by the configuration's version), and,
+    where the sub-layer has an FFN, ``nf`` and ``mlp/{wi, wg, wo}`` (dense)
+    or ``moe/{router, wi, wg, wo, shared/*}`` (an MoE; ``shared`` where it
+    has shared experts), stacked on a leading period axis, which is
+    unstacked here: layer ``j`` is period ``j // P`` of sub-layer ``j %
+    P``, the reference's scan order.  A norm without weights (OLMo's) has
+    no ``nm``, ``nf`` or ``final_norm`` leaf.  The port keeps the
+    reference's weight layouts, so nothing is transposed; values are cast
+    to ``cfg.dtype``, except what the reference keeps in float32: Mamba's
+    ``A_log``, ``D`` and ``dt_bias`` and the MoE router."""
     from .models.attention import MLA, Attention
     from .models.common import dtype_of
     from .models.lm import LM, Block, check_supported
@@ -115,33 +115,34 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     def mlp(tree, i):
         return MLP(*(t(tree[n][i]) for n in ("wi", "wg", "wo")))
 
+    def mixer(sub, i):
+        if "mamba" in sub:
+            mm, version = sub["mamba"], cfg.mamba.version
+            return Mamba(*(t(mm[n][i], torch.float32 if n in FLOAT32_LEAVES
+                             else dtype) for n in LEAVES[version]),
+                         version=version)
+        at = sub["attn"]
+        if "wkv_a" in at:
+            return MLA(*(t(at[n][i]) for n in ("wkv_a", "wk_rope", "wkv_b",
+                                              "wo")),
+                       **{n: opt(at, n, i) for n in ("wq", "wq_a", "wq_b")})
+        return Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")),
+                         *(opt(at, n, i) for n in ("bq", "bk", "bv")))
+
+    def ffn(sub, i):
+        if "mlp" in sub:
+            return mlp(sub["mlp"], i)
+        if "moe" in sub:
+            mo = sub["moe"]
+            return MoE(t(mo["router"][i], torch.float32),
+                       *(t(mo[n][i]) for n in ("wi", "wg", "wo")),
+                       mlp(mo["shared"], i) if "shared" in mo else None)
+        return None
+
     blocks = []
     for j in range(cfg.num_layers):
         i, sub = j // cfg.period, params["blocks"]["sub%d" % (j % cfg.period)]
-        if "mamba" in sub:
-            mm = sub["mamba"]
-            blocks.append(Block(opt(sub, "nm", i), Mamba(*(
-                t(mm[n][i], torch.float32 if n in FLOAT32_LEAVES else dtype)
-                for n in LEAVES))))
-            continue
-        at = sub["attn"]
-        if "wkv_a" in at:
-            attn = MLA(*(t(at[n][i]) for n in ("wkv_a", "wk_rope", "wkv_b",
-                                              "wo")),
-                       **{n: opt(at, n, i) for n in ("wq", "wq_a", "wq_b")})
-        else:
-            attn = Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv",
-                                                    "wo")),
-                             *(opt(at, n, i) for n in ("bq", "bk", "bv")))
-        if "mlp" in sub:
-            ffn = mlp(sub["mlp"], i)
-        elif "moe" in sub:
-            mo = sub["moe"]
-            ffn = MoE(t(mo["router"][i], torch.float32),
-                      *(t(mo[n][i]) for n in ("wi", "wg", "wo")),
-                      mlp(mo["shared"], i) if "shared" in mo else None)
-        else:
-            ffn = None
-        blocks.append(Block(opt(sub, "nm", i), attn, opt(sub, "nf", i), ffn))
+        blocks.append(Block(opt(sub, "nm", i), mixer(sub, i),
+                            opt(sub, "nf", i), ffn(sub, i)))
     return LM(cfg, t(params["embed"]), blocks, opt(params, "final_norm"),
               opt(params, "lm_head"))

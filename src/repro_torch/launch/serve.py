@@ -35,7 +35,8 @@ from ..serve.lm import ContinuousBatcher, Request
 
 def lane_view(cache: Dict, slot: int) -> Dict:
     """Lane ``slot`` of a per-sequence cache as a batch-1 cache sharing its
-    memory, with a shared length of 0."""
+    memory, with a shared length of 0: every stacked tensor of the cache,
+    whatever mix of attention and Mamba layers it holds."""
     view = {k: t[:, slot:slot + 1] for k, t in cache.items() if k != "len"}
     view["len"] = 0
     return view
@@ -45,15 +46,16 @@ def make_slot_fns(model: lm.LM, max_len: int) -> Tuple[Callable, Callable]:
     """``(prefill_one, decode_all)`` over the slot lanes of a cache from
     ``lm.init_cache(per_seq=True)``:
 
-    * ``prefill_one(tokens [1, T], cache, slot)`` zeroes lane ``slot``
-      (keys and values, MLA's latent rows, or conv tail and SSM state),
-      runs the prompt
-      through the lane's view at a shared length of 0 (the flash kernel
-      with ``q_offset`` 0, or the SSD kernel from a zero state), then sets
-      the lane's length to T;
+    * ``prefill_one(tokens [1, T], cache, slot)`` zeroes every cache
+      tensor of lane ``slot`` (keys and values or MLA's latent rows of the
+      attention layers, conv tails and SSM states of the Mamba layers),
+      runs the prompt through the lane's view at a shared length of 0
+      (the flash kernel with ``q_offset`` 0 in an attention layer, Mamba's
+      scan from a zero state: the SSD kernel for Mamba-2, the chunked
+      selective scan for Mamba-1), then sets the lane's length to T;
     * ``decode_all(tokens [num_slots, 1], cache)`` runs one step over all
-      lanes, each at its own length (decode attention over its live rows,
-      or the one-token recurrence).
+      lanes, each at its own length (decode attention over its live rows
+      in an attention layer, the one-token recurrence in a Mamba layer).
 
     Each returns ``(logits of the last position [B, Vp], cache)``; the
     cache is updated in place.  A prompt longer than ``max_len`` raises."""

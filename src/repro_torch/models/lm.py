@@ -1,19 +1,19 @@
-"""LM assembly for attention stacks (GQA or MLA, each layer's FFN dense,
-MoE or none) and Mamba-2 (SSD) stacks: init, forward, decode cache,
-decode step.
+"""LM assembly for any layer pattern of attention (GQA or MLA) and Mamba
+(Mamba-1 or Mamba-2) mixers, each layer's FFN dense, MoE or none: init,
+forward, decode cache, decode step.
 
 The reference scans over stacked layer weights, one period of the layer
 pattern at a time; here the stack is a Python loop over :class:`Block`
 modules (the port runs eagerly), layer ``j`` built from
 ``layer_pattern[j % period]``.  A block is a mixer (GQA attention,
-sliding-window or not, MLA, or Mamba-2) and, where the layer pattern has
-one, an FFN (a dense MLP or an MoE, ``models/moe.py``), each behind the
-configuration's norm (RMSNorm with a weight, or OLMo's non-parametric
-LayerNorm, which has none: the block and the model then carry no
-``nm``/``nf``/``final_norm``, as the reference's parameter tree has none).
-Weights keep the reference's layouts (``interop.lm_params_from_arrays``
-carries the reference's parameters in).  Mamba-1, hybrid patterns,
-codebook heads, vision/audio frontends and M-RoPE raise
+sliding-window or not, MLA, Mamba-1 or Mamba-2) and, where the layer
+pattern has one, an FFN (a dense MLP or an MoE, ``models/moe.py``), each
+behind the configuration's norm (RMSNorm with a weight, or OLMo's
+non-parametric LayerNorm, which has none: the block and the model then
+carry no ``nm``/``nf``/``final_norm``, as the reference's parameter tree
+has none).  Weights keep the reference's layouts
+(``interop.lm_params_from_arrays`` carries the reference's parameters
+in).  Codebook heads, vision/audio frontends and M-RoPE raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 :func:`forward` runs the MoE layers in capacity mode unless asked for
@@ -21,12 +21,15 @@ codebook heads, vision/audio frontends and M-RoPE raise
 serving path: prefills and ticks) is always dropless, so a sequence's
 logits do not depend on which others share its batch.
 
-The cache is ``{"k": [L, B, Hk, S, D], "v": [L, B, Hk, S, D], "len"}``
-for GQA stacks, ``{"ckv": [L, B, S, r], "krope": [L, B, S, dr], "len"}``
-(the latent, the reference's layout) for MLA stacks and ``{"conv": [L, B,
-K-1, C], "ssm": [L, B, H, S, P], "len"}`` for Mamba-2 stacks; ``len`` is
-one host int shared by the batch, or, with ``per_seq`` (the continuous
-batcher's slot lanes), an int32 ``[B]`` tensor on the cache's device.
+The cache holds one stack a mixer kind, over the layers of that kind in
+layer order (:func:`cache_slots` maps a layer to its kind and its index
+there): ``{"k": [La, B, Hk, S, D], "v": [La, B, Hk, S, D]}`` for GQA
+layers or ``{"ckv": [La, B, S, r], "krope": [La, B, S, dr]}`` (the latent,
+the reference's layout) for MLA layers, ``{"conv": [Lm, B, K-1, C],
+"ssm": [Lm, B, ...]}`` for Mamba layers, and ``"len"``, which only the
+attention layers read: one host int shared by the batch, or, with
+``per_seq`` (the continuous batcher's slot lanes), an int32 ``[B]`` tensor
+on the cache's device.  A pure stack's tensors are over all L layers.
 :func:`decode_step` takes each sequence's positions from its own length,
 writes the new state into the cache and advances ``len`` in place.
 """
@@ -46,31 +49,27 @@ from .common import (
     NORMS, apply_norm, dtype_of, normal_param, ones_param, resolve_device,
 )
 from .mamba import (
-    Mamba, check_mamba, init_mamba, mamba2_forward, mamba_cache_shape,
+    Mamba, check_mamba, init_mamba, mamba_cache_shape, mamba_forward,
 )
 from .mlp import MLP, init_mlp
 from .moe import MoE, init_moe, moe_forward
 
 NEG_INF = -1e30
-MAMBA_LAYER = LayerSpec("mamba", None)
-
-
-def is_mamba(cfg: ModelConfig) -> bool:
-    return cfg.layer_pattern == (MAMBA_LAYER,)
+MIXERS = ("attn", "mamba")
+FFNS = ("dense", "moe", None)
+MAMBA_CACHE = ("conv", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's LM does not run yet: a layer pattern
-    other than attention layers (each FFN dense, MoE or none) or
-    ``(mamba, None)``.  A Mamba layer with no ``MambaConfig``, an MoE
-    layer with no ``MoEConfig`` or a depth the pattern does not divide is
-    a ``ValueError``."""
+    """Raise for what the port's LM does not run yet: a mixer other than
+    ``attn`` or ``mamba``, or an FFN other than dense, MoE or none, and
+    what ``check_attention`` refuses.  A Mamba layer with no
+    ``MambaConfig``, an MoE layer with no ``MoEConfig`` or a depth the
+    pattern does not divide is a ``ValueError``."""
     pattern = cfg.layer_pattern
     if any(s.mixer == "mamba" for s in pattern):
         check_mamba(cfg)
-    if not (pattern == (MAMBA_LAYER,) or all(
-            s.mixer == "attn" and s.ffn in ("dense", "moe", None)
-            for s in pattern)):
+    if not all(s.mixer in MIXERS and s.ffn in FFNS for s in pattern):
         raise not_ported("layer pattern %s (%s)" % (pattern, cfg.name),
                          "Other LM architectures")
     if any(s.ffn == "moe" for s in pattern) and cfg.moe is None:
@@ -87,12 +86,24 @@ def check_supported(cfg: ModelConfig) -> None:
     check_attention(cfg)
 
 
+def cache_slots(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """Layer ``j``'s ``(mixer kind, index in that kind's cache stack)``:
+    the kind's layers in layer order."""
+    seen = {kind: 0 for kind in MIXERS}
+    slots = []
+    for j in range(cfg.num_layers):
+        kind = cfg.layer_pattern[j % cfg.period].mixer
+        slots.append((kind, seen[kind]))
+        seen[kind] += 1
+    return slots
+
+
 def _weight(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
 
 class Block(nn.Module):
-    """norm -> mixer (attention or Mamba-2) -> residual, then, where the
+    """norm -> mixer (attention or Mamba) -> residual, then, where the
     layer has an FFN, norm -> FFN (a dense MLP or an MoE) -> residual.
     The mixer is ``attn`` or ``mamba`` and the FFN ``mlp`` or ``moe``
     (the other None), as in the reference's parameter tree; the norm
@@ -121,7 +132,7 @@ class Block(nn.Module):
             out, new_cache = attn_forward(self.attn, cfg, hn, positions,
                                           cache)
         else:
-            out, new_cache = mamba2_forward(self.mamba, cfg, hn, cache)
+            out, new_cache = mamba_forward(self.mamba, cfg, hn, cache)
         h = h + out
         aux = None
         if self.mlp is not None:
@@ -146,6 +157,7 @@ class LM(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.cache_slots = cache_slots(cfg)
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = _weight(final_norm)
@@ -233,34 +245,38 @@ def forward(model: LM, tokens: torch.Tensor, dropless: bool = False,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                per_seq: bool = False) -> Dict:
-    """An empty cache, length 0: zeros ``[L, batch, Hk, max_len, D]`` for
-    keys and values, ``[L, batch, max_len, r]`` and ``[L, batch, max_len,
-    dr]`` for an MLA stack's latent and rotary key, or, for Mamba-2 stacks
-    (which ``max_len`` does not size), each layer's conv tail and SSM
-    state.  One host length is shared
-    by the batch, or, with ``per_seq``, each sequence (slot lane) has its
-    own: an int32 ``[batch]`` tensor on ``device`` (Mamba-2 lanes carry one
-    too, for uniformity)."""
+    """An empty cache, length 0: for the attention layers zeros ``[La,
+    batch, Hk, max_len, D]`` for keys and values, or ``[La, batch,
+    max_len, r]`` and ``[La, batch, max_len, dr]`` for MLA's latent and
+    rotary key; for the Mamba layers (which ``max_len`` does not size) each
+    one's conv tail and SSM state, ``[Lm, batch, ...]``.  One host length
+    is shared by the batch, or, with ``per_seq``, each sequence (slot
+    lane) has its own: an int32 ``[batch]`` tensor on ``device`` (a Mamba
+    stack's lanes carry one too, for uniformity)."""
     check_supported(cfg)
     dev, dtype = resolve_device(device), dtype_of(cfg.dtype)
-    n = cfg.num_layers
-    length = seq_lengths(batch, dev) if per_seq else 0
-    if is_mamba(cfg):
-        one = mamba_cache_shape(cfg, batch, dtype, dev)
-        return {"conv": one["conv"][None].repeat(n, 1, 1, 1),
-                "ssm": one["ssm"][None].repeat(n, 1, 1, 1, 1), "len": length}
-    one = attn_cache_shape(cfg, batch, max_len, dtype, dev)
-    out = {name: torch.zeros((n,) + t.shape, dtype=dtype, device=dev)
-           for name, t in one.items() if name != "len"}
-    out["len"] = length
+    kinds = [kind for kind, _ in cache_slots(cfg)]
+    one = {}
+    if "attn" in kinds:
+        one["attn"] = attn_cache_shape(cfg, batch, max_len, dtype, dev)
+    if "mamba" in kinds:
+        one["mamba"] = mamba_cache_shape(cfg, batch, dtype, dev)
+    out = {name: torch.zeros((kinds.count(kind),) + t.shape, dtype=t.dtype,
+                             device=dev)
+           for kind, layer in one.items()
+           for name, t in layer.items() if name != "len"}
+    out["len"] = seq_lengths(batch, dev) if per_seq else 0
     return out
 
 
-def _layer_cache(cache: Dict, i: int) -> Dict:
-    """Layer ``i``'s view of the stacked cache."""
-    view = {name: t[i] for name, t in cache.items() if name != "len"}
-    if "ssm" not in cache:
-        view["len"] = cache["len"]
+def _layer_cache(cache: Dict, kind: str, i: int) -> Dict:
+    """The view of the stacked cache of the ``i``-th layer of mixer
+    ``kind``: an attention view carries ``len``."""
+    if kind == "mamba":
+        return {name: cache[name][i] for name in MAMBA_CACHE}
+    view = {name: t[i] for name, t in cache.items()
+            if name != "len" and name not in MAMBA_CACHE}
+    view["len"] = cache["len"]
     return view
 
 
@@ -280,8 +296,8 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,
         positions = start[:, None].long() + torch.arange(t, device=h.device)
     else:
         positions = _positions(b, t, start, h.device)
-    for i, blk in enumerate(model.blocks):
-        h, _, _ = blk(model.cfg, h, positions, _layer_cache(cache, i),
+    for blk, (kind, i) in zip(model.blocks, model.cache_slots):
+        h, _, _ = blk(model.cfg, h, positions, _layer_cache(cache, kind, i),
                       dropless=True)
     cache["len"] = start + t
     if last_only:

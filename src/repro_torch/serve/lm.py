@@ -69,7 +69,7 @@ def generate(model: lm.LM, prompt, max_new: int,
              device="cuda") -> torch.Tensor:
     """Batched generation (greedy by default): ``prompt [B, T]`` token ids
     -> ``[B, max_new]`` int32 on ``device``, where ``model`` must live.
-    ``max_len`` (default: prompt + new tokens) sizes the KV cache; Mamba-2
+    ``max_len`` (default: prompt + new tokens) sizes the KV cache; Mamba
     caches do not grow with it, but it is held to the same bound."""
     dev = resolve_device(device)
     if model.device.type != dev.type:

@@ -35,6 +35,7 @@ from repro_torch.kernels.decode_attention import ref as p_da_ref
 from repro_torch.kernels.flash_attention import kernel as p_fa_kernel
 from repro_torch.kernels.flash_attention import ops as p_fa_ops
 from repro_torch.kernels.flash_attention import ref as p_fa_ref
+from test_torch_batcher import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -4,7 +4,9 @@ reference's smoke size (``smoke_variant``, float32, on the CPU), for
 (non-parametric LayerNorm), ``mamba2-130m``, ``mixtral-8x22b`` (MoE,
 dropless on the serving path, sliding window 16), ``minicpm3-4b`` and
 ``deepseek-v2-236b`` (MLA: a latent cache ``ckv``/``krope``; DeepSeek's
-FFN an MoE with shared experts).
+FFN an MoE with shared experts) and ``jamba-v0.1-52b`` (the hybrid
+pattern, cut to one period of 8 layers: Mamba-1 and one attention layer
+with RoPE, dense and MoE FFNs; its cache holds both kinds).
 
 The same parameters (numpy, from a seed, in the reference's nested
 layout) and token ids feed both packages:
@@ -31,6 +33,7 @@ prompt lengths a model.  Tolerance: 2e-4 absolute and relative on logits
 and states (``test_torch_lm.py``).
 """
 import contextlib
+import dataclasses
 import functools
 import io
 from unittest import mock
@@ -53,7 +56,8 @@ from repro_torch.models import lm as p_lm
 from repro_torch.serve import lm as p_serve
 
 ARCHS = ("qwen2-1.5b", "h2o-danube-1.8b", "olmo-1b", "mamba2-130m",
-         "mixtral-8x22b", "minicpm3-4b", "deepseek-v2-236b")
+         "mixtral-8x22b", "minicpm3-4b", "deepseek-v2-236b",
+         "jamba-v0.1-52b")
 ATTENTION_ARCHS = tuple(a for a in ARCHS if a != "mamba2-130m")
 TOL = dict(rtol=2e-4, atol=2e-4)
 SLOTS = 2
@@ -61,6 +65,20 @@ MAX_LEN = 20
 # (prompt length, max_new): 5 requests on 2 lanes reuse both; 9 + 9 crosses
 # danube's smoke window of 16
 REQUESTS = ((5, 10), (9, 3), (5, 7), (9, 9), (9, 4))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's LM tensors here are small.  With one intra-op thread
+    pool over every core in each pytest-xdist worker beside the
+    reference's own, the workers wait on one another: the LM port modules
+    took twice the worker time under ``-n 6``.  One thread a worker while
+    a module's tests run; the count is restored after.  A thread count
+    reorders float32 sums at most, far inside the stated tolerances."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _draw(rcfg, seed=0):
@@ -115,9 +133,13 @@ def _generate(rparams, rcfg, prompt, max_new, max_len=MAX_LEN):
 
 @functools.lru_cache(maxsize=None)
 def _world(arch):
-    """Both packages' configs and parameters, and the requests."""
+    """Both packages' configs and parameters, and the requests.  A layer
+    pattern of more than one layer (Jamba's) keeps one period."""
     rcfg = r_base.smoke_variant(r_get_config(arch))
     cfg = smoke_variant(get_config(arch))
+    if cfg.period > 1:
+        rcfg = dataclasses.replace(rcfg, num_layers=rcfg.period)
+        cfg = dataclasses.replace(cfg, num_layers=cfg.period)
     arrays = _draw(rcfg)
     rparams = jax.tree.map(jnp.asarray, arrays)
     model = interop.lm_params_from_arrays(arrays, cfg)
@@ -236,7 +258,8 @@ def test_reference_batcher_with_positions_fixed_equals_port(arch):
     idle_steps = []
 
     def compare(rc, pc, active):
-        rlen = np.asarray(rc["sub0"]["attn"]["len"])      # [layers, lanes]
+        attn = next(sub["attn"] for sub in rc.values() if "attn" in sub)
+        rlen = np.asarray(attn["len"])                    # [periods, lanes]
         plen = pc["len"].numpy()
         assert (rlen == plen[None]).all(), (rlen, plen)
         idle_steps.extend(i for i in range(SLOTS) if i not in active)
@@ -308,37 +331,46 @@ def _port_layout(name, a):
 LENGTHS = {1: [0, 5, 20, 27], 3: [0, 5, 22, 27]}
 
 
+def _subs(cfg, rc):
+    """``(sub name, kind, [(period, port stack index)])`` of each
+    sub-layer of a reference cache."""
+    slots = p_lm.cache_slots(cfg)
+    out = []
+    for name, sub in rc.items():
+        i = int(name[3:])
+        kind = "attn" if "attn" in sub else "mamba"
+        out.append((name, kind, [(n, slots[n * cfg.period + i][1])
+                                 for n in range(cfg.num_periods)]))
+    return out
+
+
 @pytest.mark.parametrize("t", [1, 3])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_per_sequence_decode_step_matches_reference(arch, t):
+    """Every sub-layer's cache filled (attention rows at the lanes' lengths,
+    Mamba conv tails and SSM states), one step, and every sub-layer's
+    cache after it."""
     w = _world(arch)
     cfg, rcfg, model = w["cfg"], w["rcfg"], w["model"]
     lens = np.asarray(LENGTHS[t], np.int32)
     b = len(lens)
-    rc = r_lm.init_cache(rcfg, b, S, per_seq=True)
-    rng = np.random.default_rng(t)
-    sub = rc["sub0"]
-    if "attn" in sub:
-        at = sub["attn"]
-        rows = {name: rng.standard_normal(a.shape).astype(np.float32)
-                for name, a in at.items() if name != "len"}
-        sub = {"attn": {**{n: jnp.asarray(a) for n, a in rows.items()},
-                        "len": jnp.broadcast_to(jnp.asarray(lens),
-                                                at["len"].shape)}}
-    else:
-        mm = sub["mamba"]
-        conv = 0.5 * rng.standard_normal(mm["conv"].shape).astype(np.float32)
-        ssm = 0.5 * rng.standard_normal(mm["ssm"].shape).astype(np.float32)
-        sub = {"mamba": {"conv": jnp.asarray(conv), "ssm": jnp.asarray(ssm)}}
-    rc = {"sub0": sub}
-
+    empty = r_lm.init_cache(rcfg, b, S, per_seq=True)
     pc = p_lm.init_cache(cfg, b, S, device="cpu", per_seq=True)
-    if "attn" in sub:
-        for name, a in rows.items():
-            pc[name].copy_(torch.from_numpy(_port_layout(name, a)))
-    else:
-        pc["conv"].copy_(torch.from_numpy(conv))
-        pc["ssm"].copy_(torch.from_numpy(ssm))
+    rng = np.random.default_rng(t)
+    rc, filled = {}, {}
+    for name, kind, stacks in _subs(cfg, empty):
+        leaves = empty[name][kind]
+        scale = 1.0 if kind == "attn" else 0.5
+        drawn = {n: (scale * rng.standard_normal(a.shape)).astype(np.float32)
+                 for n, a in leaves.items() if n != "len"}
+        rc[name] = {kind: {n: jnp.asarray(a) for n, a in drawn.items()}}
+        if kind == "attn":
+            rc[name][kind]["len"] = jnp.broadcast_to(jnp.asarray(lens),
+                                                     leaves["len"].shape)
+        for n, a in drawn.items():
+            for period, j in stacks:
+                pc[n][j].copy_(torch.from_numpy(_port_layout(n, a)[period]))
+        filled[name] = set(drawn)
     pc["len"].copy_(torch.from_numpy(lens))
 
     toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
@@ -348,35 +380,40 @@ def test_per_sequence_decode_step_matches_reference(arch, t):
                                 jnp.asarray(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert pc["len"].tolist() == (lens + t).tolist()
-    new = rc["sub0"]
-    if "attn" in new:
-        assert (np.asarray(new["attn"]["len"]) == lens + t).all()
-        for name in rows:
-            np.testing.assert_allclose(
-                pc[name].numpy(),
-                _port_layout(name, np.asarray(new["attn"][name])), **TOL)
-    else:
-        for name in ("conv", "ssm"):
-            np.testing.assert_allclose(pc[name].numpy(),
-                                       np.asarray(new["mamba"][name]), **TOL)
+    for name, kind, stacks in _subs(cfg, rc):
+        new = rc[name][kind]
+        if kind == "attn":
+            assert (np.asarray(new["len"]) == lens + t).all()
+        for n in filled[name]:
+            ref = _port_layout(n, np.asarray(new[n]))
+            for period, j in stacks:
+                np.testing.assert_allclose(pc[n][j].numpy(), ref[period],
+                                           **TOL)
 
 
 def test_per_sequence_cache_shapes_match_reference():
+    """Each sub-layer's reference cache against the port's stack of its
+    kind (attention and Mamba stacks side by side for Jamba), and one
+    int32 length a lane."""
     for arch in ARCHS:
         w = _world(arch)
-        pc = p_lm.init_cache(w["cfg"], 3, 11, device="cpu", per_seq=True)
-        rc = r_lm.init_cache(w["rcfg"], 3, 11, per_seq=True)["sub0"]
+        cfg = w["cfg"]
+        pc = p_lm.init_cache(cfg, 3, 11, device="cpu", per_seq=True)
+        rc = r_lm.init_cache(w["rcfg"], 3, 11, per_seq=True)
         assert pc["len"].dtype == torch.int32 and pc["len"].tolist() == [0] * 3
-        if "attn" in rc:
-            assert (np.asarray(rc["attn"]["len"]) == 0).all()
-            assert set(pc) == set(rc["attn"])
-            for name, a in rc["attn"].items():
-                if name != "len":
-                    assert tuple(pc[name].shape) == _port_layout(
-                        name, np.asarray(a)).shape
-        else:
-            for k in ("conv", "ssm"):
-                assert tuple(pc[k].shape) == rc["mamba"][k].shape
+        names = {"len"}
+        counts = {}
+        for kind, _ in p_lm.cache_slots(cfg):
+            counts[kind] = counts.get(kind, 0) + 1
+        for name, kind, _ in _subs(cfg, rc):
+            for n, a in rc[name][kind].items():
+                if n == "len":
+                    assert (np.asarray(a) == 0).all()
+                    continue
+                names.add(n)
+                assert tuple(pc[n].shape) == (counts[kind],) + _port_layout(
+                    n, np.asarray(a)).shape[1:]
+        assert set(pc) == names
 
 
 def test_prefill_one_zeroes_a_reused_lane():

@@ -1613,3 +1613,80 @@ def test_moe_forward_on_the_card_equals_the_cpu(card, dropless):
     y16, _ = p_moe.moe_forward(bf16, mo, x.to(card, torch.bfloat16),
                                dropless=dropless)
     assert y16.dtype == torch.bfloat16 and bool(torch.isfinite(y16).all())
+
+
+# --------------------------------------------------------------------------
+# Mamba-1 and the hybrid pattern (Jamba; no kernel of its own: the scan is
+# torch ops on the card)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_mamba1_forward_on_the_card_equals_the_cpu(card):
+    """One Mamba-1 layer at Jamba's width (d_model 4096, d_inner 8192,
+    d_state 16), float32, TF32 off, its scan cut into chunks of 64 steps:
+    no cache (300 tokens), a cached prefill of 200 tokens from a nonzero
+    state, then two one-token steps; outputs and the cache within 1e-4 on
+    the card and the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as p_mamba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), dtype="float32")
+    layer = p_mamba.init_mamba(cfg, torch.Generator().manual_seed(0), "cpu",
+                               torch.float32)
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.randn((2, t, 4096), generator=g) for t in (300, 200, 1, 1)]
+    state = 0.5 * torch.randn((2, 8192, 16), generator=g)
+    tail = torch.randn((2, 3, 8192), generator=g)
+    outs = {}
+    with mock.patch.object(p_mamba, "SCAN_BYTES",
+                           64 * p_mamba.SCAN_LIVE * 4 * 2 * 8192 * 16):
+        for dev in ("cpu", card):
+            lay = copy.deepcopy(layer).to(dev)
+            cache = {"conv": tail.clone().to(dev),
+                     "ssm": state.clone().to(dev)}
+            got = [p_mamba.mamba_forward(lay, cfg, xs[0].to(dev))[0].cpu()]
+            for x in xs[1:]:
+                got.append(p_mamba.mamba_forward(lay, cfg, x.to(dev),
+                                                 cache)[0].cpu())
+            outs[str(dev)] = got + [cache["conv"].cpu(), cache["ssm"].cpu()]
+    for a, b in zip(outs[str(card)], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_two_layer_hybrid_generation_on_the_card_equals_the_cpu(card):
+    """Jamba's layers 4 and 5 as a pattern (attention with a dense FFN,
+    Mamba-1 with an MoE), its heads (32/8 of 128) and Mamba widths at
+    d_model 1024, 16 experts top-2 of 512, float32, TF32 off: greedy
+    generation gives the same ids on the card and the CPU, teacher-forced
+    logits within 2e-3, and the attention kernels launch once in the
+    prefill and once a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(
+        full, layer_pattern=full.layer_pattern[4:6], num_layers=2,
+        d_model=1024, d_ff=2048, vocab_size=1000, dtype="float32",
+        moe=dataclasses.replace(full.moe, expert_ff=512))
+    model = p_lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1000, size=(2, 100)))
+    out = {}
+    for dev in (card, "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        _cuda.reset_launches()
+        ids = p_serve.generate(m, prompt.to(dev), 8, max_len=112,
+                               device=dev)
+        launched = (_cuda.LAUNCHES["flash_attention"],
+                    _cuda.LAUNCHES["decode_attention"])
+        out[str(dev)] = ids.cpu(), _teacher_forced(m, prompt.to(dev), ids,
+                                                   112).cpu(), launched
+    (ids, logits, launched), (cids, clogits, _) = out[str(card)], out["cpu"]
+    assert launched == (1, 7)
+    assert torch.equal(ids, cids)
+    torch.testing.assert_close(logits[..., :1000], clogits[..., :1000],
+                               rtol=0, atol=2e-3)

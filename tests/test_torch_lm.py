@@ -52,6 +52,7 @@ from repro_torch.models import common as p_common
 from repro_torch.models import lm as p_lm
 from repro_torch.models.mlp import MLP
 from repro_torch.serve import lm as p_serve
+from test_torch_batcher import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -128,8 +129,8 @@ def test_config_equals_reference():
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
     assert registered() == ("deepseek-v2-236b", "h2o-danube-1.8b",
-                            "mamba2-130m", "minicpm3-4b", "mixtral-8x22b",
-                            "olmo-1b", "qwen2-1.5b")
+                            "jamba-v0.1-52b", "mamba2-130m", "minicpm3-4b",
+                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
     full = get_config("qwen2-1.5b")
     assert full.padded_vocab == 152064
     assert round(full.param_counts()["total"] / 1e9, 2) == 1.54
@@ -154,21 +155,26 @@ def test_unported_model_features_raise(cfg, rcfg):
     mrope = dataclasses.replace(cfg, mrope_sections=(2, 3, 3))
     with pytest.raises(NotImplementedError, match="Other LM architectures"):
         p_lm.init_model(mrope, device="cpu")
-    # MoE is ported (tests/test_torch_moe.py); a hybrid pattern is not
+    # MoE (tests/test_torch_moe.py) and hybrid patterns
+    # (tests/test_torch_jamba.py) are ported
     hybrid = dataclasses.replace(
         cfg, moe=p_base.MoEConfig(4, 2, 64), mamba=p_base.MambaConfig(),
         layer_pattern=(p_base.LayerSpec("attn", "moe"),
                        p_base.LayerSpec("mamba", "dense")))
-    with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.init_model(hybrid, device="cpu")
-    # a Mamba pattern: Mamba-1 is not ported; no MambaConfig is an error
+    m = p_lm.init_model(hybrid, device="cpu")
+    assert m.blocks[0].moe is not None and m.blocks[1].mlp is not None
+    # a Mamba pattern: Mamba-1 is ported; no MambaConfig is an error
     mamba = dataclasses.replace(
         cfg, layer_pattern=(p_base.LayerSpec("mamba", None),),
         mamba=p_base.MambaConfig(version=1, d_state=16, expand=2))
-    with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.init_model(mamba, device="cpu")
+    assert p_lm.init_model(mamba, device="cpu").blocks[0].mamba.version == 1
     with pytest.raises(ValueError, match="no MambaConfig"):
         p_lm.init_model(dataclasses.replace(mamba, mamba=None), device="cpu")
+    # a mixer of neither kind
+    other = dataclasses.replace(
+        cfg, layer_pattern=(p_base.LayerSpec("conv", None),))
+    with pytest.raises(NotImplementedError, match="Other LM architectures"):
+        p_lm.init_model(other, device="cpu")
 
 
 def test_entry_points_default_to_the_card(cfg, model):

@@ -5,8 +5,9 @@ of 16, d_state 16, float32, on the CPU).
 The same parameters (numpy, from a seed, in the reference's nested
 layout) and token ids feed both packages:
 
-* the configuration, ``param_counts``, the registry, and the errors of
-  Mamba-1 (Jamba) and of a Mamba layer without a ``MambaConfig``;
+* the configuration, ``param_counts``, the registry, the error of a
+  Mamba layer without a ``MambaConfig``, and Mamba-1 and hybrid patterns
+  building (``tests/test_torch_jamba.py`` holds them to the reference);
 * ``_causal_conv`` with and without a tail, T below K-1 included;
 * ``mamba2_forward`` in its three branches (no cache, a cached prefill
   from a nonzero state, one token), the cache it leaves included;
@@ -39,6 +40,7 @@ from repro_torch.configs import get_config, registered, smoke_variant
 from repro_torch.models import lm as p_lm
 from repro_torch.models import mamba as p_mamba
 from repro_torch.serve import lm as p_serve
+from test_torch_batcher import one_torch_thread  # noqa: F401
 
 ARCH = "mamba2-130m"
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -117,8 +119,8 @@ def test_config_equals_reference():
         assert ours.padded_vocab == ref.padded_vocab
         assert ours.mamba.nheads(ours.d_model) == ref.mamba.nheads(ref.d_model)
     assert registered() == ("deepseek-v2-236b", "h2o-danube-1.8b",
-                            "mamba2-130m", "minicpm3-4b", "mixtral-8x22b",
-                            "olmo-1b", "qwen2-1.5b")
+                            "jamba-v0.1-52b", "mamba2-130m", "minicpm3-4b",
+                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.padded_vocab) == (24, 768,
                                                                   50432)
@@ -130,22 +132,26 @@ def test_config_equals_reference():
 
 
 def test_mamba1_and_a_missing_mamba_config_raise(cfg):
-    with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        get_config("jamba-v0.1-52b")
+    """A Mamba layer without a ``MambaConfig`` raises; Mamba-1 (Jamba's)
+    and hybrid patterns, which raised before they were ported, now build,
+    with their caches."""
+    assert get_config("jamba-v0.1-52b").mamba.version == 1
     v1 = dataclasses.replace(cfg, mamba=p_base.MambaConfig(
         version=1, d_state=16, d_conv=4, expand=2))
-    for fn in (p_lm.check_supported,
-               lambda c: p_lm.init_model(c, device="cpu"),
-               lambda c: p_lm.init_cache(c, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1: Other LM architectures"):
-            fn(v1)
-    with pytest.raises(ValueError, match="no MambaConfig"):
-        p_lm.check_supported(dataclasses.replace(cfg, mamba=None))
     hybrid = dataclasses.replace(cfg, layer_pattern=(
         p_base.LayerSpec("attn", "dense"), p_base.LayerSpec("mamba", None)))
-    with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.check_supported(hybrid)
+    for c in (v1, hybrid):
+        p_lm.check_supported(c)
+        m = p_lm.init_model(c, torch.Generator().manual_seed(0), device="cpu")
+        cache = p_lm.init_cache(c, 1, 8, device="cpu")
+        assert m.blocks[1].mamba.version == c.mamba.version
+        assert cache["ssm"].shape[0] == (2 if c is v1 else 1)
+    assert m.blocks[0].mlp is not None and "k" in cache
+    with pytest.raises(ValueError, match="no MambaConfig"):
+        p_lm.check_supported(dataclasses.replace(cfg, mamba=None))
+    with pytest.raises(ValueError, match="no Mamba-3"):
+        p_lm.check_supported(dataclasses.replace(
+            cfg, mamba=p_base.MambaConfig(version=3)))
 
 
 def test_init_model_and_cache_shapes():
@@ -295,7 +301,7 @@ def test_lm_params_from_arrays_carries_every_leaf(arrays, model, cfg):
             seen.add(keys[0])
     assert seen == set(state)
     assert {n.split(".")[-1] for n in seen if ".mamba." in n} == set(
-        p_mamba.LEAVES)
+        p_mamba.LEAVES[2])
 
     bf16 = interop.lm_params_from_arrays(
         arrays, dataclasses.replace(cfg, dtype="bfloat16"))

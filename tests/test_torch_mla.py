@@ -48,7 +48,8 @@ from repro_torch.kernels.flash_attention import ref as p_fa_ref
 from repro_torch.models import attention as p_attn
 from repro_torch.models import lm as p_lm
 from repro_torch.serve import lm as p_serve
-from test_torch_batcher import _draw, _jitted_serve_fns
+from test_torch_batcher import (  # noqa: F401
+    _draw, _jitted_serve_fns, one_torch_thread)
 
 ARCHS = ("minicpm3-4b", "deepseek-v2-236b")
 WORLDS = ARCHS + ("minicpm3-4b-q0",)

@@ -46,7 +46,8 @@ from repro_torch.models import lm as p_lm
 from repro_torch.models import moe as p_moe
 from repro_torch.models.mlp import MLP
 from repro_torch.serve import lm as p_serve
-from test_torch_batcher import _draw, _jitted_serve_fns
+from test_torch_batcher import (  # noqa: F401
+    _draw, _jitted_serve_fns, one_torch_thread)
 
 ARCH = "mixtral-8x22b"
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -505,8 +506,9 @@ def test_init_moe_distributions():
 
 
 def test_supported_layer_patterns():
-    """Attention layers with a dense, MoE or no FFN run; hybrid and
-    Mamba-1 patterns still raise; an MoE layer needs a MoEConfig."""
+    """Attention layers with a dense, MoE or no FFN run, and so do hybrid
+    patterns (Mamba layers with an MoE FFN among them); an MoE layer needs
+    a MoEConfig."""
     cfg = smoke_variant(get_config(ARCH))
     none_ffn = dataclasses.replace(
         cfg, layer_pattern=(p_base.LayerSpec("attn", None),
@@ -519,8 +521,10 @@ def test_supported_layer_patterns():
         cfg, layer_pattern=(p_base.LayerSpec("attn", "moe"),
                             p_base.LayerSpec("mamba", "moe")),
         mamba=p_base.MambaConfig())
-    with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.check_supported(hybrid)
+    m = p_lm.init_model(hybrid, torch.Generator().manual_seed(0),
+                        device="cpu")
+    assert m.blocks[0].attn is not None and m.blocks[1].moe is not None
+    assert m.blocks[1].mamba.version == 2
     with pytest.raises(ValueError, match="no MoEConfig"):
         p_lm.check_supported(dataclasses.replace(cfg, moe=None))
     with pytest.raises(ValueError, match="not whole periods"):

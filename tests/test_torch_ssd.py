@@ -32,6 +32,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.ssd import kernel as p_kernel
 from repro_torch.kernels.ssd import ops as p_ops
 from repro_torch.kernels.ssd import ref as p_ref
+from test_torch_batcher import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 BF16_TOL = dict(rtol=1e-2, atol=2e-2)

@@ -5,10 +5,11 @@
     python3 tools/batcher_phase.py     # from the repository root, on a card
     python3 tools/batcher_phase.py --arch mixtral-8x22b   # one world only
     python3 tools/batcher_phase.py --arch minicpm3-4b --arch deepseek-v2-236b
+    python3 tools/batcher_phase.py --arch jamba-v0.1-52b
 
 Builds the kernels, holds flash and decode attention against their plain
 versions (``chip_smoke.phase_attention``, the head-dim-80, windowed,
-Mixtral and MLA cases included, each timed), then runs
+Mixtral, MLA and Jamba cases included, each timed), then runs
 ``chip_smoke.phase_batcher`` (over the ``BATCH_WORLDS`` entries of the
 ``--arch`` names given, all of them by default) and prints its launch
 counts.  Needs a card.
