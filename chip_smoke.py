@@ -52,7 +52,12 @@ Phases (each prints its lines; any failure exits non-zero):
    causal without a window (SDPA ``is_causal``), and an 8-lane tick over
    the same lengths without a window, held and timed alike; head dim 128
    at group 4 (Jamba-v0.1-52B's 32/8 heads), causal without a window:
-   the same lane prefill and 8-lane tick, held and timed alike;
+   the same lane prefill and 8-lane tick, held and timed alike; phase
+   13's shapes, causal without a window: head dim 128 at group 7
+   (Qwen2-VL-7B's 28/4 heads) at its vision forward (B 2, Tq = Tk 2048)
+   and an 8-lane tick, head dim 64 at group 1 (MusicGen-large's 32/32
+   heads) at its prefill (B 4, Tq = Tk 500) and a tick of its 4
+   sequences at 563 rows, held and timed alike;
    then the SSD chunked scan against its plain chunked version at phase
    8's shape and edge cases (ragged T, T below the chunk, G = 2, a nonzero
    initial state), float32 within 2e-4 + 2e-4 relative, bfloat16 as the
@@ -98,7 +103,8 @@ Phases (each prints its lines; any failure exits non-zero):
    ``LM_NEW`` greedy tokens after ``LM_BATCH`` prompts of ``LM_PROMPT``
    token ids: the cached prefill through the flash-attention kernel, each
    step through the decode-attention kernel (28 and 28 x 63 launches).
-   Prefill and decode throughput (median of 3 passes after a warm-up),
+   Prefill and decode throughput (median of 3 passes after the counted
+   run),
    peak memory and the device's idle share over decode steps.  Gates:
    teacher-forced logits of the kernel path within the plain attention
    path by at most twice what bf16 itself moves them (plain bf16 against
@@ -167,26 +173,29 @@ Phases (each prints its lines; any failure exits non-zero):
    ``launch.serve.make_slot_fns``: queued requests prefilled into free
    lanes of a per-sequence cache, every tick decoding all lanes in one
    fixed-shape step, finished lanes reused) at full width with random
-   bf16 weights: (a) H2O-Danube-1.8B (24 layers, 32/8 heads of 80,
-   window 4096), 8 slots of 4672 rows, 12 requests of 256-4600 ids (4
-   past the window), 8-48 new tokens; (b) OLMo-1B, 8 slots, 12 requests
-   of 256-2048 ids; (c) Mamba2-130M, 4 slots, 12 requests; (d)
+   bf16 weights: (a) H2O-Danube-1.8B (8 of its 24 layers, 32/8 heads of
+   80, window 4096), 8 slots of 4672 rows, 9 requests of 256-4600 ids (4
+   past the window), 8-48 new tokens; (b) OLMo-1B (8 of 16 layers), 8
+   slots, 9 requests of 256-2048 ids; (c) Mamba2-130M (8 of 24 layers),
+   4 slots, 9 requests; (d)
    Mixtral-8x22B (MoE, 8 experts top-2 of 16384, 48/8 heads of 128,
-   window 4096) at 4 of its 56 layers (``BATCH_DEPTH``: 10.4 B of its 141 B
+   window 4096) at 1 of its 56 layers (``BATCH_DEPTH``: 2.9 B of its 141 B
    parameters), danube's traffic; (e) MiniCPM3-4B (MLA: a latent cache of
-   256 + 32 columns a row, 40 heads expanded to D 96, Dv 64), 16 of its
+   256 + 32 columns a row, 40 heads expanded to D 96, Dv 64), 4 of its
    62 layers; (f) DeepSeek-V2 (MLA at D 192, Dv 128, 128
-   heads; MoE of 160 experts top-6 with 2 shared) at 2 of its 60 layers
-   (9.0 B of its 239 B parameters); (g) Jamba-v0.1-52B (a period of 8
+   heads; MoE of 160 experts top-6 with 2 shared) at 1 of its 60 layers
+   (5.0 B of its 239 B parameters); (g) Jamba-v0.1-52B (a period of 8
    layers: Mamba-1, d_inner 8192, d_state 16, but for one attention
    layer of 32/8 heads of 128; dense and 16-expert MoE FFNs in turn) at
-   one period, 8 of its 32 layers (13.3 B of its 51.5 B parameters);
-   danube's distributions (e, f and g: 8 slots, 12 requests, 4 of them
-   past 4096 ids).  Gates: every
+   one period, 8 of its 32 layers (13.3 B of its 51.5 B parameters); (h)
+   Qwen2-VL-7B (M-RoPE: each lane's three position streams from its
+   cache length; 28/4 heads of 128), all 28 layers; danube's
+   distributions (e, f and g: 8 slots, 9 requests, 4 of them past
+   4096 ids; h: 12 requests).  Gates: every
    request drains; flash launches = attention layers x requests, decode
    launches = attention layers x ticks (every tick decodes), SSD
    launches = layers x requests in (c), nothing else; the lane logits of
-   6 requests of (a), (d), (e), (f) and (g) (2 past 4096 ids) and 4 of
+   6 requests of (a), (d), (e), (f), (g) and (h) (2 past 4096 ids) and 4 of
    (b), recorded by wrapping the two
    callables, within LM_BF16_FACTOR times the bf16-vs-f32 difference of
    the single-sequence path (a batch-1 cache with a shared length fed the
@@ -199,8 +208,8 @@ Phases (each prints its lines; any failure exits non-zero):
    its period (attention with a dense FFN, Mamba-1 with an MoE;
    ``BATCH_GATE_PATTERN``), as a float32 copy of 8 layers does not fit
    beside them; the card equal to the CPU on f32 copies at 2 layers of
-   (a), (b), (e) and (g)'s pattern and 1 of (d) and (f) (3 slots, 5
-   requests, equal ids, logits within 2e-3); for (e), (f) and (g) a
+   (a), (b), (e), (h) and (g)'s pattern and 1 of (d) and (f) (3 slots, 4
+   requests of 32-96 ids, equal ids, logits within 2e-3); for (e), (f), (g) and (h) a
    whole decode step of 8 lanes reads nothing back to the host
    (``set_sync_debug_mode("error")``).  It prints generated tokens/s,
    ticks, peak memory and the idle share over 8 ticks of busy lanes; for
@@ -214,11 +223,29 @@ Phases (each prints its lines; any failure exits non-zero):
    all its slots and it, and a whole decode step, read nothing back to
    the host (``set_sync_debug_mode("error")``), the prefill's trims.
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 each drive their path with the
-launch counters zeroed just before and read just after (phases 11 and
-12: before and after each of their runs); each kernel of the path must
-have launched, and the JSON line's ``launches`` sums the nine phases'
-path runs.
+13. **Other LM architectures** at full width and depth, random bf16
+   weights, through ``lm.forward`` and ``serve.lm.generate``: (a)
+   Qwen2-VL-7B (28 layers, M-RoPE sections (16, 24, 24)): ``lm.forward``
+   on the vision stub, patch embeddings from a seeded generator for 2
+   sequences of 2048 positions whose ``[3, B, T]`` ids are laid out as
+   Qwen2-VL's ``get_rope_index`` lays them out (``rope_index``: 64 text
+   ids, a 32 x 32 image of merged patches, 64 text, a 24 x 32 image, 128
+   text), then ``generate`` of 32 greedy tokens after 4 text prompts of
+   1024 ids; (b) MusicGen-large (48 layers, 4 codebooks of 2048):
+   ``lm.forward`` on the audio stub's frame embeddings ``[4, 500,
+   2048]``, then ``generate`` of 64 frames after 4 prompts of 500 frames
+   x 4 codebooks (logits ``[B, T, 4, 2048]``).  Launches: flash once a
+   layer in the forward and in the prefill, decode once a layer a step.
+   Phase 7's throughput, peak memory, profile and gates: gate 1 on the
+   generation (teacher-forced) and on the stub's forward, gate 2 on f32
+   copies of 2 layers (phase 7's prompt and a stub of 256 positions, for
+   Qwen2-VL with an 8 x 8 image: equal ids, logits within 2e-3).
+
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12 and 13 each drive their path with
+the launch counters zeroed just before and read just after (phases 11
+and 12: before and after each of their runs); each kernel of the path
+must have launched, and the JSON line's ``launches`` sums the ten
+phases' path runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -346,34 +373,36 @@ LAUNCHER_SERVE = 8
 # (arch, slots, requests, prompt ids (lo, hi), prompts past the window,
 # new ids (lo, hi), lane rows, teacher-forced requests (past the window))
 BATCH_WORLDS = (
-    # (danube, olmo and Mixtral drew 24 requests before Jamba's world
-    # came: 12, as the MLA worlds', keep the script under 1000 s; lanes
-    # are still reused)
-    ("h2o-danube-1.8b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
-    ("olmo-1b", 8, 12, (256, 2048), 0, (8, 48), 2112, (4, 0)),
-    ("mamba2-130m", 4, 12, (256, 2048), 0, (8, 48), 2112, (0, 0)),
-    ("mixtral-8x22b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    # 9 requests (12 for Qwen2-VL's, the newest world) keep the whole
+    # script near 1000 s; lanes are still reused
+    ("h2o-danube-1.8b", 8, 9, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("olmo-1b", 8, 9, (256, 2048), 0, (8, 48), 2112, (4, 0)),
+    ("mamba2-130m", 4, 9, (256, 2048), 0, (8, 48), 2112, (0, 0)),
+    ("mixtral-8x22b", 8, 9, (256, 4600), 4, (8, 48), 4672, (6, 2)),
     # MLA: danube's distributions (the prompts "past the window" are past
-    # 4096 ids; these models have no window) over the latent cache, 12
-    # requests (cut from 24 to keep the script near 900 s; lanes are still
-    # reused)
-    ("minicpm3-4b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
-    ("deepseek-v2-236b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    # 4096 ids; these models have no window) over the latent cache
+    ("minicpm3-4b", 8, 9, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("deepseek-v2-236b", 8, 9, (256, 4600), 4, (8, 48), 4672, (6, 2)),
     # the hybrid pattern (Mamba-1, one attention layer a period, dense and
     # MoE FFNs): danube's draws as the MLA worlds'
-    ("jamba-v0.1-52b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    ("jamba-v0.1-52b", 8, 9, (256, 4600), 4, (8, 48), 4672, (6, 2)),
+    # M-RoPE (each lane's three position streams from its device length):
+    # danube's distributions, 12 requests, all 28 layers
+    ("qwen2-vl-7b", 8, 12, (256, 4600), 4, (8, 48), 4672, (6, 2)),
 )
 # depth cuts: (layers on the card, layers of the card-against-CPU copies);
 # an architecture not named here runs all its layers and BATCH_CPU's.
-# MiniCPM3-4B ran all 62 layers before Jamba's world came: 16 keep the
-# script under 1000 s.
-# Mixtral's 56 layers hold 141 B parameters (282 GB in bf16); 4 layers
-# hold 10.4 B, and its float32 copy of 1 layer about 12 GB a side.
-# DeepSeek-V2's 60 layers hold 239 B (479 GB); 2 layers hold 9.0 B (18 GB),
-# its float32 copy of 1 layer 5.0 B, about 20 GB a side.  Jamba's 32
-# layers hold 51.5 B (103 GB); one period of 8 holds 13.3 B (26.5 GB)
-BATCH_DEPTH = {"mixtral-8x22b": (4, 1), "deepseek-v2-236b": (2, 1),
-               "minicpm3-4b": (16, 2), "jamba-v0.1-52b": (8, 2)}
+# H2O-Danube-1.8B (24 layers), OLMo-1B (16), Mamba2-130M (24) run 8 and
+# MiniCPM3-4B 4 of its 62 to keep the script near 1000 s (PERF.md lists
+# each cut).  Mixtral's 56 layers hold 141 B parameters
+# (282 GB in bf16), one 2.9 B; DeepSeek-V2's 60 hold 239 B (479 GB), one
+# 5.0 B; their float32 copies of 1 layer take about 12 and 20 GB a side.
+# Jamba's 32 layers hold 51.5 B (103 GB); one period of 8 holds 13.3 B
+# (26.5 GB)
+BATCH_DEPTH = {"h2o-danube-1.8b": (8, 2), "olmo-1b": (8, 2),
+               "mamba2-130m": (8, 2), "mixtral-8x22b": (1, 1),
+               "deepseek-v2-236b": (1, 1), "minicpm3-4b": (4, 2),
+               "jamba-v0.1-52b": (8, 2)}
 # where a float32 copy of the card's depth does not fit beside it, gates 3
 # and 4 run on a copy at full width whose layer pattern is this slice of
 # the period: Jamba's layers 4 and 5 (attention with a dense FFN, Mamba-1
@@ -381,9 +410,10 @@ BATCH_DEPTH = {"mixtral-8x22b": (4, 1), "deepseek-v2-236b": (2, 1),
 BATCH_GATE_PATTERN = {"jamba-v0.1-52b": (4, 6)}
 MOE_PREFILL = 4600     # the MoE's prefill shape in phase 12's MoE lines
 BATCH_SEED = 12
-# the card-against-CPU gate: float32 copies at 2 layers, 3 slots, 5
-# requests of 64-160 ids, 4 new tokens each, logits within LM_CPU_TOL
-BATCH_CPU = dict(layers=2, slots=3, requests=5, prompt=(64, 160), new=4)
+# the card-against-CPU gate: float32 copies at 2 layers, 3 slots, 4
+# requests of 32-96 ids (an MoE layer's CPU prefill products grow with
+# them), 4 new tokens each, logits within LM_CPU_TOL
+BATCH_CPU = dict(layers=2, slots=3, requests=4, prompt=(32, 96), new=4)
 PROFILE_TICKS = 8
 # phase 2's head-dim-80 shapes: H2O-Danube's lane prefill (the longest
 # prompt over a lane of DANUBE_MAX_LEN rows) and a tick over 8 lanes
@@ -391,6 +421,29 @@ DANUBE_WINDOW = 4096
 DANUBE_PROMPT_MAX = 4600
 DANUBE_MAX_LEN = 4672
 DANUBE_TICK_LENGTHS = [4601, 257, 4649, 2001, 4098, 1001, 3501, 300]
+
+# phase 13: other LM architectures at full width and depth, random bf16
+# weights.  Qwen2-VL-7B: the vision stub's patch embeddings over 2
+# sequences of 64 text ids, a 32 x 32 image of merged patches, 64 text, a
+# 24 x 32 image and 128 text (64 + 1024 + 64 + 768 + 128 = 2048
+# positions, Qwen2-VL's image-grid position ids), then generate after 4
+# text prompts.  MusicGen-large: 4 prompts of 500 frames x 4 codebooks
+# (10 s of EnCodec tokens at 50 Hz), 64 new frames, and the audio stub's
+# frame embeddings of the same length.  The card-against-CPU gates run
+# f32 copies of OTHER_CPU_LAYERS layers: phase 7's prompt and a stub of
+# 256 positions (Qwen2-VL: text, an 8 x 8 image, text)
+VL_ARCH = "qwen2-vl-7b"
+VL_LAYOUT = (("text", 64), ("image", 32, 32), ("text", 64),
+             ("image", 24, 32), ("text", 128))
+VL_FORWARD_BATCH = 2
+VL_FORWARD_T = 2048
+VL_BATCH, VL_PROMPT, VL_NEW = 4, 1024, 32
+VL_CPU_LAYOUT = (("text", 96), ("image", 8, 8), ("text", 96))
+AUDIO_ARCH = "musicgen-large"
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = 4, 500, 64
+AUDIO_CPU_T = 256
+OTHER_CPU_LAYERS = 2
+STUB_STD = 0.02        # the stubs' embeddings: the embedding table's scale
 
 QUERIES = ("q15", "q16", "cquery1", "artist_classes")
 MODES = ("monolithic", "single_program")
@@ -2441,6 +2494,7 @@ def phase_attention(smi):
     phase_attention_d80(recs, record, gen, smi)
     phase_attention_mla(recs, record, gen, smi)
     phase_attention_jamba(recs, record, gen, smi)
+    phase_attention_other(recs, record, gen, smi)
     sync()
     return recs
 
@@ -2459,7 +2513,7 @@ def phase_attention_d80(recs, record, gen, smi):
     model's lane prefill and tick in both dtypes, the bf16 case of each
     shape timed beside SDPA with the same mask."""
     w, tk = DANUBE_WINDOW, DANUBE_MAX_LEN
-    lane_attention(recs, record, gen, smi, "danube", 32, 8, 80, [
+    lane_attention(recs, record, gen, smi, "danube lane", 32, 8, 80, [
         ("danube tick, 8 ragged lanes", 8, tk, w, DANUBE_TICK_LENGTHS),
         ("window < len", 4, tk, w, [4600, 4097, 4672, 4200]),
         ("window >= len", 2, tk, w, [4096, 100]),
@@ -2468,7 +2522,7 @@ def phase_attention_d80(recs, record, gen, smi):
         ("ragged lanes, one row", 8, tk, w,
          [256, 4600, 1, 64, 4161, 65, 2000, 4672]),
     ])
-    lane_attention(recs, record, gen, smi, "mixtral", 48, 8, 128, [
+    lane_attention(recs, record, gen, smi, "mixtral lane", 48, 8, 128, [
         ("mixtral tick, 8 ragged lanes", 8, tk, w, DANUBE_TICK_LENGTHS),
         ("window < len", 4, tk, w, [4600, 4097, 4672, 4200]),
     ])
@@ -2482,7 +2536,7 @@ def phase_attention_mla(recs, record, gen, smi):
     each shape timed beside SDPA."""
     for label, h, d, dv in (("minicpm3", 40, 96, 64),
                             ("deepseek", 128, 192, 128)):
-        lane_attention(recs, record, gen, smi, label, h, h, d, [
+        lane_attention(recs, record, gen, smi, label + " lane", h, h, d, [
             ("%s tick, 8 ragged lanes" % label, 8, DANUBE_MAX_LEN, None,
              DANUBE_TICK_LENGTHS),
         ], dv=dv, window=None)
@@ -2493,24 +2547,44 @@ def phase_attention_jamba(recs, record, gen, smi):
     without a window: its lane prefill and an 8-lane tick over
     DANUBE_TICK_LENGTHS, in both dtypes; the bf16 cases timed beside SDPA
     (``is_causal``, and over S with the lanes' mask)."""
-    lane_attention(recs, record, gen, smi, "jamba", 32, 8, 128, [
+    lane_attention(recs, record, gen, smi, "jamba lane", 32, 8, 128, [
         ("jamba tick, 8 ragged lanes", 8, DANUBE_MAX_LEN, None,
          DANUBE_TICK_LENGTHS),
     ], window=None)
 
 
+def phase_attention_other(recs, record, gen, smi):
+    """Phase 13's shapes, causal without a window: Qwen2-VL-7B's vision
+    forward (B 2, 28/4 heads, group 7, Tq = Tk = VL_FORWARD_T, D 128) and
+    an 8-lane tick at group 7 over DANUBE_TICK_LENGTHS; MusicGen-large's
+    prefill (B 4, 32/32 heads, group 1, Tq = Tk = AUDIO_PROMPT, D 64) and
+    a tick of its 4 sequences at the last step (AUDIO_PROMPT + AUDIO_NEW
+    - 1 rows); both dtypes, the bf16 cases timed beside SDPA."""
+    lane_attention(recs, record, gen, smi, "qwen2-vl vision forward", 28, 4,
+                   128, [("qwen2-vl tick, 8 ragged lanes", 8, DANUBE_MAX_LEN,
+                          None, DANUBE_TICK_LENGTHS)], window=None,
+                   prefill=(VL_FORWARD_BATCH, VL_FORWARD_T, VL_FORWARD_T))
+    rows = AUDIO_PROMPT + AUDIO_NEW - 1
+    lane_attention(recs, record, gen, smi, "musicgen", 32, 32, 64, [
+        ("musicgen tick, %d sequences" % AUDIO_BATCH, AUDIO_BATCH, rows + 1,
+         None, [rows] * AUDIO_BATCH)], window=None,
+        prefill=(AUDIO_BATCH, AUDIO_PROMPT, AUDIO_PROMPT))
+
+
 def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases,
-                   dv=None, window=DANUBE_WINDOW):
-    """Flash attention at a lane prefill (the longest prompt, Tq
-    DANUBE_PROMPT_MAX, over a lane of DANUBE_MAX_LEN rows, causal, with
-    ``window`` or none) and decode attention in ``decode_cases`` ((tag, b,
-    s, window, lengths): lengths[b] - 1 is the query's position), both
-    against their plain versions in both dtypes, v of width ``dv`` (D
-    where not given); the bf16 case of each shape timed beside SDPA with
-    the same function (a boolean mask, or ``is_causal`` without a window:
-    query i keeps keys j <= i, SDPA's top-left alignment).  Bounds: the
-    bytes of q, k, v and the output once, and 2 (D + Dv) operations a
-    live (query, key) pair at the bf16 peak."""
+                   dv=None, window=DANUBE_WINDOW,
+                   prefill=(1, DANUBE_PROMPT_MAX, DANUBE_MAX_LEN)):
+    """Flash attention at a prefill of ``prefill = (B, Tq, Tk)`` (by
+    default a lane prefill: the longest prompt, Tq DANUBE_PROMPT_MAX, over
+    a lane of DANUBE_MAX_LEN rows), causal, with ``window`` or none, and
+    decode attention in ``decode_cases`` ((tag, b, s, window, lengths):
+    lengths[b] - 1 is the query's position), both against their plain
+    versions in both dtypes, v of width ``dv`` (D where not given); the
+    bf16 case of each shape timed beside SDPA with the same function (a
+    boolean mask, or ``is_causal`` without a window: query i keeps keys j
+    <= i, SDPA's top-left alignment).  Bounds: the bytes of q, k, v and
+    the output once, and 2 (D + Dv) operations a live (query, key) pair
+    at the bf16 peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -2520,37 +2594,37 @@ def lane_attention(recs, record, gen, smi, label, hq, hk, d, decode_cases,
 
     w = window
     dv = dv or d
-    tq, tk = DANUBE_PROMPT_MAX, DANUBE_MAX_LEN
+    b, tq, tk = prefill
     dims = "D %d" % d if dv == d else "D %d Dv %d" % (d, dv)
     rec = recs["flash_attention"]
     for dtype in (torch.float32, torch.bfloat16):
-        q = _randn((1, hq, tq, d), dtype, gen)
-        k = _randn((1, hk, tk, d), dtype, gen)
-        v = _randn((1, hk, tk, dv), dtype, gen)
-        record("flash_attention", "%s lane prefill Tq %d Tk %d %s window "
-               "%s %s" % (label, tq, tk, dims, w, str(dtype)[6:]),
+        q = _randn((b, hq, tq, d), dtype, gen)
+        k = _randn((b, hk, tk, d), dtype, gen)
+        v = _randn((b, hk, tk, dv), dtype, gen)
+        record("flash_attention", "%s prefill B %d Tq %d Tk %d %s window "
+               "%s %s" % (label, b, tq, tk, dims, w, str(dtype)[6:]),
                fa_ops.flash_attention(q, k, v, True, w, 0),
                fa_ref.attention_ref(q, k, v, True, w, 0), dtype)
         del q, k, v
-    q = _randn((1, hq, tq, d), torch.bfloat16, gen)
-    k = _randn((1, hk, tk, d), torch.bfloat16, gen)
-    v = _randn((1, hk, tk, dv), torch.bfloat16, gen)
+    q = _randn((b, hq, tq, d), torch.bfloat16, gen)
+    k = _randn((b, hk, tk, d), torch.bfloat16, gen)
+    v = _randn((b, hk, tk, dv), torch.bfloat16, gen)
     if w is None:
         mask, how = None, "is_causal"
     else:
         qpos = torch.arange(tq, device="cuda")[:, None]
         kpos = torch.arange(tk, device="cuda")[None, :]
         mask, how = (kpos <= qpos) & (kpos > qpos - w), "boolean window mask"
-    pairs = _live_pairs(tq, tk, True, w, 0)
+    pairs = b * _live_pairs(tq, tk, True, w, 0)
     rec.time_case(
-        "%s lane prefill, B 1, %d/%d heads, Tq %d, Tk %d, %s, window %s, "
-        "bf16 (library: SDPA, %s)" % (label, hq, hk, tq, tk, dims, w, how),
+        "%s prefill, B %d, %d/%d heads, Tq %d, Tk %d, %s, window %s, "
+        "bf16 (library: SDPA, %s)" % (label, b, hq, hk, tq, tk, dims, w, how),
         lambda: fa_ops.flash_attention(q, k, v, True, w, 0),
         lambda: fa_ref.attention_ref(q, k, v, True, w, 0),
         lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=mask is None,
             enable_gqa=True),
-        _bound(2 * (q.numel() + k.numel() + v.numel() + hq * tq * dv),
+        _bound(2 * (q.numel() + k.numel() + v.numel() + b * hq * tq * dv),
                2.0 * (d + dv) * hq * pairs, BF16_PEAK_OPS_PER_S), smi)
     del q, k, v, mask
 
@@ -2617,8 +2691,9 @@ def as_f32(model, device):
 
 @torch.no_grad()
 def teacher_forced(model, prompt, ids, max_len):
-    """Logits ``[B, 1 + steps, Vp]`` (f32) of the prefill and of each step
-    fed ``ids[:, i]``: both sides of a comparison see the same ids."""
+    """Logits ``[B, 1 + steps, Vp]`` (``[B, 1 + steps, K, Vp]`` for K
+    codebooks; f32) of the prefill and of each step fed ``ids[:, i]``: both
+    sides of a comparison see the same ids."""
     from repro_torch.models import lm
     from repro_torch.serve import lm as serve
 
@@ -2637,18 +2712,19 @@ def med(xs):
 
 
 def time_generation(model, prompt, new, max_len, smi):
-    """Prefill and the greedy steps timed apart: LM_REPEATS passes after a
-    warm-up, tokens/s as the median with the slowest and fastest, and the
+    """Prefill and the greedy steps timed apart: LM_REPEATS passes (the
+    caller's run of the main path at these shapes just before is the
+    warm-up), tokens/s as the median with the slowest and fastest, and the
     peak device memory over the timed passes."""
     from repro_torch.models import lm
     from repro_torch.serve import lm as serve
 
-    b, t = prompt.shape
+    b, t = prompt.shape[:2]
     prefill, step = serve.make_serve_fns(model)
     pre_s, dec_s = [], []
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        for rep in range(1 + LM_REPEATS):
+        for _ in range(LM_REPEATS):
             cache = lm.init_cache(model.cfg, b, max_len)
             sync()
             t0 = time.perf_counter()
@@ -2658,9 +2734,8 @@ def time_generation(model, prompt, new, max_len, smi):
             for _ in range(new - 1):
                 tok = serve.greedy_token(step(tok[:, None], cache))
             sync()
-            if rep:
-                pre_s.append(t1 - t0)
-                dec_s.append(time.perf_counter() - t1)
+            pre_s.append(t1 - t0)
+            dec_s.append(time.perf_counter() - t1)
     peak = torch.cuda.max_memory_allocated() / 1e9
     p_med, p_lo, p_hi = med([b * t / x for x in pre_s])
     d_med, d_lo, d_hi = med([b * (new - 1) / x for x in dec_s])
@@ -2725,35 +2800,37 @@ def profile_serving(model, prompt, max_len, kernels, smi):
         profiled("8 decode steps", run_steps, kernels, smi)
 
 
-def gate_plain(model, prompt, ids, max_len, plain_path):
-    """Gate 1: kernel path == plain path, teacher-forced.  bf16 rounding
-    noise compounds over the layers, so the tolerance is measured in the
-    same run: the kernels may move the logits by at most LM_BF16_FACTOR
-    times what bf16 arithmetic itself does (plain bf16 against an f32 copy
-    of the weights), in the largest and in the mean difference.  Compared
-    over the real vocabulary: the padded rows hold -1e30 in each dtype.
-    Returns the f32 copy on the card."""
+def gate_plain(model, logits_of, plain_path, what="teacher-forced",
+               ids=None, f32=None):
+    """Gate 1: kernel path == plain path on the f32 logits
+    ``logits_of(model)`` (teacher-forced on ``ids``, which must be their
+    argmax, or a forward).  bf16 rounding noise compounds over the layers,
+    so the tolerance is measured in the same run: the kernels may move the
+    logits by at most LM_BF16_FACTOR times what bf16 arithmetic itself
+    does (plain bf16 against an f32 copy of the weights, ``f32`` where
+    given), in the largest and in the mean difference.  Compared over the
+    real vocabulary: the padded rows hold -1e30 in each dtype.  Returns
+    the f32 copy on the card."""
     v = model.cfg.vocab_size
-    kern = teacher_forced(model, prompt, ids, max_len)
-    if not torch.equal(kern.argmax(-1).int(), ids):
+    kern = logits_of(model)
+    if ids is not None and not torch.equal(kern.argmax(-1).int(), ids):
         fail("teacher-forced kernel logits do not reproduce generate's ids")
     with plain_path():
-        plain = teacher_forced(model, prompt, ids, max_len)
+        plain = logits_of(model)
     if not torch.equal(kern[..., v:], plain[..., v:]):
         fail("the padded vocabulary rows differ between the paths")
     kern, plain = kern[..., :v], plain[..., :v]
-    f32 = as_f32(model, "cuda")
+    f32 = as_f32(model, "cuda") if f32 is None else f32
     with plain_path():
-        noise = (plain - teacher_forced(f32, prompt, ids, max_len)[
-            ..., :v]).abs()
+        noise = (plain - logits_of(f32)[..., :v]).abs()
     diff = (kern - plain).abs()
     got_max, got_mean = float(diff.max()), float(diff.mean())
     floor_max, floor_mean = float(noise.max()), float(noise.mean())
-    log("  gate 1, kernel path against plain path (bf16, teacher-forced, "
-        "%d x %d x %d logits, std %.3f): max |diff| %.4g, mean %.4g; bf16 "
-        "against f32 (plain): max %.4g, mean %.4g; tolerance %gx those"
-        % (*kern.shape, float(plain.std()), got_max, got_mean, floor_max,
-           floor_mean, LM_BF16_FACTOR))
+    log("  gate 1, kernel path against plain path (bf16, %s, %s logits, "
+        "std %.3f): max |diff| %.4g, mean %.4g; bf16 against f32 (plain): "
+        "max %.4g, mean %.4g; tolerance %gx those"
+        % (what, " x ".join(map(str, kern.shape)), float(plain.std()),
+           got_max, got_mean, floor_max, floor_mean, LM_BF16_FACTOR))
     if not (got_max <= LM_BF16_FACTOR * floor_max
             and got_mean <= LM_BF16_FACTOR * floor_mean):
         fail("the kernel path moves the logits more than %gx what bf16 "
@@ -2761,9 +2838,12 @@ def gate_plain(model, prompt, ids, max_len, plain_path):
     return f32
 
 
-def gate_cpu(model, f32, prompt, new):
+def gate_cpu(model, f32, prompt, new, stub=None):
     """Gate 2: the card == the CPU on the float32 copy, one prompt: equal
-    ids and teacher-forced logits within LM_CPU_TOL."""
+    ids and teacher-forced logits within LM_CPU_TOL; with ``stub``
+    (``(embeds, positions)`` on the CPU, positions None without M-RoPE)
+    also ``lm.forward`` on the frontend stub's inputs."""
+    from repro_torch.models import lm
     from repro_torch.serve import lm as serve
 
     v = model.cfg.vocab_size
@@ -2783,6 +2863,24 @@ def gate_cpu(model, f32, prompt, new):
         fail("GPU != CPU on the f32 LM path: %g > %g" % (err, LM_CPU_TOL))
     if not torch.equal(ids_gpu.cpu(), ids_cpu):
         fail("the card and the CPU generate other ids on the f32 LM path")
+    if stub is None:
+        return
+    embeds, positions = stub
+    t0 = time.time()
+    with torch.no_grad():
+        got = lm.forward(f32, None, embeds=embeds.cuda(),
+                         positions=None if positions is None
+                         else positions.cuda())
+        want = lm.forward(cpu, None, embeds=embeds, positions=positions)
+    err = float((got.cpu() - want)[..., :v].abs().max())
+    log("  gate 2, card against CPU (f32, TF32 off, lm.forward on the "
+        "frontend stub: embeddings %s%s): max |logit diff| %.3g (tol %g), "
+        "CPU %.1f s" % (tuple(embeds.shape), "" if positions is None
+                        else ", image-grid positions", err, LM_CPU_TOL,
+                        time.time() - t0))
+    if not err <= LM_CPU_TOL:
+        fail("GPU != CPU on the f32 stub forward: %g > %g"
+             % (err, LM_CPU_TOL))
 
 
 def lm_config(arch, layers=None, pattern=None):
@@ -2866,7 +2964,9 @@ def phase_lm(smi):
     time_generation(model, prompt, LM_NEW, LM_MAX_LEN, smi)
     profile_serving(model, prompt, LM_MAX_LEN,
                     ("flash_attention", "decode_attention"), smi)
-    f32 = gate_plain(model, prompt, ids, LM_MAX_LEN, plain_attention)
+    f32 = gate_plain(model, lambda m: teacher_forced(m, prompt, ids,
+                                                     LM_MAX_LEN),
+                     plain_attention, ids=ids)
     gate_cpu(model, f32, prompt[:1, :LM_CPU_PROMPT], LM_CPU_NEW)
     return launches
 
@@ -3064,7 +3164,8 @@ def phase_mamba(smi):
 
     time_generation(model, prompt, MAMBA_NEW, max_len, smi)
     profile_serving(model, prompt, max_len, ("ssd",), smi)
-    f32 = gate_plain(model, prompt, ids, max_len, plain_ssd)
+    f32 = gate_plain(model, lambda m: teacher_forced(m, prompt, ids, max_len),
+                     plain_ssd, ids=ids)
     gate_cpu(model, f32, prompt[:1, :MAMBA_CPU_PROMPT], MAMBA_CPU_NEW)
     return launches
 
@@ -3651,7 +3752,7 @@ def phase_batcher(smi):
                 moe_share(model, slots,
                           tick_busy / PROFILE_TICKS if tick_busy else None,
                           smi)
-            if cfg.mla is not None or hybrid:
+            if cfg.mla is not None or hybrid or cfg.mrope_sections:
                 tick_reads_nothing_back(model, slots, max_len, smi)
             if hybrid:      # the MoE's share of a tick and a prefill too
                 hybrid_split(model, slots, max_len, smi)
@@ -3665,6 +3766,189 @@ def phase_batcher(smi):
             gate_batched_cpu(arch, cpu_layers, smi, gate_pattern)
         log("  %s world: %.1f s" % (arch, time.time() - t_world))
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 13: other LM architectures (M-RoPE, codebook heads, frontend stubs)
+# --------------------------------------------------------------------------
+
+def rope_index(segments):
+    """M-RoPE position ids ``[3, T]`` (temporal, height, width) of one
+    sequence, as Qwen2-VL's ``get_rope_index`` lays them out: a segment is
+    ``("text", n)`` or ``("image", h, w)`` (a grid of merged patches, one
+    frame).  Text counts on in all three streams; inside an image t stays
+    fixed while h and w step over the grid; each segment starts at the
+    previous segment's largest id + 1."""
+    cols, start = [], 0
+    for seg in segments:
+        if seg[0] == "text":
+            ids = np.broadcast_to(np.arange(seg[1]), (3, seg[1]))
+        else:
+            _, h, w = seg
+            ids = np.stack([np.zeros(h * w, np.int64),
+                            np.repeat(np.arange(h), w),
+                            np.tile(np.arange(w), h)])
+        cols.append(start + ids)
+        start = int(cols[-1].max()) + 1
+    return np.concatenate(cols, axis=1).astype(np.int32)
+
+
+def stub_inputs(cfg, batch, layout, seed, device):
+    """The frontend stub's inputs for ``batch`` sequences: embeddings
+    ``[batch, T, d]`` (normal x STUB_STD from a seeded generator on
+    ``device``) and, with M-RoPE, the position ids ``[3, batch, T]`` of
+    ``layout`` (``rope_index``'s segments, each sequence alike); without
+    M-RoPE ``layout`` is T and the positions None."""
+    positions = None
+    if cfg.mrope_sections:
+        grid = torch.from_numpy(rope_index(layout)).to(device)
+        layout = grid.shape[1]
+        positions = grid[:, None].expand(3, batch, layout).contiguous()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    embeds = STUB_STD * torch.randn((batch, layout, cfg.d_model),
+                                    generator=gen, device=device)
+    return embeds, positions
+
+
+def forward_logits(model, embeds, positions):
+    """``lm.forward`` on the frontend stub's inputs, f32 logits."""
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        return lm.forward(model, None, embeds=embeds,
+                          positions=positions).float()
+
+
+def phase_other(smi):
+    """Phase 13: Qwen2-VL-7B (M-RoPE, the vision stub) and MusicGen-large
+    (4 codebooks, the audio stub) at full width and depth."""
+    total = {}
+    for arch, (b, t, new), (fb, layout), cpu_layout in (
+            (VL_ARCH, (VL_BATCH, VL_PROMPT, VL_NEW),
+             (VL_FORWARD_BATCH, VL_LAYOUT), VL_CPU_LAYOUT),
+            (AUDIO_ARCH, (AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW),
+             (AUDIO_BATCH, AUDIO_PROMPT), AUDIO_CPU_T)):
+        for k, n in other_lm(arch, b, t, new, fb, layout, cpu_layout,
+                             smi).items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def other_lm(arch, batch, prompt_len, new, fwd_batch, layout, cpu_layout,
+             smi):
+    """One architecture of phase 13: ``lm.forward`` on ``fwd_batch``
+    sequences of the frontend stub's inputs (``layout``), then
+    ``generate`` of ``new`` greedy tokens (frames of K codes) after
+    ``batch`` prompts of ``prompt_len``, counted (flash once a layer in
+    the forward and in the prefill, decode once a layer a step); phase
+    7's throughput, profile and gates (gate 1 on the generation and on
+    the stub's forward; gate 2 on an f32 copy of OTHER_CPU_LAYERS layers,
+    the stub's forward on ``cpu_layout`` included)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import lm
+    from repro_torch.serve import lm as serve
+
+    t_world = time.time()
+    cfg, model, n_params, made_s = make_lm(arch)
+    books = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    embeds, positions = stub_inputs(cfg, fwd_batch, layout, 0, "cuda")
+    fwd_t = embeds.shape[1]
+    log("phase 13: %s (%s frontend stub), %d layers, d_model %d, %d/%d "
+        "heads of %d, d_ff %d, vocab %d (padded %d)%s%s, %s, %.3f B "
+        "parameters summed from its tensors (%.3f B by the reference's "
+        "param_counts, %.2f GB), made in %.1f s; forward on %d x %d stub "
+        "positions, then %d prompts of %d ids, %d new [%s]"
+        % (arch, cfg.frontend, cfg.num_layers, cfg.d_model, cfg.num_heads,
+           cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.padded_vocab,
+           ", M-RoPE sections %s" % (cfg.mrope_sections,)
+           if cfg.mrope_sections else "",
+           ", %d codebooks" % cfg.num_codebooks if books else "", cfg.dtype,
+           n_params / 1e9, cfg.param_counts()["total"] / 1e9,
+           n_params * 2 / 1e9, made_s, fwd_batch, fwd_t, batch, prompt_len,
+           new, smi))
+    if positions is not None:
+        log("  stub positions of each sequence: %s, largest id of the t, h "
+            "and w streams %s" % (layout,
+                                  positions[:, 0].amax(dim=1).tolist()))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(batch, prompt_len) + books)).cuda()
+    max_len = prompt_len + new
+    serve.generate(model, prompt[:, :64], 2, max_len=max_len)   # warm-up
+    forward_logits(model, embeds[:1, :64], None if positions is None
+                   else positions[:, :1, :64])
+
+    # the main path, through the entry points, counted
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = lm.forward(model, None, embeds=embeds, positions=positions)
+    sync()
+    fwd_s = time.perf_counter() - t0
+    after_forward = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    ids = serve.generate(model, prompt, new, max_len=max_len)
+    sync()
+    gen_s = time.perf_counter() - t0
+    kernels = ("flash_attention", "decode_attention")
+    launches = path_launches("phase 13 (%s forward and generate)" % arch,
+                             kernels, smi)
+    layers = cfg.num_layers
+    if after_forward["flash_attention"] != layers or \
+            after_forward["decode_attention"]:
+        fail("the stub's forward launched %s, expected flash %d"
+             % (_short(after_forward), layers))
+    want = {"flash_attention": 2 * layers,
+            "decode_attention": layers * (new - 1)}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail("%s launched %d times on the %s path, expected %d"
+                 % (k, n, arch, want.get(k, 0)))
+    v = cfg.vocab_size
+    real = logits[..., :v].float()
+    if logits.shape != (fwd_batch, fwd_t) + books + (cfg.padded_vocab,) \
+            or not bool(torch.isfinite(real).all()) \
+            or not bool((logits[..., v:] == -1e30).all()):
+        fail("lm.forward on the stub gave logits of shape %s, non-finite "
+             "ones or unmasked padded rows" % (tuple(logits.shape),))
+    log("  forward on the stub: %d x %d positions -> logits %s in %.3f s "
+        "(%.0f positions/s), std %.3f; flash %d launches [%s]"
+        % (fwd_batch, fwd_t, tuple(logits.shape), fwd_s,
+           fwd_batch * fwd_t / fwd_s, float(real.std()),
+           after_forward["flash_attention"], smi))
+    del logits, real
+    log("  generate: %s ids in %.3f s, peak %.2f GB (forward and generate), "
+        "ids of sequence 0 start %s [%s]"
+        % (" x ".join(map(str, ids.shape)), gen_s,
+           torch.cuda.max_memory_allocated() / 1e9, ids[0, :4].tolist(),
+           smi))
+    check_ids(ids, (batch, new) + books, v)
+
+    time_generation(model, prompt, new, max_len, smi)
+    profile_serving(model, prompt, max_len, kernels, smi)
+    f32 = gate_plain(model, lambda m: teacher_forced(m, prompt, ids,
+                                                     max_len),
+                     plain_attention, ids=ids)
+    gate_plain(model, lambda m: forward_logits(m, embeds, positions),
+               plain_attention, "lm.forward on the stub", f32=f32)
+    del model, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gate 2 on a copy of OTHER_CPU_LAYERS layers: an f32 copy of all of
+    # them on the CPU would take 4 bytes a parameter and minutes
+    _, small, _, _ = make_lm(arch, OTHER_CPU_LAYERS)
+    f32 = as_f32(small, "cuda")
+    log("  gate 2 on a copy of %d layers" % OTHER_CPU_LAYERS)
+    gate_cpu(small, f32, prompt[:1, :LM_CPU_PROMPT], LM_CPU_NEW,
+             stub_inputs(cfg, 1, cpu_layout, 1, "cpu"))
+    del small, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  %s world: %.1f s" % (arch, time.time() - t_world))
+    return launches
 
 
 def main() -> int:
@@ -3742,10 +4026,12 @@ def main() -> int:
     log("phase 11 done at %.1f s" % (time.time() - t_start))
     batch_launches = phase_batcher(smi)
     log("phase 12 done at %.1f s" % (time.time() - t_start))
+    other_launches = phase_other(smi)
+    log("phase 13 done at %.1f s" % (time.time() - t_start))
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
              + lm_launches[k] + mamba_launches[k] + obs_launches[k]
              + serve_launches[k] + shard_launches[k] + batch_launches[k]
-             for k in launches}
+             + other_launches[k] for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

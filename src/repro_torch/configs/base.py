@@ -3,11 +3,13 @@
 One :class:`ModelConfig` describes a decoder LM: dense / MoE / SSM /
 hybrid stacks with GQA/MLA/SWA attention, M-RoPE, multi-codebook heads.
 The schema is the whole of the reference's, so a configuration compares
-field for field; the port runs any layer pattern of GQA or MLA attention and Mamba-1 or
-Mamba-2 mixers whose layers carry a dense FFN, an MoE FFN or none
-(sliding windows and the non-parametric LayerNorm included;
-``models/``), and the rest raises ``NotImplementedError`` where it is
-used.
+field for field; the port runs every architecture the reference
+registers (``models/``): any layer pattern of GQA or MLA attention and
+Mamba-1 or Mamba-2 mixers whose layers carry a dense FFN, an MoE FFN or
+none, sliding windows, the non-parametric LayerNorm, M-RoPE on GQA, and
+codebook heads with the vision and audio frontend stubs.  What no
+configuration uses (another mixer or norm) raises ``NotImplementedError``
+where it is used.
 """
 from __future__ import annotations
 
@@ -176,13 +178,6 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
-# the reference's other architectures, each with the ROADMAP.md item that
-# ports what it needs
-NOT_PORTED = {
-    "qwen2-vl-7b": "Other LM architectures",
-    "musicgen-large": "Other LM architectures",
-}
-
 
 def register(name: str):
     def deco(fn: Callable[[], ModelConfig]):
@@ -194,14 +189,13 @@ def register(name: str):
 def _register_all() -> None:
     from . import (  # noqa: F401  (register themselves)
         deepseek_v2_236b, h2o_danube_1_8b, jamba_v0_1_52b, mamba2_130m,
-        minicpm3_4b, mixtral_8x22b, olmo_1b, qwen2_1_5b)
+        minicpm3_4b, mixtral_8x22b, musicgen_large, olmo_1b, qwen2_1_5b,
+        qwen2_vl_7b)
 
 
 def get_config(name: str) -> ModelConfig:
     _register_all()
 
-    if name in NOT_PORTED:
-        raise not_ported("architecture %r" % name, NOT_PORTED[name])
     if name not in _REGISTRY:
         raise KeyError("unknown arch %r; known: %s" % (name, sorted(_REGISTRY)))
     return _REGISTRY[name]()

@@ -79,14 +79,16 @@ def _param(a, dtype, device) -> torch.Tensor:
 
 def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     """An :class:`~repro_torch.models.lm.LM` from the reference's nested
-    parameter dict as numpy arrays: ``embed``, ``final_norm``, optional
-    ``lm_head``, and for each sub-layer ``i`` of the layer pattern
-    ``blocks/sub{i}/{nm, attn/*}`` (``attn`` holds ``wq, wk, wv, wo`` and
-    the biases for GQA, ``wq_a, wq_b`` or ``wq``, ``wkv_a, wk_rope, wkv_b,
-    wo`` for MLA) or ``blocks/sub{i}/{nm, mamba/*}`` (Mamba-1 or Mamba-2,
-    the leaves of ``mamba.LEAVES`` by the configuration's version), and,
-    where the sub-layer has an FFN, ``nf`` and ``mlp/{wi, wg, wo}`` (dense)
-    or ``moe/{router, wi, wg, wo, shared/*}`` (an MoE; ``shared`` where it
+    parameter dict as numpy arrays: ``embed`` (``[Vp, d]``, or ``[K, Vp,
+    d]`` for K codebooks), ``final_norm``, optional ``lm_head`` (``[d,
+    Vp]``, or ``[d, K * Vp]``), carried as they lie, and for each
+    sub-layer ``i`` of the layer pattern ``blocks/sub{i}/{nm, attn/*}``
+    (``attn`` holds ``wq, wk, wv, wo`` and the biases for GQA, ``wq_a,
+    wq_b`` or ``wq``, ``wkv_a, wk_rope, wkv_b, wo`` for MLA) or
+    ``blocks/sub{i}/{nm, mamba/*}`` (Mamba-1 or Mamba-2, the leaves of
+    ``mamba.LEAVES`` by the configuration's version), and, where the
+    sub-layer has an FFN, ``nf`` and ``mlp/{wi, wg, wo}`` (dense) or
+    ``moe/{router, wi, wg, wo, shared/*}`` (an MoE; ``shared`` where it
     has shared experts), stacked on a leading period axis, which is
     unstacked here: layer ``j`` is period ``j // P`` of sub-layer ``j %
     P``, the reference's scan order.  A norm without weights (OLMo's) has

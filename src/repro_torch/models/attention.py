@@ -1,5 +1,6 @@
-"""GQA attention (QKV bias, RoPE, sliding windows) and multi-head latent
-attention (MLA: MiniCPM3, DeepSeek-V2), with and without a cache.
+"""GQA attention (QKV bias, RoPE or Qwen2-VL's M-RoPE, sliding windows) and
+multi-head latent attention (MLA: MiniCPM3, DeepSeek-V2), with and without
+a cache.
 
 The cache of one layer is ``{"k": [B, Hk, S, D], "v": [B, Hk, S, D],
 "len"}``: heads before positions, so the kernels read it where it lies
@@ -60,10 +61,10 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig, not_ported
+from ..configs.base import ModelConfig
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
-from .common import apply_rope, dense, normal_param, zeros_param
+from .common import apply_mrope, apply_rope, dense, normal_param, zeros_param
 
 NEG_INF = -1e30
 
@@ -98,8 +99,12 @@ class MLA(nn.Module):
 
 
 def check_attention(cfg: ModelConfig) -> None:
-    if cfg.mrope_sections is not None:
-        raise not_ported("M-RoPE (%s)" % cfg.name, "Other LM architectures")
+    """M-RoPE rotates GQA's queries and keys; MLA rotates with RoPE only
+    (the reference's ``mla_forward``), so the two together are an
+    error."""
+    if cfg.mrope_sections is not None and cfg.mla is not None:
+        raise ValueError("%s: M-RoPE with MLA is not a model of the "
+                         "reference" % cfg.name)
 
 
 def init_attention(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -158,18 +163,24 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """``x [B, T, d]`` at ``positions [B, T]`` -> ``(out [B, T, d],
-    cache)``.  With a cache, the T new key/value rows are written at
-    ``cache["len"]`` (per lane for per-sequence lengths) in place, and the
-    returned cache holds the same tensors with ``len + T``."""
-    check_attention(cfg)
+    """``x [B, T, d]`` at ``positions [B, T]`` (``[3, B, T]`` with M-RoPE)
+    -> ``(out [B, T, d], cache)``.  With a cache, the T new key/value rows
+    are written at ``cache["len"]`` (per lane for per-sequence lengths) in
+    place, and the returned cache holds the same tensors with ``len +
+    T``."""
     b, t, _ = x.shape
     hd, hq, hk = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     q = dense(x, p.wq, p.bq).reshape(b, t, hq, hd)
     k = dense(x, p.wk, p.bk).reshape(b, t, hk, hd)
     v = dense(x, p.wv, p.bv).reshape(b, t, hk, hd)
-    q = apply_rope(q, positions, cfg.rope_theta).transpose(1, 2).contiguous()
-    k = apply_rope(k, positions, cfg.rope_theta).transpose(1, 2)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    q = q.transpose(1, 2).contiguous()
+    k = k.transpose(1, 2)
     v = v.transpose(1, 2)
 
     if cache is None:

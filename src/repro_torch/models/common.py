@@ -1,5 +1,5 @@
-"""Shared model primitives: RMSNorm, the non-parametric LayerNorm, RoPE,
-the dense projection, init.
+"""Shared model primitives: RMSNorm, the non-parametric LayerNorm, RoPE
+and Qwen2-VL's M-RoPE, the dense projection, init.
 
 Rounding follows the reference: norms and RoPE compute in float32 and
 round back to the input's dtype; :func:`dense` casts the weight to the
@@ -8,7 +8,7 @@ input's dtype and adds the bias in that dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -105,6 +105,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions.float()[..., None] * rope_freqs(d, theta, x.device)
     if x.dim() == ang.dim() + 1:                       # [..., T, H, D]
         ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE of ``x [B, T, H, D]`` at ``positions [3,
+    B, T]`` (temporal, height, width), in float32: the D/2 frequencies
+    split into ``sections``, section s rotated by position stream s, the
+    halves then rotated as :func:`apply_rope` does.  Three equal streams
+    give :func:`apply_rope`'s values."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError("M-RoPE sections %s do not sum to half of head dim "
+                         "%d" % (tuple(sections), d))
+    freqs = torch.split(rope_freqs(d, theta, x.device), list(sections))
+    ang = torch.cat([positions[s].float()[..., None] * f
+                     for s, f in enumerate(freqs)], dim=-1)[..., None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -13,8 +13,15 @@ non-parametric LayerNorm, which has none: the block and the model then
 carry no ``nm``/``nf``/``final_norm``, as the reference's parameter tree
 has none).  Weights keep the reference's layouts
 (``interop.lm_params_from_arrays`` carries the reference's parameters
-in).  Codebook heads, vision/audio frontends and M-RoPE raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+in).
+
+Inputs are token ids ``[B, T]``, or ``[B, T, K]`` for a model of K
+codebooks (MusicGen), whose embedding is ``[K, Vp, d]`` (the K lookups
+summed) and whose head ``[d, K * Vp]`` gives logits ``[B, T, K, Vp]``; or
+the frontend stub's ``embeds [B, T, d]`` (vision or audio features), which
+take the place of the lookup.  Positions are ``[B, T]``, or ``[3, B, T]``
+(temporal, height, width) with M-RoPE (Qwen2-VL); without given positions
+every stream counts the sequence's positions.
 
 :func:`forward` runs the MoE layers in capacity mode unless asked for
 ``dropless``, as the reference's ``forward`` does; :func:`decode_step` (the
@@ -61,11 +68,12 @@ MAMBA_CACHE = ("conv", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's LM does not run yet: a mixer other than
+    """Raise for what the port's LM does not run: a mixer other than
     ``attn`` or ``mamba``, or an FFN other than dense, MoE or none, and
     what ``check_attention`` refuses.  A Mamba layer with no
-    ``MambaConfig``, an MoE layer with no ``MoEConfig`` or a depth the
-    pattern does not divide is a ``ValueError``."""
+    ``MambaConfig``, an MoE layer with no ``MoEConfig``, a depth the
+    pattern does not divide or codebook heads tied to the embedding is a
+    ``ValueError``."""
     pattern = cfg.layer_pattern
     if any(s.mixer == "mamba" for s in pattern):
         check_mamba(cfg)
@@ -77,9 +85,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.num_layers % cfg.period:
         raise ValueError("%s: %d layers are not whole periods of %d"
                          % (cfg.name, cfg.num_layers, cfg.period))
-    if cfg.num_codebooks or cfg.frontend is not None:
-        raise not_ported("codebook heads and frontends (%s)" % cfg.name,
-                         "Other LM architectures")
+    if cfg.num_codebooks and cfg.tie_embeddings:
+        raise ValueError("%s: codebook heads are not tied to the "
+                         "embedding" % cfg.name)
     if cfg.norm not in NORMS:
         raise not_ported("norm %r (%s)" % (cfg.norm, cfg.name),
                          "Other LM architectures")
@@ -147,9 +155,10 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Embedding ``[Vp, d]``, the blocks, the final norm's weight (None
-    for a norm without weights) and the head (tied to the embedding, or
-    ``lm_head [d, Vp]``)."""
+    """Embedding ``[Vp, d]`` (``[K, Vp, d]`` for K codebooks), the blocks,
+    the final norm's weight (None for a norm without weights) and the head
+    (tied to the embedding, or ``lm_head [d, Vp]``, ``[d, K * Vp]`` for K
+    codebooks)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  blocks: List[Block], final_norm: Optional[torch.Tensor],
@@ -180,6 +189,7 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     d, vp = cfg.d_model, cfg.padded_vocab
+    books = (cfg.num_codebooks,) if cfg.num_codebooks else ()
 
     def norm():
         return ones_param((d,), dev, dtype) if cfg.norm == "rmsnorm" else None
@@ -195,37 +205,71 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                else init_moe(d, cfg.moe, generator, dev, dtype))
         return Block(norm(), mixer, norm(), ffn)
 
-    embed = normal_param((vp, d), generator, dev, dtype, scale=0.02)
+    embed = normal_param(books + (vp, d), generator, dev, dtype, scale=0.02)
     blocks = [layer(cfg.layer_pattern[j % cfg.period])
               for j in range(cfg.num_layers)]
     head = (None if cfg.tie_embeddings
-            else normal_param((d, vp), generator, dev, dtype, scale=0.02))
+            else normal_param((d, vp * max(1, cfg.num_codebooks)), generator,
+                              dev, dtype, scale=0.02))
     return LM(cfg, embed, blocks, norm(), head)
 
 
+def embed_tokens(model: LM, tokens: Optional[torch.Tensor],
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[B, T, d]`` in the model's dtype: the frontend stub's ``embeds``
+    where given, else the lookup of ``tokens [B, T]``, or for K codebooks
+    the sum of the K lookups of ``tokens [B, T, K]``, codebook 0 first."""
+    if embeds is not None:
+        return embeds.to(device=model.device, dtype=dtype_of(model.cfg.dtype))
+    emb = torch.nn.functional.embedding
+    if not model.cfg.num_codebooks:
+        return emb(tokens, model.embed)
+    h = emb(tokens[..., 0], model.embed[0])
+    for k in range(1, model.cfg.num_codebooks):
+        h = h + emb(tokens[..., k], model.embed[k])
+    return h
+
+
 def lm_logits(model: LM, h: torch.Tensor) -> torch.Tensor:
-    """``h [B, T, d]`` -> ``[B, T, Vp]``; padded vocab rows are -1e30."""
+    """``h [B, T, d]`` -> ``[B, T, Vp]`` (``[B, T, K, Vp]`` for K
+    codebooks); padded vocab rows are -1e30 (in every codebook)."""
     cfg = model.cfg
     w = model.embed.T if model.lm_head is None else model.lm_head
     logits = torch.matmul(h, w.to(h.dtype))
+    if cfg.num_codebooks:
+        logits = logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
+                                cfg.padded_vocab)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
 
 
-def _positions(b: int, t: int, start: int, device) -> torch.Tensor:
-    return (start + torch.arange(t, device=device))[None].expand(b, t)
+def _positions(cfg: ModelConfig, b: int, t: int,
+               start: Union[int, torch.Tensor], device) -> torch.Tensor:
+    """Positions ``start + [0, t)`` of each sequence, ``start`` a host int
+    or an int32 ``[B]`` tensor (read on the device, not on the host):
+    ``[B, t]``, or three equal streams ``[3, B, t]`` with M-RoPE."""
+    steps = torch.arange(t, device=device)
+    pos = (start[:, None].long() + steps if torch.is_tensor(start)
+           else (start + steps)[None].expand(b, t))
+    return pos if cfg.mrope_sections is None else pos[None].expand(3, b, t)
 
 
-def forward_hidden(model: LM, tokens: torch.Tensor, dropless: bool = False,
-                   moe_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(model: LM, tokens: Optional[torch.Tensor],
+                   dropless: bool = False, moe_groups: int = 1,
+                   embeds: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone without a cache: embeddings -> blocks -> final norm,
-    ``tokens [B, T]`` -> ``(h [B, T, d], aux)``, aux the float32 sum of the
-    MoE layers' load-balancing losses (0 without MoE).  MoE layers run in
+    ``tokens`` (or ``embeds``, see :func:`embed_tokens`) -> ``(h [B, T,
+    d], aux)``, aux the float32 sum of the MoE layers' load-balancing
+    losses (0 without MoE).  ``positions`` (``[B, T]``, ``[3, B, T]`` with
+    M-RoPE) default to ``[0, T)`` in every stream.  MoE layers run in
     capacity mode unless ``dropless``, dispatched in ``moe_groups``
     groups."""
-    h = torch.nn.functional.embedding(tokens, model.embed)
-    positions = _positions(h.shape[0], h.shape[1], 0, h.device)
+    h = embed_tokens(model, tokens, embeds)
+    positions = (_positions(model.cfg, h.shape[0], h.shape[1], 0, h.device)
+                 if positions is None else positions.to(h.device))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in model.blocks:
         h, _, a = blk(model.cfg, h, positions, dropless=dropless,
@@ -235,12 +279,16 @@ def forward_hidden(model: LM, tokens: torch.Tensor, dropless: bool = False,
     return apply_norm(model.cfg.norm, h, model.final_norm), aux
 
 
-def forward(model: LM, tokens: torch.Tensor, dropless: bool = False,
-            moe_groups: int = 1) -> torch.Tensor:
-    """Full-sequence causal forward: logits ``[B, T, Vp]`` (MoE layers as
-    in :func:`forward_hidden`)."""
+def forward(model: LM, tokens: Optional[torch.Tensor],
+            dropless: bool = False, moe_groups: int = 1,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal forward: logits ``[B, T, Vp]`` (``[B, T, K,
+    Vp]`` for K codebooks); inputs, positions and MoE layers as in
+    :func:`forward_hidden`."""
     return lm_logits(model, forward_hidden(model, tokens, dropless,
-                                           moe_groups)[0])
+                                           moe_groups, embeds,
+                                           positions)[0])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
@@ -280,22 +328,23 @@ def _layer_cache(cache: Dict, kind: str, i: int) -> Dict:
     return view
 
 
-def decode_step(model: LM, tokens: torch.Tensor, cache: Dict,
-                last_only: bool = False) -> torch.Tensor:
-    """New tokens ``[B, T]`` at positions ``cache["len"] + [0, T)`` (each
-    sequence from its own length with ``per_seq``) -> logits ``[B, T, Vp]``
-    (``[B, Vp]`` of the last position with ``last_only``).  Writes the T
-    new key/value rows (or the new conv tail and SSM state) of every layer
+def decode_step(model: LM, tokens: Optional[torch.Tensor], cache: Dict,
+                last_only: bool = False,
+                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """New tokens ``[B, T]`` (``[B, T, K]`` for K codebooks; or the
+    frontend stub's ``embeds [B, T, d]``) at positions ``cache["len"] +
+    [0, T)`` (each sequence from its own length with ``per_seq``; every
+    stream alike with M-RoPE, as the reference's ``decode_step``) ->
+    logits ``[B, T, Vp]`` (``[B, T, K, Vp]``; ``[B, Vp]`` or ``[B, K,
+    Vp]`` of the last position with ``last_only``).  Writes the T new
+    key/value rows (or the new conv tail and SSM state) of every layer
     into ``cache`` and advances ``cache["len"]`` by T, in place; a
     one-token step of at most ``moe.TRIM_MIN_CAP`` sequences reads nothing
     back to the host.  MoE layers run dropless."""
-    h = torch.nn.functional.embedding(tokens, model.embed)
+    h = embed_tokens(model, tokens, embeds)
     b, t = h.shape[:2]
     start = cache["len"]
-    if torch.is_tensor(start):
-        positions = start[:, None].long() + torch.arange(t, device=h.device)
-    else:
-        positions = _positions(b, t, start, h.device)
+    positions = _positions(model.cfg, b, t, start, h.device)
     for blk, (kind, i) in zip(model.blocks, model.cache_slots):
         h, _, _ = blk(model.cfg, h, positions, _layer_cache(cache, kind, i),
                       dropless=True)

@@ -3,7 +3,8 @@ and the continuous batcher.
 
 ``prefill`` consumes the whole prompt into an empty cache and projects
 only the last position through the head; ``step`` feeds one token per
-sequence.  Both update the cache in place and return logits ``[B, Vp]``.
+sequence (K tokens, one a codebook, for MusicGen).  Both update the cache
+in place and return logits ``[B, Vp]`` (``[B, K, Vp]`` for K codebooks).
 For attention stacks the prefill runs flash attention over the KV cache
 (``q_offset`` = the cache length) and a step decode attention; for
 Mamba-2 stacks the prefill runs the SSD kernel from the cached state and
@@ -40,7 +41,8 @@ from ..models.common import resolve_device
 
 def make_serve_fns(model: lm.LM) -> Tuple[Callable, Callable]:
     """``(prefill, step)``: ``prefill(tokens [B, T], cache)`` and
-    ``step(tokens [B, 1], cache)``, each -> logits ``[B, Vp]`` of the last
+    ``step(tokens [B, 1], cache)`` (``[B, T, K]`` and ``[B, 1, K]`` for K
+    codebooks), each -> logits ``[B, Vp]`` (``[B, K, Vp]``) of the last
     position, the cache advanced in place.  They are one call: the cache's
     length (0 for a prefill) sets the positions and the attention path."""
     fn = functools.partial(lm.decode_step, model, last_only=True)
@@ -54,12 +56,14 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
                  temperature: float = 1.0) -> torch.Tensor:
     """Greedy at temperature 0, else a draw from ``softmax(logits / T)``
-    with ``generator`` (which must live on the logits' device)."""
+    over the last axis with ``generator`` (which must live on the logits'
+    device): ``[B, Vp]`` -> ``[B]``, ``[B, K, Vp]`` -> ``[B, K]``."""
     if temperature == 0.0:
         return greedy_token(logits)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    draw = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                             generator=generator)
+    return draw.reshape(probs.shape[:-1]).to(torch.int32)
 
 
 @torch.no_grad()
@@ -68,7 +72,8 @@ def generate(model: lm.LM, prompt, max_new: int,
              generator: Optional[torch.Generator] = None,
              device="cuda") -> torch.Tensor:
     """Batched generation (greedy by default): ``prompt [B, T]`` token ids
-    -> ``[B, max_new]`` int32 on ``device``, where ``model`` must live.
+    -> ``[B, max_new]`` int32 on ``device``, where ``model`` must live
+    (``[B, T, K]`` -> ``[B, max_new, K]`` for K codebooks).
     ``max_len`` (default: prompt + new tokens) sizes the KV cache; Mamba
     caches do not grow with it, but it is held to the same bound."""
     dev = resolve_device(device)
@@ -77,7 +82,7 @@ def generate(model: lm.LM, prompt, max_new: int,
                          % (model.device, dev))
     prompt = torch.as_tensor(prompt).to(device=model.device,
                                         dtype=torch.int64)
-    b, t = prompt.shape
+    b, t = prompt.shape[:2]
     max_len = max_len or (t + max_new)
     if max_len < t + max_new - 1:
         raise ValueError("max_len %d cannot hold a %d-token prompt and %d "

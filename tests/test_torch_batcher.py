@@ -4,9 +4,11 @@ reference's smoke size (``smoke_variant``, float32, on the CPU), for
 (non-parametric LayerNorm), ``mamba2-130m``, ``mixtral-8x22b`` (MoE,
 dropless on the serving path, sliding window 16), ``minicpm3-4b`` and
 ``deepseek-v2-236b`` (MLA: a latent cache ``ckv``/``krope``; DeepSeek's
-FFN an MoE with shared experts) and ``jamba-v0.1-52b`` (the hybrid
+FFN an MoE with shared experts), ``jamba-v0.1-52b`` (the hybrid
 pattern, cut to one period of 8 layers: Mamba-1 and one attention layer
-with RoPE, dense and MoE FFNs; its cache holds both kinds).
+with RoPE, dense and MoE FFNs; its cache holds both kinds) and
+``qwen2-vl-7b`` (M-RoPE: each lane's three position streams from its own
+cache length).
 
 The same parameters (numpy, from a seed, in the reference's nested
 layout) and token ids feed both packages:
@@ -57,7 +59,7 @@ from repro_torch.serve import lm as p_serve
 
 ARCHS = ("qwen2-1.5b", "h2o-danube-1.8b", "olmo-1b", "mamba2-130m",
          "mixtral-8x22b", "minicpm3-4b", "deepseek-v2-236b",
-         "jamba-v0.1-52b")
+         "jamba-v0.1-52b", "qwen2-vl-7b")
 ATTENTION_ARCHS = tuple(a for a in ARCHS if a != "mamba2-130m")
 TOL = dict(rtol=2e-4, atol=2e-4)
 SLOTS = 2

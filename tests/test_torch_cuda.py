@@ -933,6 +933,10 @@ FLASH_CASES = {
     # Mixtral-8x22B's lane prefill: 48/8 heads of 128, window 4096
     "mixtral_prefill_window4096_g6_d128": (1, 48, 8, 4600, 4672, 128, True,
                                            4096, 0),
+    # Qwen2-VL-7B's vision forward (28/4 heads of 128: group 7) and
+    # MusicGen-large's prefill (32/32 heads of 64: group 1)
+    "qwen2vl_forward_g7_d128": (2, 28, 4, 2048, 2048, 128, True, None, 0),
+    "musicgen_prefill_g1_d64": (4, 32, 32, 500, 500, 64, True, None, 0),
 }
 # (b, hq, hk, s, d, lengths)
 DECODE_CASES = {
@@ -949,6 +953,11 @@ DECODE_CASES = {
     "g12_two_head_groups": (2, 24, 2, 300, 64, [300, 171]),
     "b1_s32768": (1, 12, 2, 32768, 128, [32768]),
     "g4_d80": (3, 32, 8, 4672, 80, [4672, 1, 2300]),
+    # Qwen2-VL-7B's tick at group 7 (one slot of the kernel's 8 query heads
+    # a block idles) and MusicGen-large's at group 1, 500 + 63 rows
+    "qwen2vl_tick_g7_d128": (8, 28, 4, 4672, 128,
+                             [4601, 257, 4649, 2001, 4098, 1001, 3501, 300]),
+    "musicgen_tick_g1_d64": (4, 32, 32, 564, 64, [563] * 4),
 }
 # (b, hq, hk, s, d, window, lengths): the query at lengths[b] - 1, live rows
 # [max(0, lengths[b] - window), min(lengths[b], S))
@@ -1690,3 +1699,112 @@ def test_two_layer_hybrid_generation_on_the_card_equals_the_cpu(card):
     assert torch.equal(ids, cids)
     torch.testing.assert_close(logits[..., :1000], clogits[..., :1000],
                                rtol=0, atol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# M-RoPE (Qwen2-VL-7B) and codebook heads (MusicGen-large): the real heads
+# at a narrow width, with the vision and audio frontend stubs
+# --------------------------------------------------------------------------
+
+def _narrow(arch):
+    """The architecture's heads (Qwen2-VL: 28/4 of 128, M-RoPE (16, 24,
+    24); MusicGen: 32/32 of 64, 4 codebooks) at d_model 512, 2 layers,
+    vocab 1000 (padded to 1024), float32."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=2, d_model=512,
+                               d_ff=1024, vocab_size=1000, dtype="float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "musicgen-large"])
+def test_mrope_and_codebook_models_on_the_card_equal_the_cpu(card, arch):
+    """``lm.forward`` on the frontend stub (embeddings; Qwen2-VL with the
+    position ids of text, an 8x8 image and text) and greedy ``generate``
+    after 60 ids (``[B, T, 4]`` for MusicGen), float32, TF32 off: the
+    card's ids equal the CPU's, logits within 2e-3, and the attention
+    kernels launch once a layer in the forward and the prefill and once a
+    layer a step."""
+    from repro_torch.models import lm as p_lm
+    from repro_torch.serve import lm as p_serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _narrow(arch)
+    model = p_lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    books = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    prompt = torch.from_numpy(rng.integers(0, 1000, (2, 60) + books))
+    embeds = torch.from_numpy(rng.standard_normal((2, 100, 512)).astype(
+        np.float32))
+    positions = None
+    if cfg.mrope_sections:
+        # chip_smoke.rope_index: Qwen2-VL's image-grid position ids
+        from test_torch_kernel_sources import _load_chip_smoke
+
+        grid = _load_chip_smoke().rope_index(
+            [("text", 20), ("image", 8, 8), ("text", 16)])
+        positions = torch.from_numpy(np.stack([grid, grid], axis=1))
+    out = {}
+    for dev in (card, "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        _cuda.reset_launches()
+        with torch.no_grad():
+            fwd = p_lm.forward(m, None, embeds=embeds.to(dev),
+                               positions=None if positions is None
+                               else positions.to(dev))
+        ids = p_serve.generate(m, prompt.to(dev), 8, max_len=68, device=dev)
+        launched = (_cuda.LAUNCHES["flash_attention"],
+                    _cuda.LAUNCHES["decode_attention"])
+        out[str(dev)] = (fwd.cpu(), ids.cpu(),
+                         _teacher_forced(m, prompt.to(dev), ids, 68).cpu(),
+                         launched)
+    (fwd, ids, logits, launched), (cfwd, cids, clogits, _) = (
+        out[str(card)], out["cpu"])
+    assert launched == (4, 14)
+    assert fwd.shape == (2, 100) + books + (1024,)
+    assert ids.shape == (2, 8) + books and torch.equal(ids, cids)
+    for a, b in ((fwd, cfwd), (logits, clogits)):
+        assert torch.all(a[..., 1000:] == -1e30)
+        torch.testing.assert_close(a[..., :1000], b[..., :1000], rtol=0,
+                                   atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_per_lane_mrope_tick_reads_nothing_back(card):
+    """One token a lane over a per-sequence cache (lanes at 0, 37, 300
+    and 511 of 512 rows, drawn keys and values), narrow Qwen2-VL: each
+    lane's three M-RoPE streams come from its length on the card, so the
+    whole ``decode_step`` runs under ``set_sync_debug_mode("error")``;
+    logits and cache equal the CPU's within 2e-3."""
+    from repro_torch.models import lm as p_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _narrow("qwen2-vl-7b")
+    model = p_lm.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+    lens = torch.tensor([0, 37, 300, 511], dtype=torch.int32)
+    rng = np.random.default_rng(5)
+    kv = torch.from_numpy(rng.standard_normal(
+        (2, 4, 4, 512, 128)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, 1000, (4, 1)))
+    out = {}
+    for dev in (card, "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        cache = p_lm.init_cache(cfg, 4, 512, dev, per_seq=True)
+        cache["k"].copy_(kv.to(dev))
+        cache["v"].copy_((0.5 * kv).to(dev))
+        cache["len"].copy_(lens.to(dev))
+        tokens = toks.to(dev)
+        if str(dev) != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                logits = p_lm.decode_step(m, tokens, cache, last_only=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[str(dev)] = (logits.cpu(), cache["k"].cpu(), cache["v"].cpu(),
+                         cache["len"].cpu())
+    got, want = out[str(card)], out["cpu"]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-3)
+    assert got[3].tolist() == (lens + 1).tolist()

@@ -39,7 +39,6 @@ from repro.models import lm as r_lm
 from repro.models import mamba as r_mamba
 from repro.serve import lm as r_serve
 from repro_torch import interop
-from repro_torch.configs import base as p_base
 from repro_torch.configs import get_config, registered, smoke_variant
 from repro_torch.models import lm as p_lm
 from repro_torch.models import mamba as p_mamba
@@ -82,7 +81,7 @@ def test_config_equals_reference():
         assert ours.param_counts() == ref.param_counts()
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
-    assert ARCH in registered() and ARCH not in p_base.NOT_PORTED
+    assert ARCH in registered()
     full = get_config(ARCH)
     assert [(s.mixer, s.ffn) for s in full.layer_pattern] == [
         ("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),

@@ -130,18 +130,12 @@ def test_config_equals_reference():
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
     assert registered() == ("deepseek-v2-236b", "h2o-danube-1.8b",
                             "jamba-v0.1-52b", "mamba2-130m", "minicpm3-4b",
-                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
+                            "mixtral-8x22b", "musicgen-large", "olmo-1b",
+                            "qwen2-1.5b", "qwen2-vl-7b")
+    assert registered() == r_base.registered()
     full = get_config("qwen2-1.5b")
     assert full.padded_vocab == 152064
     assert round(full.param_counts()["total"] / 1e9, 2) == 1.54
-
-
-@pytest.mark.parametrize("arch", sorted(p_base.NOT_PORTED))
-def test_other_archs_name_their_roadmap_item(arch):
-    assert arch in r_base.registered()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1: %s" % p_base.NOT_PORTED[arch]):
-        get_config(arch)
 
 
 def test_unported_model_features_raise(cfg, rcfg):
@@ -151,10 +145,20 @@ def test_unported_model_features_raise(cfg, rcfg):
     assert ours["len"].dtype == torch.int32 and ours["len"].tolist() == [0, 0]
     assert ref["len"].shape == (cfg.num_layers, 2)
     assert tuple(ours["k"].transpose(2, 3).shape) == ref["k"].shape
-    # MLA is ported (tests/test_torch_mla.py); M-RoPE is not
+    # MLA (tests/test_torch_mla.py) and M-RoPE on GQA
+    # (tests/test_torch_mrope_codebooks.py) are ported; M-RoPE with MLA,
+    # which no model of the reference has, and codebook heads tied to the
+    # embedding are errors
     mrope = dataclasses.replace(cfg, mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="Other LM architectures"):
-        p_lm.init_model(mrope, device="cpu")
+    assert p_lm.init_model(mrope, device="cpu").cfg.mrope_sections
+    mla = smoke_variant(get_config("minicpm3-4b"))
+    with pytest.raises(ValueError, match="M-RoPE with MLA"):
+        p_lm.init_model(dataclasses.replace(mla, mrope_sections=(2, 3, 3)),
+                        device="cpu")
+    with pytest.raises(ValueError, match="codebook heads are not tied"):
+        p_lm.init_model(dataclasses.replace(cfg, num_codebooks=4,
+                                            tie_embeddings=True),
+                        device="cpu")
     # MoE (tests/test_torch_moe.py) and hybrid patterns
     # (tests/test_torch_jamba.py) are ported
     hybrid = dataclasses.replace(
@@ -404,7 +408,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 ("launch", "serve.py"), ("configs", "h2o_danube_1_8b.py"),
                 ("configs", "olmo_1b.py"), ("models", "moe.py"),
                 ("configs", "mixtral_8x22b.py"), ("configs", "minicpm3_4b.py"),
-                ("configs", "deepseek_v2_236b.py")):
+                ("configs", "deepseek_v2_236b.py"),
+                ("configs", "qwen2_vl_7b.py"),
+                ("configs", "musicgen_large.py")):
         assert os.path.join(REPO, "src", "repro_torch", *new) in files
     for path in files:
         for mod in _imports(path):

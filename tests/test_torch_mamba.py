@@ -120,7 +120,9 @@ def test_config_equals_reference():
         assert ours.mamba.nheads(ours.d_model) == ref.mamba.nheads(ref.d_model)
     assert registered() == ("deepseek-v2-236b", "h2o-danube-1.8b",
                             "jamba-v0.1-52b", "mamba2-130m", "minicpm3-4b",
-                            "mixtral-8x22b", "olmo-1b", "qwen2-1.5b")
+                            "mixtral-8x22b", "musicgen-large", "olmo-1b",
+                            "qwen2-1.5b", "qwen2-vl-7b")
+    assert registered() == r_base.registered()
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.padded_vocab) == (24, 768,
                                                                   50432)

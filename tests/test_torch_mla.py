@@ -41,7 +41,6 @@ from repro.models import attention as r_attn
 from repro.models import lm as r_lm
 from repro.serve import lm as r_serve
 from repro_torch import interop
-from repro_torch.configs import base as p_base
 from repro_torch.configs import get_config, registered, smoke_variant
 from repro_torch.kernels.decode_attention import ref as p_da_ref
 from repro_torch.kernels.flash_attention import ref as p_fa_ref
@@ -201,7 +200,7 @@ def test_config_equals_reference(arch):
         assert ours.param_counts() == ref.param_counts()
         assert (ours.padded_vocab, ours.num_periods, ours.resolved_head_dim) \
             == (ref.padded_vocab, ref.num_periods, ref.resolved_head_dim)
-    assert arch in registered() and arch not in p_base.NOT_PORTED
+    assert arch in registered()
     full = get_config(arch)
     m = full.mla
     dims = (m.nope_head_dim + m.rope_head_dim, m.v_head_dim)

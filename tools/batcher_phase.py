@@ -6,13 +6,16 @@
     python3 tools/batcher_phase.py --arch mixtral-8x22b   # one world only
     python3 tools/batcher_phase.py --arch minicpm3-4b --arch deepseek-v2-236b
     python3 tools/batcher_phase.py --arch jamba-v0.1-52b
+    python3 tools/batcher_phase.py --arch qwen2-vl-7b --other  # and phase 13
 
 Builds the kernels, holds flash and decode attention against their plain
 versions (``chip_smoke.phase_attention``, the head-dim-80, windowed,
-Mixtral, MLA and Jamba cases included, each timed), then runs
+Mixtral, MLA, Jamba, Qwen2-VL and MusicGen cases included, each timed),
+then runs
 ``chip_smoke.phase_batcher`` (over the ``BATCH_WORLDS`` entries of the
-``--arch`` names given, all of them by default) and prints its launch
-counts.  Needs a card.
+``--arch`` names given, all of them by default) and, with ``--other``,
+phase 13 (``chip_smoke.phase_other``: Qwen2-VL-7B and MusicGen-large at
+full width and depth), and prints their launch counts.  Needs a card.
 """
 import argparse
 import json
@@ -32,6 +35,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append",
                     choices=[w[0] for w in cs.BATCH_WORLDS])
+    ap.add_argument("--other", action="store_true",
+                    help="run phase 13 after phase 12")
     args = ap.parse_args(argv)
     if args.arch:
         cs.BATCH_WORLDS = tuple(w for w in cs.BATCH_WORLDS
@@ -53,6 +58,12 @@ def main(argv=None) -> int:
     total = cs.phase_batcher(smi)
     cs.log("phase 12 alone: %.1f s, launches %s" % (time.time() - t1,
                                                    json.dumps(total)))
+    if args.other:
+        t2 = time.time()
+        other = cs.phase_other(smi)
+        cs.log("phase 13 alone: %.1f s, launches %s" % (time.time() - t2,
+                                                       json.dumps(other)))
+        total = {k: n + other[k] for k, n in total.items()}
     print(json.dumps({"kernels": [recs[k].row(total[k]) for k in recs]}))
     return 0
 
