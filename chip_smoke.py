@@ -78,7 +78,12 @@ Phases (each prints its lines; any failure exits non-zero):
    push; the four DSCEP kernels must launch in each mode's runs.  The GPU
    run of ``monolithic`` and ``single_program`` must equal a CPU run of the
    port (plain versions) on all its chunks; ``pipelined`` is held to
-   ``single_program`` on the card, so it gets no CPU run of its own.  Each
+   ``single_program`` on the card, so it gets no CPU run of its own.  The
+   CPU runs go to one worker process (``spawn``, ``CPU_GATE_THREADS``
+   torch threads) as soon as the GPU runs are done, on the same
+   vocabulary, KB and chunks; it sends each stream back as numpy arrays,
+   and after phase 14 every one is held to its GPU run byte for byte
+   (``same_outputs``), or the run fails.  Each
    configuration runs one warm-up chunk, then the chunks ``REPEATS`` times
    (each pass must give the same bytes); chunks/s is the median pass, with
    the spread, beside the configuration's peak device memory.
@@ -241,11 +246,38 @@ Phases (each prints its lines; any failure exits non-zero):
    copies of 2 layers (phase 7's prompt and a stub of 256 positions, for
    Qwen2-VL with an 8 x 8 image: equal ids, logits within 2e-3).
 
-Phases 3, 5, 6, 7, 8, 9, 10, 11, 12 and 13 each drive their path with
-the launch counters zeroed just before and read just after (phases 11
-and 12: before and after each of their runs); each kernel of the path
-must have launched, and the JSON line's ``launches`` sums the ten
-phases' path runs.
+14. **LM training** (``train/``, ``launch/train.py``; ``impl="xla"``:
+   plain differentiable torch ops, as the reference trains; no kernel has
+   a backward, nor has the reference's Pallas path): (a) each of the ten
+   architectures' smoke models (float32, TF32 off) takes 2 steps of
+   ``make_train_step`` (2 microbatches of 2 x 64, remat ``dots``) on the
+   card, the CPU taking the same step from the card's state before each:
+   loss, ce, aux, grad_norm and lr within 1e-5, the parameters within 2 lr
+   elementwise and 1e-6 on average, m and v within 1e-3 of each leaf's
+   largest; (b) Mamba2-130M at full width and depth (24 layers, bf16)
+   through ``launch.train.main(..., device="cuda")``, batch 8 x 512, 12
+   steps, a checkpoint every 4, a crash injected at step 6, one retry,
+   against the same run uninterrupted: the restore of step 4 byte for
+   byte what was saved (bf16 leaves included), the resumed losses of
+   steps 5-11 equal to the uninterrupted run's, the loss falling; the
+   checkpoint's bytes and its save, write and restore seconds; (c)
+   Qwen2-1.5B at full width and depth (28 layers, bf16) through
+   ``make_train_step`` at 8 x 512: 8 steps with remat ``none``, 3 with
+   ``dots``, 3 with ``full`` and 3 with 2 microbatches: ms a step,
+   tokens/s, peak memory and the share of the dense bf16 peak that ``6 N
+   tokens`` reaches; ``full`` must peak below ``none`` and the loss fall;
+   one more step under the profiler (device busy, idle share, the top
+   kernels), and one AdamW update alone.
+   Then ``loss_fn(impl="pallas")`` under ``no_grad`` on the trained
+   weights of (b) and (c), the counters zeroed just before: the SSD kernel
+   once a layer (24) and flash once a layer (28), the loss within 2^-8 of
+   ``impl="xla"``'s.
+
+Phases 3, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14 each drive their path
+with the launch counters zeroed just before and read just after (phases
+11 and 12: before and after each of their runs; phase 14: its two eval
+losses); each kernel of the path must have launched, and the JSON line's
+``launches`` sums the eleven phases' path runs.
 
 The last two lines are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -261,6 +293,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -345,6 +378,27 @@ ATT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
 PROFILE_ATTEMPTS = 4
 
 # phase 9: observability and recovery, on phase 3's world and caps
+# phase 14: LM training
+TRAIN_SMOKE_SHAPE = (4, 64)    # (a): batch x sequence of the smoke models
+TRAIN_SMOKE_STEPS = 2
+TRAIN_SMOKE_MICRO = 2
+TRAIN_SMOKE_LR = 1e-3
+TRAIN_METRIC_TOL = 1e-5        # the CPU tests' train-step bounds: metrics,
+TRAIN_MEAN_TOL = 1e-6          # the mean |parameter diff| (elementwise 2 lr)
+TRAIN_MOMENT_RTOL = 1e-3       # m and v, of each leaf's largest magnitude
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_STEPS = 8, 512, 12
+MAMBA_FAIL_AT, MAMBA_RESTORE_STEP = 6, 4
+MAMBA_TRAIN = ["--arch", "mamba2-130m", "--batch", str(MAMBA_TRAIN_BATCH),
+               "--seq", str(MAMBA_TRAIN_SEQ), "--steps", str(MAMBA_STEPS),
+               "--ckpt-every", "4", "--retries", "1", "--log-every", "1",
+               "--lr", "1e-3"]
+MAMBA_RESUME_TOL = 0.0         # resumed losses: equal to the uninterrupted
+QWEN_TRAIN_SHAPE = (8, 512)
+QWEN_TRAIN_RUNS = (("none", 1, 8), ("dots", 1, 3), ("full", 1, 3),
+                   ("none", 2, 3))   # (remat, microbatches, steps)
+EVAL_LOSS_RTOL = 2.0 ** -8     # kernel path's eval loss: one bf16 rounding
+CPU_GATE_THREADS = 4           # phase 3's CPU sessions, in their worker
+
 OBS_QUERIES = ("q15", "cquery1")
 CHAOS_SEED = 0         # FaultPlan.seeded draws one event of each kind
 STAGE_TIMEOUT_S = 30.0
@@ -1405,20 +1459,89 @@ def phase_main(vocab, kbd, chunks, smi):
     log("window packing (host numpy + gather): %.3f ms per chunk [%s]"
         % ((time.perf_counter() - t0) * 1e3 / len(merged), smi))
 
-    # the GPU run equals a CPU run of the port (plain versions)
-    kb_cpu = kbd.kb.to("cpu")
+    # the GPU run equals a CPU run of the port (plain versions): the CPU
+    # sessions run in a worker process beside the later phases, and main()
+    # compares their streams after the last GPU phase (cpu_gate_finish)
     combos = [(q, mode, method) for q in QUERIES for mode in MODES
               for method in ("probe", "auto")]
     combos += [(q, "single_program", "scan") for q in QUERIES]
+    cpu_gate = cpu_gate_start(vocab, kbd.kb, chunks, texts, combos)
+    return launches, results, config_launches, cpu_gate
+
+
+def _cpu_sessions(src, threads, vocab, kb_arrays, chunk_arrays, texts,
+                  combos, conn):
+    """Phase 3's CPU sessions, in a worker process: each configuration's
+    output stream as numpy arrays (or the error's traceback), sent back
+    over ``conn``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, src)
+        torch.set_num_threads(threads)
+        from repro_torch import interop
+        from repro_torch.core.session import Session
+
+        kb = interop.kb_from_arrays(kb_arrays)
+        chunks = [interop.triples_from_arrays(*c) for c in chunk_arrays]
+        out = {}
+        for q, mode, method in combos:
+            t0 = time.perf_counter()
+            reg = Session(exec_config(mode, method, "cpu"), vocab=vocab,
+                          kb=kb).register(texts[q])
+            outs, _ = reg.run(chunks)
+            out[(q, mode, method)] = (
+                [tuple(c.numpy() for c in o) for o in outs],
+                time.perf_counter() - t0)
+        conn.send(("ok", out))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def cpu_gate_start(vocab, kb, chunks, texts, combos):
+    """Start phase 3's CPU sessions (``combos``) in one worker process
+    (``spawn``, CPU_GATE_THREADS torch threads), on the same vocabulary,
+    KB and chunks; returns what :func:`cpu_gate_finish` needs."""
+    import multiprocessing
+
+    from repro_torch.interop import KB_FIELDS
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    kb_cpu = kb.to("cpu")
+    proc = ctx.Process(target=_cpu_sessions, daemon=True, args=(
+        os.path.join(REPO, "src"), CPU_GATE_THREADS, vocab,
+        {f: getattr(kb_cpu, f).numpy() for f in KB_FIELDS},
+        [tuple(t.cpu().numpy() for t in c) for c in chunks], texts, combos,
+        send))
+    proc.start()
+    send.close()
+    log("  GPU == CPU: %d CPU sessions started in worker process %d (%d "
+        "torch threads)" % (len(combos), proc.pid, CPU_GATE_THREADS))
+    return proc, recv, combos, time.time()
+
+
+def cpu_gate_finish(cpu_gate, results):
+    """Receive the worker's streams and hold each to the GPU run's bytes
+    (``same_outputs``); the worker is joined."""
+    proc, recv, combos, t0 = cpu_gate
+    status, out = recv.recv()
+    recv.close()
+    proc.join(60)
+    if status != "ok":
+        fail("phase 3's CPU sessions failed:\n%s" % out)
     for q, mode, method in combos:
-        res = run_session(vocab, kb_cpu, chunks, texts[q],
-                          exec_config(mode, method, "cpu"))
-        if not same_outputs(res["outs"],
-                            results[(q, mode, method)]):
+        streams, cpu_s = out[(q, mode, method)]
+        got = [tuple(torch.from_numpy(a) for a in o) for o in streams]
+        if not same_outputs(got, results[(q, mode, method)]):
             fail("GPU != CPU for %s %s %s" % (q, mode, method))
         log("  %-14s %-14s %-5s GPU == CPU on %d chunks (CPU %.1f s)"
-            % (q, mode, method, len(res["outs"]), res["run_s"][0]))
-    return launches, results, config_launches
+            % (q, mode, method, len(got), cpu_s))
+    log("  phase 3's CPU sessions: %.1f s of wall in the worker, received "
+        "%.1f s after they started" % (sum(v[1] for v in out.values()),
+                                       time.time() - t0))
 
 
 def slide_config(q, mode, method, incremental, device):
@@ -3951,6 +4074,371 @@ def other_lm(arch, batch, prompt_len, new, fwd_batch, layout, cpu_layout,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: LM training
+# --------------------------------------------------------------------------
+
+def train_batch(cfg, b, t, seed):
+    """One batch of a smoke model on the CPU: token ids ``[B, T]`` (``[B,
+    T, K]`` for codebooks) or the vision stub's ``embeds [B, T, d]``, and
+    labels; ids int64, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    ids = (b, t, cfg.num_codebooks) if cfg.num_codebooks else (b, t)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, ids)}
+    if cfg.frontend == "vision":
+        batch["embeds"] = (0.5 * rng.standard_normal(
+            (b, t, cfg.d_model))).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, ids)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _state_diffs(a, b):
+    """Largest and summed |a - b| and the element count over two
+    ``{name: tensor}`` dicts (b on the CPU), by name."""
+    out = {}
+    for name, x in a.items():
+        d = (x.detach().float().cpu() - b[name].detach().float()).abs()
+        out[name] = (float(d.max()), float(d.sum()), d.numel(),
+                     float(b[name].detach().float().abs().max()))
+    return out
+
+
+def train_smoke_gate(smi):
+    """Phase 14 (a): each architecture's smoke model, float32, takes
+    TRAIN_SMOKE_STEPS steps of ``make_train_step`` (``impl="xla"``,
+    TRAIN_SMOKE_MICRO microbatches, remat ``dots``) on the card; before
+    each, the CPU model and state take the card's, and the CPU takes the
+    same step.  The metrics, the parameters and the moments must agree
+    within the CPU tests' bounds.  (From the same start each step: Adam's
+    ~sign(g) steps flip the elements whose gradient is float32 noise by 2
+    lr, which then moves the next step's metrics by ~1e-3, far past the
+    metrics' bound, without a fault on either side.)"""
+    from repro_torch import interop
+    from repro_torch.configs import get_config, registered, smoke_variant
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import (
+        AdamWConfig, OptState, init_opt_state)
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, t = TRAIN_SMOKE_SHAPE
+    tcfg = TrainConfig(opt=AdamWConfig(peak_lr=TRAIN_SMOKE_LR,
+                                       warmup_steps=1, total_steps=4),
+                       microbatches=TRAIN_SMOKE_MICRO)
+    log("phase 14 (a): every architecture's smoke model (f32, TF32 off), "
+        "%d steps of %d x %d in %d microbatches, impl xla, remat %s, card "
+        "against CPU from the card's state before each step: metrics "
+        "within %g, parameters within %g elementwise and %g mean, moments "
+        "within %g of their largest [%s]"
+        % (TRAIN_SMOKE_STEPS, b, t, TRAIN_SMOKE_MICRO, tcfg.remat,
+           TRAIN_METRIC_TOL, 2 * TRAIN_SMOKE_LR, TRAIN_MEAN_TOL,
+           TRAIN_MOMENT_RTOL, smi))
+    for arch in registered():
+        cfg = smoke_variant(get_config(arch))
+        cpu = lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        gpu = interop.lm_params_from_arrays(interop.lm_params_to_arrays(cpu),
+                                            cfg, "cuda")
+        step_fn = make_train_step(cfg, tcfg)
+        gopt = init_opt_state(dict(gpu.named_parameters()))
+        losses, gs, cs = [], 0.0, 0.0
+        for s in range(TRAIN_SMOKE_STEPS):
+            batch = train_batch(cfg, b, t, seed=s)
+            start = ({n: p.detach().to("cpu", copy=True)
+                      for n, p in gpu.named_parameters()},
+                     OptState(gopt.step,
+                              {n: x.to("cpu", copy=True)
+                               for n, x in gopt.m.items()},
+                              {n: x.to("cpu", copy=True)
+                               for n, x in gopt.v.items()}))
+            t0 = time.perf_counter()
+            gpu, gopt, gm = step_fn(gpu, gopt,
+                                    {k: v.cuda() for k, v in batch.items()})
+            gm = {k: float(v) for k, v in gm.items()}
+            gs += time.perf_counter() - t0
+            with torch.no_grad():
+                for n, p in cpu.named_parameters():
+                    p.copy_(start[0][n])
+            t0 = time.perf_counter()
+            cpu, copt, cm = step_fn(cpu, start[1], batch)
+            cs += time.perf_counter() - t0
+            for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+                if not abs(gm[k] - float(cm[k])) <= TRAIN_METRIC_TOL * (
+                        1 + abs(float(cm[k]))):
+                    fail("%s trains otherwise on the card at step %d: %s %r "
+                         "against %r on the CPU" % (arch, s, k, gm[k],
+                                                    float(cm[k])))
+            losses.append((gm["loss"], float(cm["loss"])))
+        params = _state_diffs(dict(gpu.named_parameters()),
+                              dict(cpu.named_parameters()))
+        p_max = max(v[0] for v in params.values())
+        p_mean = sum(v[1] for v in params.values()) / sum(
+            v[2] for v in params.values())
+        if p_max > 2 * TRAIN_SMOKE_LR or p_mean > TRAIN_MEAN_TOL:
+            fail("%s's parameters after training differ on the card: max "
+                 "%g, mean %g" % (arch, p_max, p_mean))
+        worst = 0.0
+        for which in ("m", "v"):
+            for name, (mx, _, _, big) in _state_diffs(
+                    getattr(gopt, which), getattr(copt, which)).items():
+                worst = max(worst, mx / (TRAIN_MOMENT_RTOL * big + 1e-12))
+                if mx > TRAIN_MOMENT_RTOL * big + 1e-12:
+                    fail("%s's %s of %s differs on the card: %g (largest "
+                         "%g)" % (arch, which, name, mx, big))
+        log("  %-17s loss %s (CPU %s), grad_norm %.6g, lr %.3g; params max "
+            "|diff| %.3g, mean %.3g; moments at %.3f of their bound; card "
+            "%.2f s, CPU %.2f s" % (
+                arch, " ".join("%.6f" % g for g, _ in losses),
+                " ".join("%.6f" % c for _, c in losses),
+                gm["grad_norm"], gm["lr"], p_max, p_mean, worst, gs, cs))
+
+
+def eval_loss_gate(label, model, batch, kernel, smi):
+    """``loss_fn`` under ``no_grad`` on trained weights: ``impl="xla"``,
+    then ``impl="pallas"`` with the counters zeroed just before; the
+    kernel must launch once a layer of its kind and the losses agree
+    within EVAL_LOSS_RTOL.  Returns the launches."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        xla = float(lm.loss_fn(model, batch, impl="xla")[0])
+        sync()
+        _cuda.reset_launches()
+        pallas = float(lm.loss_fn(model, batch, impl="pallas")[0])
+    launches = path_launches("phase 14 (%s eval loss, impl pallas)" % label,
+                             (kernel,), smi)
+    want = sum(1 for kind, _ in model.cache_slots
+               if kind == ("attn" if kernel == "flash_attention"
+                           else "mamba"))
+    if launches[kernel] != want:
+        fail("%s launched %d times in the %s eval loss, expected %d"
+             % (kernel, launches[kernel], label, want))
+    err = abs(pallas - xla)
+    log("  %s eval loss on the trained weights (no_grad, %s): impl pallas "
+        "%.6f, impl xla %.6f, |diff| %.3g (tol %.3g = 2^-8 of the loss) [%s]"
+        % (label, "x".join(str(n) for n in batch["tokens"].shape), pallas,
+           xla, err, EVAL_LOSS_RTOL * abs(xla), smi))
+    if not err <= EVAL_LOSS_RTOL * abs(xla):
+        fail("the kernel path's eval loss differs: %g against %g"
+             % (pallas, xla))
+    return launches
+
+
+def train_restart(smi):
+    """Phase 14 (b): Mamba2-130M at full width and depth through
+    ``launch.train.main``: a crash at step 6, the restore of step 4 and
+    the resume, against an uninterrupted run in another directory; the
+    restored state byte for byte the saved one, the resumed losses the
+    uninterrupted run's, the loss falling; then the eval loss on the last
+    checkpoint through the SSD kernel."""
+    import tempfile
+
+    from repro_torch import interop
+    from repro_torch.data.tokens import batch_at_step
+    from repro_torch.launch import train as launch
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ck
+
+    real_save, real_write = ck.CheckpointManager.save, ck.CheckpointManager._write
+    real_restore, real_opt = ck.CheckpointManager.restore, \
+        interop.opt_state_from_arrays
+    saved, times = {}, {"save": [], "write": [], "restore": []}
+    restored = []
+
+    def save(self, step, tree, mesh_shape=None, blocking=False):
+        if step == MAMBA_RESTORE_STEP and step not in saved:
+            saved[step] = {path: ck._to_host(leaf)[0].tobytes()
+                           for path, leaf in ck._flatten_with_paths(tree)}
+        sync()
+        t0 = time.perf_counter()
+        real_save(self, step, tree, mesh_shape, blocking)
+        times["save"].append(time.perf_counter() - t0)
+
+    def write(self, step, leaves, manifest):
+        t0 = time.perf_counter()
+        real_write(self, step, leaves, manifest)
+        times["write"].append((time.perf_counter() - t0,
+                               sum(a.nbytes for _, a in leaves)))
+
+    def restore(self, template, step=None, device=None):
+        t0 = time.perf_counter()
+        out = real_restore(self, template, step, device)
+        times["restore"].append(time.perf_counter() - t0)
+        return out
+
+    def opt_from(tree, model):
+        opt = real_opt(tree, model)
+        state = ck._flatten_with_paths(launch._state_tree(model, opt))
+        want = saved[MAMBA_RESTORE_STEP]
+        if sorted(p for p, _ in state) != sorted(want):
+            fail("the restored state has other leaves than the saved one")
+        for path, leaf in state:
+            if ck._to_host(leaf)[0].tobytes() != want[path]:
+                fail("restored leaf %s differs from the saved bytes" % path)
+        restored.append(len(state))
+        return opt
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with mock.patch.object(ck.CheckpointManager, "save", save), \
+                mock.patch.object(ck.CheckpointManager, "_write", write), \
+                mock.patch.object(ck.CheckpointManager, "restore", restore), \
+                mock.patch.object(interop, "opt_state_from_arrays", opt_from):
+            t0 = time.perf_counter()
+            crashed = launch.main(MAMBA_TRAIN + [
+                "--fail-at", str(MAMBA_FAIL_AT), "--ckpt-dir",
+                os.path.join(root, "crashed")], device="cuda")
+            crash_s = time.perf_counter() - t0
+            n_saves = len(times["write"])
+            t0 = time.perf_counter()
+            whole = launch.main(MAMBA_TRAIN + [
+                "--ckpt-dir", os.path.join(root, "whole")], device="cuda")
+            whole_s = time.perf_counter() - t0
+        if restored != [len(saved[MAMBA_RESTORE_STEP])]:
+            fail("the crashed run restored %d times, not once from step %d"
+                 % (len(restored), MAMBA_RESTORE_STEP))
+        resumed = sorted(crashed["losses"])
+        if resumed != list(range(MAMBA_RESTORE_STEP + 1, MAMBA_STEPS)):
+            fail("the crashed run resumed steps %s" % resumed)
+        diffs = [abs(crashed["losses"][s] - whole["losses"][s])
+                 for s in resumed]
+        nbytes = times["write"][0][1]
+        log("  resumed losses (steps %d-%d) %s; uninterrupted %s; max "
+            "|diff| %.3g" % (resumed[0], resumed[-1],
+                             " ".join("%.6f" % crashed["losses"][s]
+                                      for s in resumed),
+                             " ".join("%.6f" % whole["losses"][s]
+                                      for s in resumed), max(diffs)))
+        log("  checkpoint: %d leaves, %.3f GB; save (host copy) %s s, write "
+            "%s s, restore %s s; crashed run %.1f s (%d saves), "
+            "uninterrupted %.1f s [%s]"
+            % (restored[0], nbytes / 1e9,
+               " ".join("%.3f" % x for x in times["save"]),
+               " ".join("%.3f" % x for x, _ in times["write"]),
+               " ".join("%.3f" % x for x in times["restore"]), crash_s,
+               n_saves, whole_s, smi))
+        if max(diffs) > MAMBA_RESUME_TOL:
+            fail("the resumed losses differ from the uninterrupted run's by "
+                 "%g" % max(diffs))
+        first, last = whole["losses"][0], whole["losses"][MAMBA_STEPS - 1]
+        if not last < first:
+            fail("Mamba2-130M's loss did not fall: %g -> %g" % (first, last))
+
+        # the last checkpoint, restored, through the SSD kernel
+        cfg, _, model, opt, _, dcfg = launch.build(
+            "mamba2-130m", False, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, 1,
+            "none", 3e-4, MAMBA_STEPS, "cuda")
+        mgr = ck.CheckpointManager(os.path.join(root, "crashed"))
+        (params, _), _ = mgr.restore(launch._state_tree(model, opt))
+        model = interop.lm_params_from_arrays(params, cfg, "cuda")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 batch_at_step(dcfg, MAMBA_STEPS).items()}
+        return eval_loss_gate("Mamba2-130M", model, batch, "ssd", smi), \
+            (first, last)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_qwen(smi):
+    """Phase 14 (c): Qwen2-1.5B at full width and depth, bf16, through
+    ``make_train_step`` at QWEN_TRAIN_SHAPE: each of QWEN_TRAIN_RUNS in
+    turn from the state the one before left, ms a step, tokens/s, peak
+    memory and the share of the dense bf16 peak that ``6 N tokens``
+    reaches; then the eval loss through the flash kernel."""
+    from repro_torch.data.tokens import TokenDatasetConfig, batch_at_step
+    from repro_torch.train.optimizer import (
+        AdamWConfig, adamw_update, init_opt_state)
+    from repro_torch.train.train_loop import (
+        TrainConfig, make_train_step, value_and_grad)
+
+    cfg, model, n_params, made_s = make_lm(LM_ARCH)
+    b, t = QWEN_TRAIN_SHAPE
+    opt = init_opt_state(dict(model.named_parameters()))
+    dcfg = TokenDatasetConfig(vocab_size=cfg.vocab_size, seq_len=t,
+                              global_batch=b)
+    steps = sum(n for _, _, n in QWEN_TRAIN_RUNS)
+    adamw = AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=steps)
+    log("phase 14 (c): %s, %d layers, %.3f B parameters, %s, made in %.1f s; "
+        "%d x %d tokens a step, AdamW (float32 moments), impl xla [%s]"
+        % (cfg.name, cfg.num_layers, n_params / 1e9, cfg.dtype, made_s, b, t,
+           smi))
+    step, losses, peaks = 0, [], {}
+    for run, (remat, micro, n) in enumerate(QWEN_TRAIN_RUNS):
+        step_fn = make_train_step(cfg, TrainConfig(
+            opt=adamw, microbatches=micro, remat=remat))
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        wall = []
+        for _ in range(n):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in batch_at_step(dcfg, step).items()}
+            t0 = time.perf_counter()
+            model, opt, m = step_fn(model, opt, batch)
+            losses.append(float(m["loss"]))
+            sync()
+            wall.append(time.perf_counter() - t0)
+            step += 1
+        timed = wall if run else wall[1:]     # the first step warms up
+        ms = med([w * 1e3 for w in timed])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        label = "remat %s%s" % (remat, ", %d microbatches" % micro
+                                if micro > 1 else "")
+        peaks[label] = peak
+        share = 6.0 * n_params * b * t / (ms[0] / 1e3) / BF16_PEAK_OPS_PER_S
+        log("  %-28s %d steps: %.1f ms a step (median; %.1f-%.1f), %.0f "
+            "tokens/s, peak %.2f GB, 6 N tokens at %.3f of the bf16 peak, "
+            "losses %s [%s]" % (label, n, ms[0], ms[1], ms[2],
+                                b * t / (ms[0] / 1e3), peak, share,
+                                " ".join("%.4f" % x for x in losses[-n:]),
+                                smi))
+    if not peaks["remat full"] < peaks["remat none"]:
+        fail("remat full peaked at %.2f GB, not below none's %.2f GB"
+             % (peaks["remat full"], peaks["remat none"]))
+    n_none = QWEN_TRAIN_RUNS[0][2]
+    if not losses[n_none - 1] < losses[0]:
+        fail("Qwen2-1.5B's loss did not fall: %g -> %g"
+             % (losses[0], losses[n_none - 1]))
+    # where a step's time goes: one more step (remat none) under the profiler
+    step_fn = make_train_step(cfg, TrainConfig(opt=adamw, remat="none"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_at_step(dcfg, step).items()}
+    profiled("Qwen2-1.5B train step (remat none)",
+             lambda: step_fn(model, opt, batch), (), smi)
+    _, _, grads = value_and_grad(model, batch)
+    params = dict(model.named_parameters())
+    profiled("Qwen2-1.5B AdamW update alone (%d leaves)" % len(params),
+             lambda: adamw_update(adamw, grads, opt, params), (), smi)
+    del grads
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_at_step(dcfg, step + 1).items()}
+    return eval_loss_gate("Qwen2-1.5B", model, batch, "flash_attention", smi)
+
+
+def phase_train(smi):
+    """Phase 14: LM training (module docstring); returns the kernel
+    launches of its two eval losses."""
+    t0 = time.time()
+    train_smoke_gate(smi)
+    log("  phase 14 (a) %.1f s" % (time.time() - t0))
+    t1 = time.time()
+    log("phase 14 (b): Mamba2-130M through launch.train.main(%s, "
+        "device=\"cuda\"), crashing at step %d, against the same run "
+        "uninterrupted [%s]" % (" ".join(MAMBA_TRAIN), MAMBA_FAIL_AT, smi))
+    ssd, (first, last) = train_restart(smi)
+    log("  loss %.4f -> %.4f; phase 14 (b) %.1f s" % (first, last,
+                                                      time.time() - t1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.time()
+    flash = train_qwen(smi)
+    log("  phase 14 (c) %.1f s" % (time.time() - t2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: ssd[k] + flash[k] for k in ssd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4004,7 +4492,8 @@ def main() -> int:
                 else "none", rec.bound_ms, rec.bound_by, smi))
 
     log("phase 2 done at %.1f s" % (time.time() - t_start))
-    launches, results, config_launches = phase_main(vocab, kbd, chunks, smi)
+    launches, results, config_launches, cpu_gate = phase_main(
+        vocab, kbd, chunks, smi)
     log("phase 3 done at %.1f s" % (time.time() - t_start))
     log("phase 4: where the time goes (torch.profiler)")
     phase_profile(vocab, kbd, chunks, smi)
@@ -4028,10 +4517,14 @@ def main() -> int:
     log("phase 12 done at %.1f s" % (time.time() - t_start))
     other_launches = phase_other(smi)
     log("phase 13 done at %.1f s" % (time.time() - t_start))
+    train_launches = phase_train(smi)
+    log("phase 14 done at %.1f s" % (time.time() - t_start))
+    log("phase 3, continued: the GPU runs against the CPU sessions")
+    cpu_gate_finish(cpu_gate, results)
     total = {k: launches[k] + slide_launches[k] + unfused_launches[k]
              + lm_launches[k] + mamba_launches[k] + obs_launches[k]
              + serve_launches[k] + shard_launches[k] + batch_launches[k]
-             + other_launches[k] for k in launches}
+             + other_launches[k] + train_launches[k] for k in launches}
     for name, count in total.items():
         if count <= 0:
             fail("kernel %s never launched on any path" % name)

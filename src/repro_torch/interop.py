@@ -1,13 +1,17 @@
-"""Carry state into the port from plain numpy arrays and dicts.
+"""Carry state into the port from plain numpy arrays and dicts, and the
+LM's training state back out.
 
 The same vocabulary, KB, stream chunks and LM parameters can feed both the
 reference package and this port: extract them with ``np.asarray`` on one
-side and rebuild them here.  Nothing in this module takes the reference's
-objects.
+side and rebuild them here.  An LM's parameters and its optimizer state go
+the other way too (:func:`lm_params_to_arrays`,
+:func:`opt_state_to_arrays`), into the reference's nested, period-stacked
+layout that both packages' checkpoints write.  Nothing in this module
+takes the reference's objects.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +77,8 @@ def bindings_from_arrays(cols, valid, overflow, device="cpu") -> Bindings:
 
 
 def _param(a, dtype, device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.detach().to(device=device, dtype=dtype, copy=True)
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
         device=device, dtype=dtype)
 
@@ -95,7 +101,9 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
     no ``nm``, ``nf`` or ``final_norm`` leaf.  The port keeps the
     reference's weight layouts, so nothing is transposed; values are cast
     to ``cfg.dtype``, except what the reference keeps in float32: Mamba's
-    ``A_log``, ``D`` and ``dt_bias`` and the MoE router."""
+    ``A_log``, ``D`` and ``dt_bias`` and the MoE router.  A leaf may also
+    be a tensor (:func:`lm_params_to_arrays`'s, a bfloat16 one
+    included); it is copied."""
     from .models.attention import MLA, Attention
     from .models.common import dtype_of
     from .models.lm import LM, Block, check_supported
@@ -148,3 +156,91 @@ def lm_params_from_arrays(params: Mapping, cfg: ModelConfig, device="cpu"):
                             opt(sub, "nf", i), ffn(sub, i)))
     return LM(cfg, t(params["embed"]), blocks, opt(params, "final_norm"),
               opt(params, "lm_head"))
+
+
+# --------------------------------------------------------------------------
+# the LM's training state in the reference's layout
+# --------------------------------------------------------------------------
+
+def _ref_path(name: str, period: int) -> Tuple[List[str], Optional[int]]:
+    """A parameter name of ``LM.named_parameters()`` -> its path in the
+    reference's tree and its index on the period axis: ``blocks.j.<rest>``
+    is ``blocks/sub{j % P}/<rest>`` at ``j // P`` (the reference's scan
+    order), any other name its own path, unstacked."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return parts, None
+    j = int(parts[1])
+    return ["blocks", "sub%d" % (j % period)] + parts[2:], j // period
+
+
+def to_reference_layout(named: Mapping[str, torch.Tensor],
+                        cfg: ModelConfig) -> Dict:
+    """Tensors keyed by parameter name (parameters, their gradients or
+    moments) as the reference's nested tree, each sub-layer's leaves
+    stacked on a leading period axis (detached)."""
+    tree: Dict = {}
+    stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
+    for name, t in named.items():
+        path, i = _ref_path(name, cfg.period)
+        if i is None:
+            _put(tree, path, t.detach())
+        else:
+            stacks.setdefault(tuple(path), {})[i] = t.detach()
+    for path, by_period in stacks.items():
+        _put(tree, list(path), torch.stack(
+            [by_period[i] for i in range(len(by_period))]))
+    return tree
+
+
+def _put(tree: Dict, path: List[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _unstacked(tree: Mapping, names, cfg: ModelConfig, device,
+               dtype=None) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name in names:
+        path, i = _ref_path(name, cfg.period)
+        node = tree
+        for key in path:
+            node = node[key]
+        a = node if i is None else node[i]
+        a = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+        out[name] = a.to(device=device, dtype=dtype, copy=True)
+    return out
+
+
+def lm_params_to_arrays(model) -> Dict:
+    """The inverse of :func:`lm_params_from_arrays`: the model's
+    parameters as :func:`to_reference_layout` lays them out, tensors in
+    their own dtypes on the model's device."""
+    return to_reference_layout(dict(model.named_parameters()), model.cfg)
+
+
+def opt_state_to_arrays(state, model):
+    """An ``OptState`` (``train/optimizer.py``) in the reference's layout:
+    ``step`` an int32 0-d tensor, ``m`` and ``v`` as
+    :func:`lm_params_to_arrays` lays out the parameters."""
+    from .train.optimizer import OptState
+
+    return OptState(torch.tensor(state.step, dtype=torch.int32),
+                    to_reference_layout(state.m, model.cfg),
+                    to_reference_layout(state.v, model.cfg))
+
+
+def opt_state_from_arrays(tree, model):
+    """The inverse of :func:`opt_state_to_arrays` (a reference
+    ``OptState``'s leaves as numpy arrays or tensors do too): float32
+    moments keyed by the model's parameter names, on its device."""
+    from .train.optimizer import OptState
+
+    names = [n for n, _ in model.named_parameters()]
+    step, m, v = tree
+    return OptState(int(step),
+                    _unstacked(m, names, model.cfg, model.device,
+                               torch.float32),
+                    _unstacked(v, names, model.cfg, model.device,
+                               torch.float32))

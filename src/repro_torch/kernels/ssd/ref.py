@@ -93,9 +93,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # intra-chunk: masked decay attention
     scores = torch.einsum("bctgk,bcsgk->bcgts", Cc, Bc)          # [b,c,g,L,L]
+    # exp of the masked differences: above the diagonal they can pass
+    # float32's range, and a masked inf would turn a gradient into NaN
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    gamma = torch.where(causal, torch.exp(la[..., :, None] - la[..., None, :]),
-                        torch.zeros((), device=x.device))        # [b,c,g,r,L,L]
+    gamma = torch.exp(torch.where(causal, la[..., :, None] - la[..., None, :],
+                                  float("-inf")))                # [b,c,g,r,L,L]
     m = scores[:, :, :, None] * gamma * dtc[..., None, :]
     y = torch.einsum("bcgrts,bcsgrp->bctgrp", m, xc)
 

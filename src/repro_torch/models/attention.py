@@ -22,7 +22,8 @@ tensors in place.
   used by the batcher) runs the flash kernel once per lane with that
   lane's ``q_offset``, which reads the lengths to the host once.
 
-:func:`_sdpa` dispatches: one new token, causal -> decode attention over
+:func:`_sdpa` dispatches (``impl="pallas"``, the serving default): one
+new token, causal -> decode attention over
 the cache rows ``[max(0, len + 1 - window), len + 1)`` (the reference's
 mask ``kpos > qpos - window`` with ``qpos = len``), with or without a
 window; any other attention -> flash attention with ``q_offset = len``.
@@ -30,7 +31,9 @@ The reference's Pallas dispatch sends a windowed one-token step to flash
 attention (``models/attention.py`` ``_sdpa``); the port takes decode
 attention there too, since flash would spend a 128-row query tile on one
 row.  The function computed is the same.  CUDA tensors take the kernels,
-CPU tensors their plain versions.
+CPU tensors their plain versions.  ``impl="xla"`` (training) runs the
+reference's float32 einsum attention instead (:func:`_sdpa_xla`), which
+autograd differentiates; the kernels refuse a graph.
 
 **MLA** (:func:`mla_forward`, the reference's ``mla_forward``) caches the
 compressed latent instead of per-head keys and values: ``{"ckv": [B, S,
@@ -58,13 +61,17 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
-from .common import apply_mrope, apply_rope, dense, normal_param, zeros_param
+from .common import (
+    apply_mrope, apply_rope, check_impl, dense, normal_param, refuse_grad,
+    zeros_param,
+)
 
 NEG_INF = -1e30
 
@@ -135,13 +142,44 @@ def init_attention(cfg: ModelConfig, generator: Optional[torch.Generator],
     return Attention(*w, *b)
 
 
+def _sdpa_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int],
+              q_offset: Union[int, torch.Tensor]) -> torch.Tensor:
+    """The reference's ``impl="xla"`` attention, differentiable: float32
+    einsums over ``[B, Hk, group, T, S]`` logits scaled by ``1/sqrt(D)``,
+    masked to -1e30, softmax, -> ``[B, Hq, T, Dv]`` in ``q``'s dtype."""
+    b, hq, t, dd = q.shape
+    hk, s = k.shape[1], k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dd)))
+    qf = q.reshape(b, hk, hq // hk, t, dd).float()
+    logits = torch.einsum("bhgtd,bhsd->bhgts", qf, k.float()) * scale
+    off = (q_offset.long() if torch.is_tensor(q_offset)
+           else torch.tensor(q_offset, device=q.device))
+    qpos = off[..., None] + torch.arange(t, device=q.device)   # [t] | [B, t]
+    kpos = torch.arange(s, device=q.device)
+    mask = torch.ones(qpos.shape + (s,), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos[..., None]
+    if window is not None:
+        mask &= kpos > qpos[..., None] - window
+    mask = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs, v.float())
+    return out.reshape(b, hq, t, v.shape[-1]).to(q.dtype)
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-          window: Optional[int],
-          q_offset: Union[int, torch.Tensor]) -> torch.Tensor:
+          window: Optional[int], q_offset: Union[int, torch.Tensor],
+          impl: str = "pallas") -> torch.Tensor:
     """``q [B, Hq, T, D]`` against ``k [B, Hk, S, D]`` and ``v [B, Hk, S,
     Dv]`` -> ``[B, Hq, T, Dv]``; query row ``i`` of sequence b at absolute
     position ``q_offset + i``, ``q_offset`` an int or an int32 ``[B]``
-    tensor (one per sequence)."""
+    tensor (one per sequence).  ``impl="xla"`` is :func:`_sdpa_xla`;
+    ``"pallas"`` the kernels, which refuse a graph."""
+    check_impl(impl)
+    if impl == "xla":
+        return _sdpa_xla(q, k, v, causal, window, q_offset)
+    refuse_grad("attention", q, k, v)
     b, _, t, _ = q.shape
     per_seq = torch.is_tensor(q_offset)
     if t == 1 and causal:
@@ -162,6 +200,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
+                impl: str = "pallas",
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``x [B, T, d]`` at ``positions [B, T]`` (``[3, B, T]`` with M-RoPE)
     -> ``(out [B, T, d], cache)``.  With a cache, the T new key/value rows
@@ -185,13 +224,13 @@ def gqa_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
     if cache is None:
         out = _sdpa(q, k.contiguous(), v.contiguous(), causal=True,
-                    window=cfg.swa_window, q_offset=0)
+                    window=cfg.swa_window, q_offset=0, impl=impl)
         new_cache = None
     else:
         idx = cache["len"]
         _write_rows(cache, {"k": k, "v": v}, 2)
         out = _sdpa(q, cache["k"], cache["v"], causal=True,
-                    window=cfg.swa_window, q_offset=idx)
+                    window=cfg.swa_window, q_offset=idx, impl=impl)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + t}
     out = out.transpose(1, 2).reshape(b, t, hq * hd)
     return dense(out, p.wo), new_cache
@@ -244,6 +283,7 @@ def _write_rows(cache: Dict, new: Dict[str, torch.Tensor], axis: int) -> None:
 
 def mla_forward(p: MLA, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
+                impl: str = "pallas",
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA: ``x [B, T, d]`` at ``positions [B, T]`` -> ``(out [B, T, d],
     cache)``, the reference's ``mla_forward``.  With a cache ``{"ckv":
@@ -289,7 +329,7 @@ def mla_forward(p: MLA, cfg: ModelConfig, x: torch.Tensor,
         v = kv[..., dn:].contiguous()
         qk = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2).contiguous()
         out = _sdpa(qk, k, v, causal=True, window=cfg.swa_window,
-                    q_offset=q_offset).transpose(1, 2)
+                    q_offset=q_offset, impl=impl).transpose(1, 2)
     return dense(out.reshape(b, t, h * dv), p.wo), new_cache
 
 
@@ -339,13 +379,13 @@ def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int,
 
 def attn_forward(p: Union[Attention, MLA], cfg: ModelConfig,
                  x: torch.Tensor, positions: torch.Tensor,
-                 cache: Optional[Dict] = None,
+                 cache: Optional[Dict] = None, impl: str = "pallas",
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """:func:`mla_forward` for an MLA configuration, else
     :func:`gqa_forward`."""
     if cfg.mla is not None:
-        return mla_forward(p, cfg, x, positions, cache)
-    return gqa_forward(p, cfg, x, positions, cache)
+        return mla_forward(p, cfg, x, positions, cache, impl)
+    return gqa_forward(p, cfg, x, positions, cache, impl)
 
 
 def attn_cache_shape(cfg: ModelConfig, batch: int, max_len: int,

@@ -4,6 +4,14 @@ and Qwen2-VL's M-RoPE, the dense projection, init.
 Rounding follows the reference: norms and RoPE compute in float32 and
 round back to the input's dtype; :func:`dense` casts the weight to the
 input's dtype and adds the bias in that dtype.
+
+``impl`` picks the attention and SSD path, as the reference's does:
+``"pallas"`` dispatches to the kernels (the CUDA kernels on CUDA tensors,
+their plain versions on the CPU), ``"xla"`` runs plain differentiable
+torch ops (the reference's einsum attention and plain scan).  The caller
+chooses; nothing switches on its own.  No kernel has a backward, nor has
+the reference's Pallas path, so asking for gradients through
+``"pallas"`` raises (:func:`refuse_grad`).
 """
 from __future__ import annotations
 
@@ -13,6 +21,22 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+IMPLS = ("xla", "pallas")
+
+
+def check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError("impl is one of %s, not %r" % (IMPLS, impl))
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a graph through a kernel: the
+    kernels (and the reference's Pallas kernels) have no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "%s under impl='pallas' has no backward (nor has the "
+            "reference's Pallas kernel): train with impl='xla', or run the "
+            "kernel path under torch.no_grad()" % what)
 
 
 def dtype_of(name: str) -> torch.dtype:

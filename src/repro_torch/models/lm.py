@@ -28,6 +28,16 @@ every stream counts the sequence's positions.
 serving path: prefills and ticks) is always dropless, so a sequence's
 logits do not depend on which others share its batch.
 
+Training: :func:`loss_fn` is the reference's (float32 cross entropy plus
+the MoE aux loss) over :func:`forward_hidden`, which takes ``impl``
+(``"xla"``: plain differentiable torch ops; ``"pallas"``, the default of
+:func:`forward`: the kernels, which refuse a graph; ``models/common.py``)
+and ``remat`` (``"none"``, ``"dots"`` or ``"full"``, each layer under
+``torch.utils.checkpoint``).  Parameters are built without gradients;
+the trainer (``train/train_loop.py``) turns them on while it takes
+gradients.  :func:`decode_step` records no graph whatever the parameters
+ask for, so the caches it writes in place never join one.
+
 The cache holds one stack a mixer kind, over the layers of that kind in
 layer order (:func:`cache_slots` maps a layer to its kind and its index
 there): ``{"k": [La, B, Hk, S, D], "v": [La, B, Hk, S, D]}`` for GQA
@@ -42,10 +52,13 @@ writes the new state into the cache and advances ``len`` in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import LayerSpec, ModelConfig, not_ported
 from .attention import (
@@ -53,7 +66,8 @@ from .attention import (
     init_attention, seq_lengths,
 )
 from .common import (
-    NORMS, apply_norm, dtype_of, normal_param, ones_param, resolve_device,
+    NORMS, apply_norm, check_impl, dtype_of, normal_param, ones_param,
+    resolve_device,
 )
 from .mamba import (
     Mamba, check_mamba, init_mamba, mamba_cache_shape, mamba_forward,
@@ -132,15 +146,16 @@ class Block(nn.Module):
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
-                dropless: bool = False, moe_groups: int = 1):
+                dropless: bool = False, moe_groups: int = 1,
+                impl: str = "pallas"):
         """``(h, cache, aux)``: aux is the MoE's load-balancing loss, or
         None for a layer without one."""
         hn = apply_norm(cfg.norm, h, self.nm)
         if self.kind == "attn":
             out, new_cache = attn_forward(self.attn, cfg, hn, positions,
-                                          cache)
+                                          cache, impl)
         else:
-            out, new_cache = mamba_forward(self.mamba, cfg, hn, cache)
+            out, new_cache = mamba_forward(self.mamba, cfg, hn, cache, impl)
         h = h + out
         aux = None
         if self.mlp is not None:
@@ -255,10 +270,31 @@ def _positions(cfg: ModelConfig, b: int, t: int,
     return pos if cfg.mrope_sections is None else pos[None].expand(3, b, t)
 
 
+REMATS = ("none", "dots", "full")
+# the matmuls whose outputs ``remat="dots"`` keeps: the products without a
+# batch axis (``torch.matmul`` of [B, T, d] by a weight folds to ``mm``),
+# the counterpart of the reference's ``dots_with_no_batch_dims_saveable``
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+               positions: torch.Tensor, dropless: bool, moe_groups: int,
+               impl: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    h, _, aux = blk(cfg, h, positions, dropless=dropless,
+                    moe_groups=moe_groups, impl=impl)
+    return h, aux
+
+
 def forward_hidden(model: LM, tokens: Optional[torch.Tensor],
                    dropless: bool = False, moe_groups: int = 1,
                    embeds: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
+                   impl: str = "pallas", remat: str = "none",
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone without a cache: embeddings -> blocks -> final norm,
     ``tokens`` (or ``embeds``, see :func:`embed_tokens`) -> ``(h [B, T,
@@ -266,14 +302,28 @@ def forward_hidden(model: LM, tokens: Optional[torch.Tensor],
     losses (0 without MoE).  ``positions`` (``[B, T]``, ``[3, B, T]`` with
     M-RoPE) default to ``[0, T)`` in every stream.  MoE layers run in
     capacity mode unless ``dropless``, dispatched in ``moe_groups``
-    groups."""
+    groups.  ``impl`` picks the attention and SSD path; ``remat`` what
+    backward recomputes: ``"full"`` each layer whole, ``"dots"`` all but
+    the outputs of its matmuls without a batch axis (``DOTS``),
+    ``"none"`` nothing."""
+    check_impl(impl)
+    if remat not in REMATS:
+        raise ValueError("remat is one of %s, not %r" % (REMATS, remat))
     h = embed_tokens(model, tokens, embeds)
     positions = (_positions(model.cfg, h.shape[0], h.shape[1], 0, h.device)
                  if positions is None else positions.to(h.device))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in model.blocks:
-        h, _, a = blk(model.cfg, h, positions, dropless=dropless,
-                      moe_groups=moe_groups)
+        args = (blk, model.cfg, h, positions, dropless, moe_groups, impl)
+        if remat == "none":
+            h, a = _run_layer(*args)
+        elif remat == "full":
+            h, a = ckpt.checkpoint(_run_layer, *args, use_reentrant=False)
+        else:
+            h, a = ckpt.checkpoint(
+                _run_layer, *args, use_reentrant=False,
+                context_fn=functools.partial(
+                    ckpt.create_selective_checkpoint_contexts, _save_dots))
         if a is not None:
             aux = aux + a
     return apply_norm(model.cfg.norm, h, model.final_norm), aux
@@ -282,13 +332,34 @@ def forward_hidden(model: LM, tokens: Optional[torch.Tensor],
 def forward(model: LM, tokens: Optional[torch.Tensor],
             dropless: bool = False, moe_groups: int = 1,
             embeds: Optional[torch.Tensor] = None,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None,
+            impl: str = "pallas", remat: str = "none") -> torch.Tensor:
     """Full-sequence causal forward: logits ``[B, T, Vp]`` (``[B, T, K,
-    Vp]`` for K codebooks); inputs, positions and MoE layers as in
-    :func:`forward_hidden`."""
+    Vp]`` for K codebooks); inputs, positions, MoE layers, ``impl`` and
+    ``remat`` as in :func:`forward_hidden`."""
     return lm_logits(model, forward_hidden(model, tokens, dropless,
-                                           moe_groups, embeds,
-                                           positions)[0])
+                                           moe_groups, embeds, positions,
+                                           impl, remat)[0])
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor], impl: str = "xla",
+            remat: str = "none", moe_groups: int = 1,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn``: ``batch`` holds ``tokens`` (``[B, T]``,
+    ``[B, T, K]`` for K codebooks) or the frontend stub's ``embeds``, an
+    optional ``positions``, and ``labels`` (``[B, T]``, ``[B, T, K]``).
+    The logits in float32, log-softmax over the padded vocabulary, the
+    mean negative log-likelihood of the labels (for codebooks over every
+    ``(b, t, k)``: the reference's one-hot sum, whose other terms are
+    zeros, is this gather), plus the MoE layers' aux loss (capacity mode,
+    as the reference trains) -> ``(total, {"ce", "aux"})``."""
+    h, aux = forward_hidden(model, batch.get("tokens"), False, moe_groups,
+                            batch.get("embeds"), batch.get("positions"),
+                            impl, remat)
+    logp = F.log_softmax(lm_logits(model, h).float(), dim=-1)
+    labels = batch["labels"].to(device=logp.device, dtype=torch.long)
+    ce = -logp.gather(-1, labels[..., None])[..., 0].mean()
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
@@ -328,6 +399,7 @@ def _layer_cache(cache: Dict, kind: str, i: int) -> Dict:
     return view
 
 
+@torch.no_grad()
 def decode_step(model: LM, tokens: Optional[torch.Tensor], cache: Dict,
                 last_only: bool = False,
                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:

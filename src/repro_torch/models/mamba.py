@@ -19,6 +19,12 @@ its length steps, its incoming state added after the scan as the
 reference adds a cached one, so no ``[B, T, di, S]`` tensor is held
 whole.
 
+``impl`` (``models/common.py``): ``"pallas"`` (the serving default) runs
+Mamba-2's scan without a cache through the SSD kernel and Mamba-1's
+chunks in place; ``"xla"`` (training) runs the former as plain chunked
+torch ops with the reference's ``ssd_ref`` rounding (:func:`ssd_xla`)
+and the latter out of place, so autograd differentiates both.
+
 The cache of one layer is ``{"conv": [B, K-1, C]`` in the model dtype
 (the causal conv's last K-1 inputs; C = d_inner for Mamba-1, d_inner +
 2·G·S for Mamba-2), ``"ssm"`` float32 (``[B, d_inner, S]`` for Mamba-1,
@@ -38,7 +44,11 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd import ops as ssd_ops
-from .common import dense, normal_param, ones_param, rms_norm, zeros_param
+from ..kernels.ssd import ref as ssd_ref
+from .common import (
+    check_impl, dense, normal_param, ones_param, refuse_grad, rms_norm,
+    zeros_param,
+)
 
 # the reference's parameter names by version, in Mamba's argument order;
 # the per-head (Mamba-2) or per-channel (Mamba-1) vectors and Mamba-1's
@@ -143,12 +153,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, new_tail
 
 
+def ssd_xla(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor,
+            D: torch.Tensor) -> torch.Tensor:
+    """The scan from a zero state as plain differentiable torch ops, the
+    reference's ``impl="xla"`` (``ssd_ref``): the chunked scan in float32
+    (chunk ``min(128, T)``), ``+ D·x`` in float32, then cast to ``x``'s
+    dtype."""
+    xf = x.float()
+    y, _ = ssd_ref.ssd_chunked(xf, dt, A, Bm, Cm,
+                               min(ssd_ops.DEFAULT_CHUNK, x.shape[1]))
+    return (y + D.float()[None, None, :, None] * xf).to(x.dtype)
+
+
 def mamba2_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-                   cache: Optional[Dict] = None,
+                   cache: Optional[Dict] = None, impl: str = "pallas",
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``x [B, T, d]`` -> ``(out [B, T, d], cache)``.  With a cache, the new
     conv tail and SSM state are written into its tensors in place, and the
-    returned cache holds the same tensors."""
+    returned cache holds the same tensors.  Without one, ``impl`` picks
+    the SSD kernel (``"pallas"``) or :func:`ssd_xla`."""
+    check_impl(impl)
     mc = cfg.mamba
     b, t, d = x.shape
     di, nh = mc.d_inner(d), mc.nheads(d)
@@ -166,7 +191,10 @@ def mamba2_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     dt = F.softplus(dt_raw.float() + p.dt_bias)                  # [b, t, nh]
     A = -torch.exp(p.A_log)
 
-    if cache is None:
+    if cache is None and impl == "xla":
+        y, new_cache = ssd_xla(xs, dt, A, Bm, Cm, p.D), None
+    elif cache is None:
+        refuse_grad("the SSD scan", xs, dt, Bm, Cm)
         y, _ = ssd_ops.ssd(xs, dt, A, Bm, Cm, p.D)
         new_cache = None
     else:
@@ -210,43 +238,64 @@ def _scan_(a: torch.Tensor, h: torch.Tensor) -> None:
         k *= 2
 
 
+def _scan(a: torch.Tensor,
+          h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_scan_` out of place (the same combine and steps), so
+    autograd differentiates it: ``(a, h)`` scanned."""
+    t, k = a.shape[1], 1
+    while k < t:
+        h = torch.cat([h[:, :k], h[:, k:] + a[:, k:] * h[:, :-k]], dim=1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return a, h
+
+
 def selective_scan(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor,
                    state: Optional[torch.Tensor] = None,
+                   differentiable: bool = False,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-1's recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``,
     ``y_t = C_t . h_t``, float32: ``dt, x [B, T, di]``, ``A [di, S]``,
     ``Bm, Cm [B, T, S]``, ``h_{-1} = state [B, di, S]`` (zero where None)
     -> ``(y [B, T, di], h_{T-1})``.  Chunk by chunk of :func:`scan_chunk`
     steps; a chunk's incoming state enters after its scan, ``h + a ·
-    state``, as the reference's carried state does."""
+    state``, as the reference's carried state does.  In place, or with
+    ``differentiable`` out of place (:func:`_scan`)."""
     b, t, di = dt.shape
     lc = scan_chunk(b, di, A.shape[1])
     ys = []
     for c0 in range(0, t, lc):
         c = slice(c0, min(t, c0 + lc))
-        a = dt[:, c, :, None] * A
-        a.exp_()                                          # [B, lc, di, S]
         h = (dt[:, c] * x[:, c])[..., None] * Bm[:, c, None, :]
-        _scan_(a, h)
-        if state is not None:
-            h.addcmul_(a, state[:, None])
+        if differentiable:
+            a, h = _scan(torch.exp(dt[:, c, :, None] * A), h)
+            if state is not None:
+                h = h + a * state[:, None]
+        else:
+            a = dt[:, c, :, None] * A
+            a.exp_()                                      # [B, lc, di, S]
+            _scan_(a, h)
+            if state is not None:
+                h.addcmul_(a, state[:, None])
         del a
         ys.append(torch.einsum("bts,btds->btd", Cm[:, c], h))
-        state = h[:, -1].clone()
+        state = h[:, -1] if differentiable else h[:, -1].clone()
         del h
     return torch.cat(ys, dim=1), state
 
 
 def mamba1_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-                   cache: Optional[Dict] = None,
+                   cache: Optional[Dict] = None, impl: str = "pallas",
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``x [B, T, d]`` -> ``(out [B, T, d], cache)``, the reference's
     ``mamba1_forward``: dt's product in the model dtype and then float32;
     the scan in float32; ``y + D·x`` cast to the model dtype before the
     ``silu(z)`` gate.  With a cache, the new conv tail and SSM state are
     written into its tensors in place, and the returned cache holds the
-    same tensors."""
+    same tensors.  ``impl="xla"`` scans out of place (differentiable),
+    ``"pallas"`` in place; the function is the same."""
+    check_impl(impl)
     mc = cfg.mamba
     b, t, d = x.shape
     di, s, r = mc.d_inner(d), mc.d_state, dt_rank(d)
@@ -262,7 +311,8 @@ def mamba1_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
 
     if cache is None or t > 1:
         y, state = selective_scan(dt, A, xf, Bm, Cm,
-                                  cache["ssm"] if cache is not None else None)
+                                  cache["ssm"] if cache is not None else None,
+                                  differentiable=impl == "xla")
     else:               # one step of the recurrence on the cached state
         a = torch.exp(dt[:, 0, :, None] * A)                      # [b, di, s]
         u = (dt[:, 0] * xf[:, 0])[..., None] * Bm[:, 0, None, :]
@@ -279,12 +329,12 @@ def mamba1_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mamba_forward(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Optional[Dict] = None,
+                  cache: Optional[Dict] = None, impl: str = "pallas",
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """:func:`mamba1_forward` or :func:`mamba2_forward` by the
     configuration's Mamba version, as the reference dispatches."""
     fn = mamba1_forward if cfg.mamba.version == 1 else mamba2_forward
-    return fn(p, cfg, x, cache)
+    return fn(p, cfg, x, cache, impl)
 
 
 def mamba_cache_shape(cfg: ModelConfig, batch: int, dtype: torch.dtype,
